@@ -1,0 +1,151 @@
+"""AlignNet body0 by moments folding (counterpart of the XLA functions in
+ops/pallas_kernels.py: `_alignnet_coeffs`, `alignnet_body0_reference`,
+`alignnet_t_context`, `algebraic_alignnet_body0`), NCHW, OIHW weights.
+
+body0 is AlignNet's entry InstanceNorm + concat + the first bottleneck:
+
+    h = [IN(s) - IN(t), IN(t)]
+    out = IN_affine2(conv2(prelu(conv1(IN_affine1(h))))) + h
+
+Every step before conv1 is a per-(batch, channel) affine map of (s, t) once
+the joint moments are known, so norm1(h) = [as*s + at*t + b1, ct*t + b2]
+and conv1 splits into a conv of the s-dependent half plus a conv of the
+t-only half. Within one SAMM block the encoder feature t does not change
+across align cycles, so `alignnet_t_context` computes the t-only half once.
+This is plain PyTorch, the JAX package's default path; the TPU kernels that
+fuse it (B2) are ported in a later slice.
+"""
+
+import torch
+import torch.nn.functional as F
+
+
+def _mean_hw(x):
+    return x.mean(dim=(2, 3))
+
+
+def _cv(v):
+    """(B, C) -> (B, C, 1, 1)."""
+    return v[:, :, None, None]
+
+
+def _conv(v, k):
+    return F.conv2d(v, k.to(v.dtype), padding=1)
+
+
+def _alignnet_coeffs(s32, t32, g1, b1, diff_f_and_g: bool, eps: float):
+    """The five per-(b, c) coefficients (B, 5, C) [as, at, b1h, ct, b2h] and
+    the shortcut halves (IN(s) - IN(t) or IN(s), IN(t))."""
+    c = s32.shape[1]
+    es, et = _mean_hw(s32), _mean_hw(t32)
+    ess, ett, est = _mean_hw(s32 * s32), _mean_hw(t32 * t32), _mean_hw(s32 * t32)
+    vs = torch.clamp(ess - es * es, min=0.0)
+    vt = torch.clamp(ett - et * et, min=0.0)
+    inv_s, inv_t = torch.rsqrt(vs + eps), torch.rsqrt(vt + eps)
+    ga, gb = g1[:c].float(), g1[c:].float()
+    ba, bb = b1[:c].float(), b1[c:].float()
+    if diff_f_and_g:
+        cov = est - es * et
+        vd = torch.clamp(vs * inv_s * inv_s + vt * inv_t * inv_t
+                         - 2.0 * cov * inv_s * inv_t, min=0.0)
+        rd = torch.rsqrt(vd + eps)
+        as_ = inv_s * rd * ga
+        at_ = -inv_t * rd * ga
+        b1h = (et * inv_t - es * inv_s) * rd * ga + ba
+    else:
+        r1 = torch.rsqrt(vs * inv_s * inv_s + eps)
+        as_ = inv_s * r1 * ga
+        at_ = torch.zeros_like(as_)
+        b1h = -es * inv_s * r1 * ga + ba
+    r2 = torch.rsqrt(vt * inv_t * inv_t + eps)
+    ct_ = inv_t * r2 * gb
+    b2h = -et * inv_t * r2 * gb + bb
+    coeffs = torch.stack([as_, at_, b1h, ct_, b2h], dim=1)
+    sn = (s32 - _cv(es)) * _cv(inv_s)
+    tn = (t32 - _cv(et)) * _cv(inv_t)
+    return coeffs, (sn - tn if diff_f_and_g else sn), tn
+
+
+def alignnet_body0_reference(s, t, g1, b1, k1, alpha, k2, g2, b2,
+                             diff_f_and_g: bool = True, eps: float = 1e-5):
+    """The literal module dataflow (entry IN, concat, bottleneck)."""
+
+    def inorm(x, gamma=None, beta=None):
+        mean = x.mean(dim=(2, 3), keepdim=True)
+        mean2 = (x * x).mean(dim=(2, 3), keepdim=True)
+        y = (x - mean) * torch.rsqrt(torch.clamp(mean2 - mean * mean, min=0.0) + eps)
+        if gamma is not None:
+            y = y * _cv(gamma[None].to(y.dtype)) + _cv(beta[None].to(y.dtype))
+        return y
+
+    s32, t32 = s.float(), t.float()
+    sn, tn = inorm(s32), inorm(t32)
+    h = torch.cat([sn - tn, tn] if diff_f_and_g else [sn, tn], dim=1)
+    z = _conv(inorm(h, g1, b1), k1)
+    z = torch.where(z >= 0, z, _cv(alpha[None].to(z.dtype)) * z)
+    return (inorm(_conv(z, k2), g2, b2) + h).to(s.dtype)
+
+
+def alignnet_t_context(t, g1, b1, k1, eps: float = 1e-5):
+    """The cycle-invariant, t-only terms of algebraic_alignnet_body0: the
+    t-moments, IN(t), and the t-half of conv1."""
+    c = t.shape[1]
+    t32 = t.float()
+    et = _mean_hw(t32)
+    vt = torch.clamp(_mean_hw(t32 * t32) - et * et, min=0.0)
+    inv_t = torch.rsqrt(vt + eps)
+    gb, bb = g1[c:].float(), b1[c:].float()
+    r2 = torch.rsqrt(vt * inv_t * inv_t + eps)
+    x1b = (_cv(inv_t * r2 * gb) * t32 + _cv(-et * inv_t * r2 * gb + bb)).to(t.dtype)
+    zb = _conv(x1b, k1[:, c:])
+    tn = ((t32 - _cv(et)) * _cv(inv_t)).to(t.dtype)
+    return {"et": et, "vt": vt, "inv_t": inv_t, "tn": tn, "zb": zb}
+
+
+def algebraic_alignnet_body0(s, t, g1, b1, k1, alpha, k2, g2, b2,
+                             diff_f_and_g: bool = True, eps: float = 1e-5,
+                             t_ctx=None):
+    """body0 from (s, t) by the folded coefficients. s: generator feature,
+    t: encoder feature, both (B, C, H, W) before the entry IN; g1/b1 (2C,)
+    norm1 affine, k1 (2C, 2C, 3, 3), alpha (2C,) PReLU slopes, k2
+    (2C, 2C, 3, 3), g2/b2 (2C,) norm2 affine. t_ctx: alignnet_t_context(t)
+    for a t reused across calls."""
+    c = s.shape[1]
+    s32, t32 = s.float(), t.float()
+    if t_ctx is not None:
+        et, vt, inv_t = t_ctx["et"], t_ctx["vt"], t_ctx["inv_t"]
+        es = _mean_hw(s32)
+        vs = torch.clamp(_mean_hw(s32 * s32) - es * es, min=0.0)
+        inv_s = torch.rsqrt(vs + eps)
+        ga, ba = g1[:c].float(), b1[:c].float()
+        if diff_f_and_g:
+            cov = _mean_hw(s32 * t32) - es * et
+            vd = torch.clamp(vs * inv_s * inv_s + vt * inv_t * inv_t
+                             - 2.0 * cov * inv_s * inv_t, min=0.0)
+            rd = torch.rsqrt(vd + eps)
+            as_, at_ = inv_s * rd * ga, -inv_t * rd * ga
+            b1h = (et * inv_t - es * inv_s) * rd * ga + ba
+        else:
+            r1 = torch.rsqrt(vs * inv_s * inv_s + eps)
+            as_, at_ = inv_s * r1 * ga, torch.zeros_like(inv_s)
+            b1h = -es * inv_s * r1 * ga + ba
+        x1a = (_cv(as_) * s32 + _cv(at_) * t32 + _cv(b1h)).to(s.dtype)
+        z = _conv(x1a, k1[:, :c]) + t_ctx["zb"]
+        sn = ((s32 - _cv(es)) * _cv(inv_s)).to(s.dtype)
+        h1 = sn - t_ctx["tn"] if diff_f_and_g else sn
+        h2 = t_ctx["tn"]
+    else:
+        coeffs, h1, h2 = _alignnet_coeffs(s32, t32, g1, b1, diff_f_and_g, eps)
+        h1, h2 = h1.to(s.dtype), h2.to(s.dtype)
+        as_, at_, b1h, ct_, b2h = (_cv(coeffs[:, i]) for i in range(5))
+        x1a = (as_ * s32 + at_ * t32 + b1h).to(s.dtype)
+        x1b = (ct_ * t32 + b2h).to(s.dtype)
+        z = _conv(x1a, k1[:, :c]) + _conv(x1b, k1[:, c:])
+    z = torch.where(z >= 0, z, _cv(alpha[None].to(z.dtype)) * z)
+    y2f = _conv(z, k2).float()
+    mu2 = y2f.mean(dim=(2, 3), keepdim=True)
+    v2 = torch.clamp((y2f * y2f).mean(dim=(2, 3), keepdim=True) - mu2 * mu2, min=0.0)
+    kk = torch.rsqrt(v2 + eps) * _cv(g2[None].float())
+    bb = _cv(b2[None].float()) - mu2 * kk
+    h = torch.cat([h1, h2], dim=1)
+    return ((y2f * kk + bb).to(s.dtype) + h).to(s.dtype)
