@@ -117,8 +117,7 @@ def phase_kernels():
             if not err <= tol:
                 raise AssertionError(f"warp_blend {b}x{size}x{size}x{c} "
                                      f"bound={at_bound}: err {err} > {tol}")
-            if b == 1:
-                max_err = max(max_err, err)
+            max_err = max(max_err, err)
             if at_bound:
                 log(f"[kernel] warp_blend b={b} {size}px C={c} flow at +-bound: "
                     f"max|err| {err:.3e} <= {tol:.3e}")

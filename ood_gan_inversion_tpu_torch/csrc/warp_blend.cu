@@ -148,7 +148,7 @@ void launch(const void* target, const float* grid, const float* alpha,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. All tensors NHWC-contiguous:
-// target/out (B, H, W, C), grid (B, H, W, 2) float32, alpha (B, H, W) float32.
+// target/out (B, H, W, C), grid (B, H, W, 2) float32, alpha (B, H, W, 1) float32.
 // Returns cudaGetLastError() after the launch (0 = success); 1000 for an
 // argument the kernel does not take.
 extern "C" int ogi_warp_blend(const void* target, const void* grid,

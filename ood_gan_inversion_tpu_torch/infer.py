@@ -5,9 +5,9 @@ Numerics: float32 throughout. The engine turns TF32 off for both cuDNN
 convolutions and CUDA matrix products (`torch.backends.cudnn.allow_tf32`,
 `torch.backends.cuda.matmul.allow_tf32`), process-wide, so the card
 computes what the float32 reference computes. It also restricts cuDNN to
-deterministic algorithms and turns its autotuning off: the transposed
-convolutions of the generator's upsampling layers otherwise may run an
-algorithm that sums with atomics, whose result changes from run to run.
+deterministic algorithms and turns its autotuning off, so that a
+convolution sums in the same order on every call: a reply is then
+bit-identical across calls, which the per-seed contract below needs.
 
 Noise: every request carries an integer seed; its noise comes from its own
 `torch.Generator` on the engine's device, and each request is decoded as a

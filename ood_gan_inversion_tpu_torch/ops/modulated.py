@@ -52,8 +52,14 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
     xm = x * style_scale.to(x.dtype)[:, :, None, None]
     w = w.to(x.dtype)
     if upsample:
+        # stride-2 transposed conv, written as a forward conv of the
+        # zero-stuffed input with the flipped kernel: cuDNN's deterministic
+        # transposed-conv algorithms are slow, its forward ones are not
         factor = 2
-        y = F.conv_transpose2d(xm, w.transpose(0, 1), stride=factor)
+        n, _, h, wd = xm.shape
+        xz = xm.new_zeros(n, cin, factor * h - 1, factor * wd - 1)
+        xz[:, :, ::factor, ::factor] = xm
+        y = F.conv2d(xz, w.flip(2, 3), padding=(kh - 1, kw - 1))
         p = (blur_kernel.shape[0] - factor) - (kh - 1)
         pad0 = (p + 1) // 2 + factor - 1
         pad1 = p // 2 + 1

@@ -22,9 +22,8 @@ def warp_blend_reference(target: torch.Tensor, grid: torch.Tensor,
                          alpha: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: the SAMM warp + blend as the JAX
     `warp_blend_reference` computes it. Output keeps the target's dtype."""
-    al = alpha if alpha.ndim == 4 else alpha[..., None]
     warped = grid_sample_bilinear(target, grid)
-    return (warped * al + target * (1.0 - al)).to(target.dtype)
+    return (warped * alpha + target * (1.0 - alpha)).to(target.dtype)
 
 
 @functools.cache
@@ -46,8 +45,7 @@ def _check(target, grid, alpha):
     if tuple(grid.shape) != (b, h, w, 2) or grid.dtype != torch.float32:
         raise ValueError(f"grid must be float32 {(b, h, w, 2)}, got "
                          f"{grid.dtype} {tuple(grid.shape)}")
-    if (tuple(alpha.shape) not in ((b, h, w, 1), (b, h, w))
-            or alpha.dtype != torch.float32):
+    if tuple(alpha.shape) != (b, h, w, 1) or alpha.dtype != torch.float32:
         raise ValueError(f"alpha must be float32 {(b, h, w, 1)}, got "
                          f"{alpha.dtype} {tuple(alpha.shape)}")
     devs = {target.device, grid.device, alpha.device}

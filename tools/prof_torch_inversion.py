@@ -7,7 +7,7 @@ Builds InversionEngine at the options/test/E4E_Face_test.yml network_g
 up, then profiles `--reps` requests with torch.profiler. Prints the card,
 the wall time per request, the device-busy share of that wall time, and
 the operators with the most device time. Writes the chrome trace to
-chiprun_out/prof_torch_inversion.json.
+--trace (default results/prof_torch_inversion.json).
 """
 
 import argparse
@@ -30,6 +30,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
+    ap.add_argument("--trace", default="results/prof_torch_inversion.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -56,8 +57,8 @@ def main():
           f"({100 * dev_us / (1e6 * wall):.1f}% of wall)")
     print(events.table(sort_by="self_device_time_total", row_limit=args.top,
                        max_name_column_width=90))
-    os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace("chiprun_out/prof_torch_inversion.json")
+    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+    prof.export_chrome_trace(args.trace)
 
 
 if __name__ == "__main__":
