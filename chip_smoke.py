@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: python3 chip_smoke.py
 
-1. Builds every hand-written kernel of the port from `csrc/` with nvcc.
+1. Builds every hand-written kernel of the port from `csrc/` with nvcc, one
+   process per source, all at once.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (plus border-pinned flows and bfloat16),
-   and times the kernel, the plain version and the closest PyTorch library
-   call with CUDA events.
+   shapes the main path gives it (plus border-pinned flows, ragged tiles
+   and bfloat16), and times the kernel, the plain version and the closest
+   PyTorch library call with CUDA events.
 3. Drives the main path -- E4E inversion at 1024px with the IR-SE-50
    encoder, cycle_align 2, warp_scale 0.08, ModSize 256, float32, seeded
    random weights -- through `InversionEngine.invert` and
    `invert_batch_perkey`, checks the outputs, the kernel launch counts and
-   per-seed determinism across batch slots, and times it; then holds the
-   slice on the card against the same slice on the CPU at a small width.
+   per-seed determinism across batch slots, and times it. Then drives the
+   same engine with the phase-packed >=512px tail, plain and through each
+   packed kernel ("pair": B3, "stage": B4), each path with the launch
+   counts set to 0 just before it and read just after, and checks it
+   against the unpacked engine. Then holds the slice on the card against
+   the same slice on the CPU at a small width, unpacked and with the
+   whole-stage kernel.
 4. Prints the card's name and power limit, one JSON line describing the
    kernels, and as the last line {"ok": true, "device": {...}}.
 
@@ -20,6 +26,7 @@ line. It needs CUDA and refuses to run on the CPU.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -28,13 +35,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
-# (non-tensor-core) rate. A card run below its 700 W limit is slower.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32
+# (non-tensor-core) and bf16 tensor-core rates. A card run below its 700 W
+# limit is slower.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 SEED = 0
 WARP_SHAPES = [(256, 128), (128, 256), (64, 512), (32, 512)]   # (H = W, C)
 WARP_SCALE = 0.08
+# the packed stages of the 1024px generator at channel_multiplier 2: coarse
+# side H = W, input channels C1, unpacked output channels Cmid (C4 = 4 Cmid)
+PACKED_STAGES = [(256, 128, 64), (512, 64, 32)]
+# packed kernels against their plain versions: float32 within 1e-4 of
+# max|ref| (sums over up to K = 9 * 256 terms in another order than cuDNN);
+# bfloat16 operands within 2^-7 of max|ref| of the plain version on the same
+# rounded operands in float32 (output rounding 2^-9, plus conv1's activation
+# rounded to bfloat16 before conv2 reads it)
+PACKED_TOL, PACKED_TOL_BF16 = 1e-4, 2.0 ** -7
+# the packed-tail engines against the unpacked one on the same image, seed
+# and noise: float32, the tail's sums in another order
+TAIL_RTOL = 1e-4
 
 
 def log(msg):
@@ -84,14 +105,20 @@ def warp_bound_ms(b, size, c, itemsize):
     px = b * size * size
     nbytes = 2 * px * c * itemsize + 12 * px      # target in, out, grid + alpha
     flops = 11 * px * c                           # 4 taps x 2 + blend 3
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return bound_ms(flops, nbytes, FP32_FLOPS)
+
+
+def bound_ms(flops, nbytes, peak):
+    """(least ms, what bounds it): bytes over the HBM rate or flops over
+    `peak`, whichever takes longer."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
 def phase_build():
     from ood_gan_inversion_tpu_torch import build
     t0 = time.time()
-    logs = build.build_all(["warp_blend"])
+    logs = build.build_all(["warp_blend", "packed_pair", "packed_stage"])
     log(f"[build] nvcc sm_90a: {sorted(logs)} in {time.time() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -161,6 +188,205 @@ def phase_kernels():
             "max_abs_err": max_err, "bound_by": bound_by, **per_image}
 
 
+def packed_operands(b, h, c1, cmid, seed):
+    """One packed stage's float32 operands on the card at O(1) activations,
+    with K1, K2, the toRGB and the skip kernels built from random he-scaled
+    weights by the port's polyphase functions, so each has its structural
+    zeros as on the main path."""
+    from ood_gan_inversion_tpu_torch.ops import polyphase as pp
+    from ood_gan_inversion_tpu_torch.ops.upfirdn2d import make_kernel
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c4 = 4 * cmid
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def near1(*shape):
+        return torch.rand(shape, generator=g, device="cuda") + 0.5
+
+    blur = make_kernel((1, 3, 3, 1))
+    k3 = pp.conv1x1_packed_kernel(rn(1, 1, cmid, 3, scale=cmid ** -0.5))[0, 0]
+    return {
+        "x": rn(b, h, h, c1), "n1": rn(b, h, h, 4, scale=0.1),
+        "n2": rn(b, h, h, 4, scale=0.1), "skip": rn(b, h, h, 3),
+        "k1": pp.upconv_blur_packed_kernel(rn(3, 3, c1, cmid, scale=(9 * c1) ** -0.5), blur),
+        "s1": near1(b, c1), "d1": near1(b, c4), "b1": rn(c4, scale=0.1),
+        "k2": pp.conv3x3_packed_kernel(rn(3, 3, cmid, cmid, scale=(9 * cmid) ** -0.5)),
+        "s2": near1(b, c4), "d2": near1(b, c4), "b2": rn(c4, scale=0.1),
+        "k3sr": pp.tile_phase_major(near1(b, cmid))[:, :, None] * k3[None],
+        "b3": rn(12, scale=0.1), "k4": pp.skip_up_packed_kernel(blur, 3, device="cuda"),
+    }
+
+
+def conv_flops(b, h, k):
+    """(dense, useful) flops of a pad-1 conv with the HWIO kernel k at
+    (b, h, h): every (tap, ci, co) entry, and the non-zero ones only."""
+    px = b * h * h
+    return 2 * px * k[..., 0, 0].numel() * k.shape[2] * k.shape[3], 2 * px * int((k != 0).sum())
+
+
+def bound_parts(flops, nbytes, peak):
+    """Both sides of a bound, as text: flops over `peak`, bytes over HBM."""
+    return (f"ops {1e3 * flops / peak:.4f} ms, bytes "
+            f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms")
+
+
+def library_conv_act(xn, n4n, wk, s, d, bias, cmid):
+    """The yardstick of one packed conv: cuDNN F.conv2d of the packed kernel
+    on channels_last views, then the epilogue as torch ops (NCHW shapes)."""
+    y = F.conv2d(xn * s[:, :, None, None], wk, padding=1)
+    y = y * d[:, :, None, None] + n4n.repeat_interleave(cmid, 1) + bias[None, :, None, None]
+    return F.leaky_relu(y, 0.2) * math.sqrt(2.0)
+
+
+def check_close(what, got, ref, tol):
+    err = float((got.float() - ref).abs().max())
+    lim = tol * float(ref.abs().max())
+    if not err <= lim:
+        raise AssertionError(f"{what}: max|err| {err} > {lim}")
+    return err, lim
+
+
+def phase_packed_kernels():
+    """B3 (fused_conv3x3_act) and B4 (fused_packed_stage) against their
+    plain versions at the launch shapes of the two packed stages of the
+    1024px generator, b = 1 and 2, float32 and bfloat16 operands; times
+    and bounds. Per image = b = 1, B3 4 launches, B4 2."""
+    from ood_gan_inversion_tpu_torch.ops.packed_conv import (
+        fused_conv3x3_act, fused_packed_stage, packed_conv3x3_act_reference,
+        packed_stage_reference)
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    per_image = {"B3": dict.fromkeys(keys, 0.0), "B4": dict.fromkeys(keys, 0.0)}
+    max_err = {"B3": 0.0, "B4": 0.0}
+    bound_by = {"B3": {}, "B4": {}}        # per image: bound ms by what bounds it
+    gflop = {"B3": [0.0, 0.0], "B4": [0.0, 0.0]}          # dense, useful per image
+    conv_names = ("x", "n1", "k1", "s1", "d1", "b1")
+    for h, c1, cmid in PACKED_STAGES:
+        c4, stage = 4 * cmid, f"{2 * h}px stage"
+        for b in (1, 2):
+            a = packed_operands(b, h, c1, cmid, seed=h + b)
+            # ---- B3: conv1 on x, conv2 on conv1's output (plain version)
+            z = packed_conv3x3_act_reference(*(a[k] for k in conv_names))
+            convs = (("conv1", (a["x"], a["n1"], a["k1"], a["s1"], a["d1"], a["b1"])),
+                     ("conv2", (z, a["n2"], a["k2"], a["s2"], a["d2"], a["b2"])))
+            for name, args in convs:
+                x, n4, k, s, d, bias = args
+                ci, co = k.shape[2], k.shape[3]
+                err, lim = check_close(f"B3 {stage} {name} b={b}",
+                                       fused_conv3x3_act(*args),
+                                       packed_conv3x3_act_reference(*args), PACKED_TOL)
+                xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
+                argsb = (xb, n4, kb, s, d, bias)
+                errb, limb = check_close(
+                    f"B3 {stage} {name} b={b} bf16", fused_conv3x3_act(*argsb),
+                    packed_conv3x3_act_reference(xb.float(), n4, kb.float(), s, d, bias),
+                    PACKED_TOL_BF16)
+                xn, n4n = x.permute(0, 3, 1, 2), n4.permute(0, 3, 1, 2)
+                wk = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                lib = lambda: library_conv_act(xn, n4n, wk, s, d, bias, co // 4)
+                lib_diff = float((lib().permute(0, 2, 3, 1)
+                                  - packed_conv3x3_act_reference(*args)).abs().max())
+                t = {"ms": time_ms(lambda: fused_conv3x3_act(*args), iters=10),
+                     "plain_ms": time_ms(lambda: packed_conv3x3_act_reference(*args), iters=10),
+                     "library_ms": time_ms(lib, iters=10)}
+                msb = time_ms(lambda: fused_conv3x3_act(*argsb), iters=10)
+                dense, useful = conv_flops(b, h, k)
+                epi = 5 * b * h * h * co
+                nbytes = lambda isz: ((b * h * h * (ci + co) + 9 * ci * co) * isz
+                                      + b * h * h * 16 + 4 * b * (ci + 2 * co))
+                t["bound_ms"], by = bound_ms(useful + epi, nbytes(4), FP32_FLOPS)
+                dense_ms, _ = bound_ms(dense + epi, nbytes(4), FP32_FLOPS)
+                bf16_ms, bf16_by = bound_ms(useful + epi, nbytes(2), BF16_FLOPS)
+                log(f"[kernel] B3 {stage} {name} b={b} ({h}x{h}, {ci}->{co}): fp32 "
+                    f"max|err| {err:.3e} <= {lim:.3e}, bf16 {errb:.3e} <= {limb:.3e}; "
+                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                    f"cudnn+epilogue {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); "
+                    f"bound {t['bound_ms']:.4f} ms ({by}: "
+                    f"{bound_parts(useful + epi, nbytes(4), FP32_FLOPS)}; "
+                    f"{useful / 1e9:.2f} useful GFLOP), dense {dense_ms:.4f} ms "
+                    f"({dense / 1e9:.2f} GFLOP); "
+                    f"bf16 kernel {msb:.4f} ms, bound {bf16_ms:.4f} ms ({bf16_by})")
+                max_err["B3"] = max(max_err["B3"], err)
+                if b == 1:
+                    bound_by["B3"][by] = bound_by["B3"].get(by, 0.0) + t["bound_ms"]
+                    for key in keys:
+                        per_image["B3"][key] += t[key]
+                    gflop["B3"][0] += dense / 1e9
+                    gflop["B3"][1] += useful / 1e9
+            # ---- B4: the whole stage
+            args = tuple(a.values())
+            rgb, z2 = fused_packed_stage(*args)
+            rgb_ref, z2_ref = packed_stage_reference(*args)
+            err = max(check_close(f"B4 {stage} b={b} z2", z2, z2_ref, PACKED_TOL)[0],
+                      check_close(f"B4 {stage} b={b} rgb", rgb, rgb_ref, PACKED_TOL)[0])
+            bf = {k: (v.to(torch.bfloat16) if k in ("x", "skip", "k1", "k2", "k3sr", "k4")
+                      else v) for k, v in a.items()}
+            argsb = tuple(bf.values())
+            rgbb, z2b = fused_packed_stage(*argsb)
+            rgbb_ref, z2b_ref = packed_stage_reference(*(v.float() for v in argsb))
+            errb = max(check_close(f"B4 {stage} b={b} bf16 z2", z2b, z2b_ref, PACKED_TOL_BF16)[0],
+                       check_close(f"B4 {stage} b={b} bf16 rgb", rgbb, rgbb_ref,
+                                   PACKED_TOL_BF16)[0])
+            wk1, wk2, wk4 = (a[k].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                             for k in ("k1", "k2", "k4"))
+            xn, skn = a["x"].permute(0, 3, 1, 2), a["skip"].permute(0, 3, 1, 2)
+            n1n, n2n = a["n1"].permute(0, 3, 1, 2), a["n2"].permute(0, 3, 1, 2)
+
+            def lib():
+                zz = library_conv_act(xn, n1n, wk1, a["s1"], a["d1"], a["b1"], cmid)
+                zz2 = library_conv_act(zz, n2n, wk2, a["s2"], a["d2"], a["b2"], cmid)
+                return (torch.einsum("bchw,bco->bohw", zz2, a["k3sr"])
+                        + a["b3"][None, :, None, None] + F.conv2d(skn, wk4, padding=1))
+
+            lib_diff = float((lib().permute(0, 2, 3, 1) - rgb_ref).abs().max())
+            t = {"ms": time_ms(lambda: fused_packed_stage(*args), iters=10),
+                 "plain_ms": time_ms(lambda: packed_stage_reference(*args), iters=10),
+                 "library_ms": time_ms(lib, iters=10)}
+            msb = time_ms(lambda: fused_packed_stage(*argsb), iters=10)
+            d1, u1 = conv_flops(b, h, a["k1"])
+            d2, u2 = conv_flops(b, h, a["k2"])
+            px = b * h * h
+            d3, u3 = 2 * px * c4 * 12, 2 * h * h * int((a["k3sr"] != 0).sum())
+            d4, u4 = conv_flops(b, h, a["k4"])
+            epi = 5 * 2 * px * c4 + 2 * px * 12
+            dense, useful = d1 + d2 + d3 + d4 + epi, u1 + u2 + u3 + u4 + epi
+            nbytes = lambda isz: ((px * (c1 + c4 + 12 + 3) + 9 * c4 * (c1 + c4)
+                                   + b * c4 * 12 + 9 * 36) * isz
+                                  + 2 * px * 16 + 4 * b * (c1 + 5 * c4 + 12))
+            t["bound_ms"], by = bound_ms(useful, nbytes(4), FP32_FLOPS)
+            dense_ms, _ = bound_ms(dense, nbytes(4), FP32_FLOPS)
+            bf16_ms, bf16_by = bound_ms(useful, nbytes(2), BF16_FLOPS)
+            log(f"[kernel] B4 {stage} b={b} ({h}x{h}, {c1}->{c4}->{c4}, rgb 12): fp32 "
+                f"max|err| {err:.3e} <= {PACKED_TOL:.0e} of max|ref|, bf16 "
+                f"{errb:.3e}; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"cudnn chain {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); "
+                f"bound {t['bound_ms']:.4f} ms ({by}: "
+                f"{bound_parts(useful, nbytes(4), FP32_FLOPS)}; {useful / 1e9:.2f} useful GFLOP), "
+                f"dense {dense_ms:.4f} ms ({dense / 1e9:.2f} GFLOP); bf16 kernel "
+                f"{msb:.4f} ms, bound {bf16_ms:.4f} ms ({bf16_by})")
+            max_err["B4"] = max(max_err["B4"], err)
+            if b == 1:
+                bound_by["B4"][by] = bound_by["B4"].get(by, 0.0) + t["bound_ms"]
+                for key in keys:
+                    per_image["B4"][key] += t[key]
+                gflop["B4"][0] += dense / 1e9
+                gflop["B4"][1] += useful / 1e9
+    entries = []
+    for kid, name, src, line in (
+            ("B3", "fused_conv3x3_act", "packed_pair.cu", 158),
+            ("B4", "fused_packed_stage", "packed_stage.cu", 275)):
+        log(f"[kernel] {kid} {name} per image (b=1): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in per_image[kid].items())
+            + f"; {gflop[kid][0]:.2f} dense, {gflop[kid][1]:.2f} useful GFLOP")
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"ood_gan_inversion_tpu_torch/csrc/{src}",
+                        "replaces": f"ood_gan_inversion_tpu/ops/pallas_kernels.py:{line}",
+                        "max_abs_err": max_err[kid],
+                        "bound_by": max(bound_by[kid], key=bound_by[kid].get),
+                        **per_image[kid]})
+    return entries
+
+
 def e4e_opt(**overrides):
     """options/test/E4E_Face_test.yml `network_g`, as a dict."""
     g = {"type": "ood_faceGAN_e4e", "out_size": 1024, "style_dim": 512,
@@ -181,9 +407,66 @@ def noisy(engine):
     return engine
 
 
-def phase_main_path():
-    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+KERNEL_COUNTERS = ("warp_blend", "fused_conv3x3_act", "fused_packed_stage")
+
+
+def counters():
+    from ood_gan_inversion_tpu_torch.ops.packed_conv import (
+        fused_conv3x3_act, fused_packed_stage)
     from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend
+    return dict(zip(KERNEL_COUNTERS, (warp_blend, fused_conv3x3_act, fused_packed_stage)))
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def drive(engine, imgs):
+    """The main path's four requests: one `invert` and a batch of three
+    whose slot 2 repeats it. Counts set to 0 just before, read just after.
+    Returns (alone, batch, launches, ms of invert, ms/img of the batch)."""
+    reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    alone = engine.invert(imgs[0], seed=7)
+    ev[1].record()
+    batch = engine.invert_batch_perkey([imgs[1], imgs[2], imgs[0]], [8, 9, 7])
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (alone, batch, read_counts(), ev[0].elapsed_time(ev[1]),
+            ev[1].elapsed_time(ev[2]) / 3)
+
+
+def check_replies(what, alone, batch):
+    for name, out, n in (("invert", alone, 1), ("invert_batch_perkey", batch, 3)):
+        if tuple(out["image"].shape) != (n, 1024, 1024, 3):
+            raise AssertionError(f"{what} {name} image shape {tuple(out['image'].shape)}")
+        if tuple(out["mask"].shape) != (n, 1024, 1024, 1):
+            raise AssertionError(f"{what} {name} mask shape {tuple(out['mask'].shape)}")
+        for k in ("image", "gen_image", "mask", "lats"):
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"{what} {name} {k} has non-finite values")
+        m = out["mask"]
+        if not (float(m.min()) >= 0.0 and float(m.max()) <= 1.0):
+            raise AssertionError(f"{what} {name} mask outside [0, 1]")
+        for k, s in ((1, 32), (2, 64), (3, 128), (4, 256)):
+            if tuple(out["aligns"][k].shape) != (n, s, s, 3):
+                raise AssertionError(f"{what} {name} align {k} shape")
+    if not torch.equal(alone["image"][0], batch["image"][2]):
+        raise AssertionError(f"{what}: seed 7 gave a different image in batch slot 2")
+    if torch.equal(batch["image"][0], batch["image"][1]):
+        raise AssertionError(f"{what}: different seeds and images gave one image")
+
+
+def phase_main_path():
+    """The default engine (unpacked tail). Returns (B1 launches, engine,
+    images, its replies)."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
     t0 = time.time()
     engine = noisy(InversionEngine(e4e_opt(), seed=SEED, device="cuda"))
     n_params = sum(p.numel() for p in engine.net.parameters())
@@ -193,80 +476,107 @@ def phase_main_path():
     imgs = [rs.rand(1024, 1024, 3).astype(np.float32) for _ in range(3)]
     engine.invert(imgs[0], seed=7)           # warm-up: cuDNN plans, libraries
     torch.cuda.synchronize()
-
-    warp_blend.launches = 0
-    t_single = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    t_single[0].record()
-    alone = engine.invert(imgs[0], seed=7)
-    t_single[1].record()
-    batch = engine.invert_batch_perkey([imgs[1], imgs[2], imgs[0]], [8, 9, 7])
-    t_single[2].record()
-    torch.cuda.synchronize()
-    launches = warp_blend.launches
-
-    if launches != 8 * 4:
-        raise AssertionError(f"warp_blend launched {launches} times for 4 "
-                             "images, expected 8 per image")
-    for name, out, n in (("invert", alone, 1), ("invert_batch_perkey", batch, 3)):
-        if tuple(out["image"].shape) != (n, 1024, 1024, 3):
-            raise AssertionError(f"{name} image shape {tuple(out['image'].shape)}")
-        if tuple(out["mask"].shape) != (n, 1024, 1024, 1):
-            raise AssertionError(f"{name} mask shape {tuple(out['mask'].shape)}")
-        for k in ("image", "gen_image", "mask", "lats"):
-            if not bool(torch.isfinite(out[k]).all()):
-                raise AssertionError(f"{name} {k} has non-finite values")
-        m = out["mask"]
-        if not (float(m.min()) >= 0.0 and float(m.max()) <= 1.0):
-            raise AssertionError(f"{name} mask outside [0, 1]")
-        for k, s in ((1, 32), (2, 64), (3, 128), (4, 256)):
-            if tuple(out["aligns"][k].shape) != (n, s, s, 3):
-                raise AssertionError(f"{name} align {k} shape")
-    if not torch.equal(alone["image"][0], batch["image"][2]):
-        raise AssertionError("seed 7 gave a different image in batch slot 2")
-    if torch.equal(batch["image"][0], batch["image"][1]):
-        raise AssertionError("different seeds and images gave one image")
-    ms_single = t_single[0].elapsed_time(t_single[1])
-    ms_batch = t_single[1].elapsed_time(t_single[2]) / 3
-    log(f"[main] 4 requests answered; warp_blend launches {launches} "
-        f"(8 per image); slot 2 of the batch == the lone request: True")
+    alone, batch, launches, ms_single, ms_batch = drive(engine, imgs)
+    want = {"warp_blend": 8 * 4, "fused_conv3x3_act": 0, "fused_packed_stage": 0}
+    if launches != want:
+        raise AssertionError(f"default path launched {launches}, expected {want}")
+    check_replies("default", alone, batch)
+    log(f"[main] 4 requests answered; launches {launches} (warp_blend 8 per "
+        "image); slot 2 of the batch == the lone request: True")
     log(f"[main] ms/img: invert {ms_single:.2f}, invert_batch_perkey "
         f"{ms_batch:.2f} (CUDA events, 1024px, float32)")
-    reps = []
+    return launches["warp_blend"], engine, imgs, (alone, batch)
+
+
+def phase_packed_tail(engine, imgs, replies):
+    """The same engine's weights with the packed tail: plain ("none"), B3
+    ("pair") and B4 ("stage"). Each path's launch counts, its replies
+    against the unpacked engine's (mask and lats bit-identical: the tail
+    lies after every SAMM block), per-seed determinism; then invert ms/img
+    of the four configurations, 5 interleaved rounds. Returns the B3 count
+    of the pair path and the B4 count of the stage path."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    from ood_gan_inversion_tpu_torch.nn.stylegan2 import TAIL_KERNELS
+    params = engine.net.state_dict()
+    engines, launches = {"unpacked": engine}, {}
+    per_image = {"none": {}, "pair": {"fused_conv3x3_act": 4},
+                 "stage": {"fused_packed_stage": 2}}
+    for kern in TAIL_KERNELS:
+        eng = InversionEngine(e4e_opt(), params=params, device="cuda",
+                              packed_tail=True, tail_kernel=kern)
+        eng.invert(imgs[0], seed=7)          # warm-up
+        torch.cuda.synchronize()
+        alone, batch, counts, _, _ = drive(eng, imgs)
+        want = {"warp_blend": 8 * 4, "fused_conv3x3_act": 0, "fused_packed_stage": 0}
+        want.update({k: 4 * v for k, v in per_image[kern].items()})
+        if counts != want:
+            raise AssertionError(f"packed tail {kern!r} launched {counts}, expected {want}")
+        check_replies(f"packed tail {kern!r}", alone, batch)
+        errs = {}
+        for got, ref in zip((alone, batch), replies):
+            for k in ("mask", "lats"):
+                if not torch.equal(got[k], ref[k]):
+                    raise AssertionError(f"packed tail {kern!r}: {k} differs from "
+                                         "the unpacked engine")
+            for k in ("image", "gen_image"):
+                err = float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+                if not err <= TAIL_RTOL:
+                    raise AssertionError(f"packed tail {kern!r} {k}: rel err {err} "
+                                         f"> {TAIL_RTOL}")
+                errs[k] = max(errs.get(k, 0.0), err)
+        log(f"[main] packed tail {kern!r}: launches {counts}; mask and lats "
+            "bit-identical to the unpacked engine; max rel err image "
+            f"{errs['image']:.2e}, gen_image {errs['gen_image']:.2e} <= {TAIL_RTOL}; "
+            "slot 2 == the lone request: True")
+        launches.update({k: counts[k] for k in per_image[kern]})
+        engines[f"packed {kern}"] = eng
+    reps = {name: [] for name in engines}
     for i in range(5):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        engine.invert(imgs[i % 3], seed=i)
-        b.record()
-        b.synchronize()
-        reps.append(a.elapsed_time(b))
-    log(f"[main] invert ms/img over 5 more requests: median "
-        f"{float(np.median(reps)):.2f}, all {[round(r, 2) for r in reps]}")
+        for name, eng in engines.items():
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            eng.invert(imgs[i % 3], seed=i)
+            b.record()
+            b.synchronize()
+            reps[name].append(a.elapsed_time(b))
+    for name, r in reps.items():
+        log(f"[main] invert ms/img, {name} tail, 5 interleaved rounds: median "
+            f"{float(np.median(r)):.2f}, all {[round(v, 2) for v in r]}")
     return launches
 
 
 def phase_small_reference():
-    """The slice at a small width on the card (kernel) against the same
-    weights on the CPU (plain warp-blend), the port's CPU path being the
-    one the tests hold against the JAX package."""
+    """The slice at a small width on the card (kernels) against the same
+    weights on the CPU (plain versions), the port's CPU path being the one
+    the tests hold against the JAX package: unpacked, and with the packed
+    tail through the whole-stage kernel."""
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
-    opt = e4e_opt(out_size=256, channel_multiplier=1, narrow=0.25,
+    opt = e4e_opt(out_size=512, channel_multiplier=1, narrow=0.25,
                   encoder_num_layers=4)
-    gpu = noisy(InversionEngine(opt, seed=SEED + 1, device="cuda"))
-    cpu = InversionEngine(opt, params=gpu.net.state_dict(), device="cpu")
-    img = np.random.RandomState(SEED + 1).rand(256, 256, 3).astype(np.float32)
-    # the same noise on both devices: draw it on the CPU, copy to the card
-    noise = cpu.net.generator.make_noise(
-        1, torch.Generator().manual_seed(3), torch.device("cpu"))
+    params = noisy(InversionEngine(opt, seed=SEED + 1, device="cuda")).net.state_dict()
+    img = np.random.RandomState(SEED + 1).rand(512, 512, 3).astype(np.float32)
     x = torch.from_numpy(img[None] * 2.0 - 1.0)
-    with torch.inference_mode():
-        ref = cpu.net(x, mod_size=256, noise=noise)
-        out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
-    for k in ("image", "mask", "gen_image"):
-        r = ref[k].numpy()
-        err = float(np.abs(out[k].cpu().numpy() - r).max() / np.abs(r).max())
-        if not err <= 1e-3:
-            raise AssertionError(f"small slice {k}: card vs CPU rel err {err}")
-        log(f"[check] small slice (256px) {k}: card vs CPU max rel err {err:.2e}")
+    for tail in ({}, {"packed_tail": True, "tail_kernel": "stage"}):
+        gpu = InversionEngine(opt, params=params, device="cuda", **tail)
+        cpu = InversionEngine(opt, params=params, device="cpu", **tail)
+        # the same noise on both devices: draw it on the CPU, copy to the card
+        noise = cpu.net.generator.make_noise(
+            1, torch.Generator().manual_seed(3), torch.device("cpu"))
+        reset_counts()
+        with torch.inference_mode():
+            ref = cpu.net(x, mod_size=256, noise=noise)
+            out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
+        torch.cuda.synchronize()
+        stages = read_counts()["fused_packed_stage"]
+        if stages != (1 if tail else 0):
+            raise AssertionError(f"small slice {tail}: {stages} stage launches")
+        for k in ("image", "mask", "gen_image"):
+            r = ref[k].numpy()
+            err = float(np.abs(out[k].cpu().numpy() - r).max() / np.abs(r).max())
+            if not err <= 1e-3:
+                raise AssertionError(f"small slice {tail} {k}: card vs CPU rel err {err}")
+            log(f"[check] small slice (512px, tail {tail or 'unpacked'}) {k}: card "
+                f"vs CPU max rel err {err:.2e}")
 
 
 def main():
@@ -276,9 +586,16 @@ def main():
         return 1
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    # plain versions and yardsticks in full float32 (cuDNN defaults to
+    # TF32), as InversionEngine sets it for the main path
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    entry = phase_kernels()
-    entry["launches"] = phase_main_path()
+    entries = [phase_kernels(), *phase_packed_kernels()]
+    entries[0]["launches"], engine, imgs, replies = phase_main_path()
+    tail = phase_packed_tail(engine, imgs, replies)
+    for e in entries[1:]:
+        e["launches"] = tail[e["name"]]
     phase_small_reference()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -286,7 +603,7 @@ def main():
     log(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: entry[k] for k in keys}]}))
+    log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """SAMM-conditioned decode loop and mask compositing (counterpart of
 archs/common.py), NCHW. Only the NOISE modulation path is ported: at a
 conditioned layer the aligned encoder feature replaces the generator's
-conv output before the noise injection (aligned + w * noise)."""
+conv output before the noise injection (aligned + w * noise). Stages that
+are not conditioned run phase-packed where the generator packs them
+(`Generator.stage_is_packable`)."""
 
 import math
 
@@ -32,6 +34,13 @@ def conditioned_decode(arch, lats, feats_c, mod_size: int, noise):
     aligns, prev_align = {}, None
     i = 1
     for idx, to_rgb in enumerate(gen.to_rgbs):
+        if i not in cond_layers and gen.stage_is_packable(idx):
+            out, skip = gen.packed_stage(
+                idx, out, skip, lats[:, i], lats[:, i + 1], lats[:, i + 2],
+                noise[1 + 2 * idx], noise[2 + 2 * idx],
+                unpack_out=idx < len(gen.to_rgbs) - 1)
+            i += 2
+            continue
         conv_a, conv_b = gen.convs[2 * idx], gen.convs[2 * idx + 1]
         if i in cond_layers:
             ind = cond_layers.index(i) + 1

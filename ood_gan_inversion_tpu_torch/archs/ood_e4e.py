@@ -26,13 +26,16 @@ def _nhwc(x):
 
 
 class OODFaceGANE4E(nn.Module):
-    """Constructor keys mirror the `network_g` schema of the YAML configs."""
+    """Constructor keys mirror the `network_g` schema of the YAML configs;
+    packed_tail and tail_kernel choose how the generator computes its
+    >=512px stages (nn/stylegan2.py) and add no parameter."""
 
     def __init__(self, out_size=1024, style_dim=512, channel_multiplier=2,
                  narrow=1.0, encoder="E4E", encoder_num_layers=50,
                  enable_modulation=True, modulation_type="NOISE",
                  warp_scale=0.02, cycle_align=1, mod_btn=None, diff_fAndg=True,
-                 blend_with_gen=True, blend_cnt=1, dtype="float32"):
+                 blend_with_gen=True, blend_cnt=1, dtype="float32",
+                 packed_tail=False, tail_kernel="none"):
         super().__init__()
         if encoder != "E4E" or modulation_type != "NOISE" or mod_btn is not None:
             raise NotImplementedError(
@@ -55,7 +58,8 @@ class OODFaceGANE4E(nn.Module):
                                        cycle_align=cycle_align,
                                        diff_f_and_g=diff_fAndg)
                 for s in sizes)
-        self.generator = Generator(out_size, style_dim, channel_multiplier, narrow)
+        self.generator = Generator(out_size, style_dim, channel_multiplier, narrow,
+                                   packed_tail=packed_tail, tail_kernel=tail_kernel)
         self.avg_latent = nn.Parameter(torch.empty(1, style_dim))
         self.delta_latent = nn.Parameter(torch.empty(1, self.style_cnt, style_dim))
 

@@ -39,10 +39,13 @@ def load_editing_direction(path, name, intensity=1.0):
 
 
 class InversionEngine:
-    def __init__(self, opt, params=None, seed: int = 0, device="cuda"):
+    def __init__(self, opt, params=None, seed: int = 0, device="cuda",
+                 packed_tail: bool = False, tail_kernel: str = "none"):
         """opt: option dict with `network_g`; params: a state_dict of the
         arch (e.g. from convert.from_jax_params), loaded strictly; without
-        it the weights are drawn from `seed`."""
+        it the weights are drawn from `seed`. packed_tail, tail_kernel: how
+        the generator computes its >=512px stages (nn/stylegan2.py); the
+        default is the unpacked tail."""
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -51,6 +54,7 @@ class InversionEngine:
         g_opt = {k: v for k, v in opt["network_g"].items()
                  if not (k.endswith("_pth") or k.endswith("_pth_key")
                          or k in _NON_ARCH_KEYS)}
+        g_opt.update(packed_tail=packed_tail, tail_kernel=tail_kernel)
         self.out_size = opt["network_g"].get("out_size", 1024)
         self.mod_size = opt["network_g"].get("ModSize") or 256
         with torch.device(self.device):
