@@ -15,9 +15,13 @@
    same engine with the phase-packed >=512px tail, plain and through each
    packed kernel ("pair": B3, "stage": B4), each path with the launch
    counts set to 0 just before it and read just after, and checks it
-   against the unpacked engine. Then holds the slice on the card against
-   the same slice on the CPU at a small width, unpacked and with the
-   whole-stage kernel.
+   against the unpacked engine. Then drives the engine with AlignNet's
+   body0 through the fused kernels ("fused": B2a, B2b) and through the
+   conv3x3 + activation kernel ("literal" + samm_conv_kernel: B5), checks
+   each against the default engine, and times all three. Then holds the
+   slice on the card against the same slice on the CPU at a small width,
+   unpacked, with the whole-stage kernel, and in both body0 modes. Then
+   runs the halo probe, the box-sum kernel's own path, against its oracle.
 4. Prints the card's name and power limit, one JSON line describing the
    kernels, and as the last line {"ok": true, "device": {...}}.
 
@@ -56,6 +60,18 @@ PACKED_TOL, PACKED_TOL_BF16 = 1e-4, 2.0 ** -7
 # the packed-tail engines against the unpacked one on the same image, seed
 # and noise: float32, the tail's sums in another order
 TAIL_RTOL = 1e-4
+# AlignNet body0 at the four SAMM scales of the 1024px model: (H = W, C);
+# conv1 and conv2 are 2C -> 2C
+SAMM_SCALES = [(32, 512), (64, 512), (128, 256), (256, 128)]
+# body0 kernels against their plain versions: float32 within 1e-4 of
+# max|ref| (sums over up to K = 9 * 1024 terms in another order than
+# cuDNN); bfloat16 operands within 2^-7 of max|ref| of the plain version on
+# the same rounded operands in float32 (the kernels round x1 and their
+# output to bfloat16)
+SAMM_TOL, SAMM_TOL_BF16 = 1e-4, 2.0 ** -7
+# the body0-mode engines against the default engine: SAMM moves the flows,
+# so a float32 difference in body0 moves sample positions
+BODY0_RTOL = 1e-3
 
 
 def log(msg):
@@ -118,7 +134,8 @@ def bound_ms(flops, nbytes, peak):
 def phase_build():
     from ood_gan_inversion_tpu_torch import build
     t0 = time.time()
-    logs = build.build_all(["warp_blend", "packed_pair", "packed_stage"])
+    logs = build.build_all(["warp_blend", "packed_pair", "packed_stage", "samm_conv",
+                            "halo_probe"])
     log(f"[build] nvcc sm_90a: {sorted(logs)} in {time.time() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -387,6 +404,199 @@ def phase_packed_kernels():
     return entries
 
 
+def samm_operands(b, h, c, seed):
+    """AlignNet body0's operands on the card at O(1) activations: raw
+    features s, t (B, C, H, H), norm1/norm2 affines, kernels k1, k2
+    (2C, 2C, 3, 3) scaled by 1/sqrt(fan-in), PReLU slopes; the coefficients
+    of (s, t), and x1, the concat that the literal path convolves."""
+    from ood_gan_inversion_tpu_torch.ops.alignnet import _alignnet_coeffs
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c2 = 2 * c
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale + shift
+
+    a = {"s": rn(b, c, h, h), "t": rn(b, c, h, h, scale=2.0, shift=0.3),
+         "g1": rn(c2, scale=0.1, shift=1.0), "b1": rn(c2, scale=0.1),
+         "k1": rn(c2, c2, 3, 3, scale=(9 * c2) ** -0.5), "alpha": rn(c2, scale=0.05, shift=0.25),
+         "k2": rn(c2, c2, 3, 3, scale=(9 * c2) ** -0.5),
+         "g2": rn(c2, scale=0.1, shift=1.0), "b2": rn(c2, scale=0.1)}
+    a["coeffs"] = _alignnet_coeffs(a["s"], a["t"], a["g1"], a["b1"], True, 1e-5)[0]
+    a["x1"] = body0_x1(a)
+    return a
+
+
+def body0_x1(a):
+    """norm1(concat) from (s, t) and the coefficients: conv1's input."""
+    cf = [a["coeffs"][:, i, :, None, None] for i in range(5)]
+    return torch.cat([cf[0] * a["s"] + cf[1] * a["t"] + cf[2], cf[3] * a["t"] + cf[4]], 1)
+
+
+def first(out):
+    """The main output of a kernel or its plain version: y2 of B2b's
+    (y2, moments), the tensor itself otherwise."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def conv_moments(z, k):
+    """The yardstick of B2b: cuDNN conv, then the moment sums."""
+    y = F.conv2d(z, k, padding=1)
+    return y, torch.stack([y.sum((2, 3)), (y * y).sum((2, 3))], 1)
+
+
+def phase_samm_kernels():
+    """B2a (alignnet_conv1), B2b (alignnet_conv2) and B5 (conv3x3_act)
+    against their plain versions at AlignNet body0's launch shapes at the
+    four SAMM scales of the 1024px model (b = 1, and b = 2 at 64px),
+    float32 and bfloat16 operands; times and bounds; and the whole body0
+    fused against the port's algebraic body0. Per image = b = 1, 2 align
+    cycles per scale: B2a 8 launches, B2b 8, B5 16 (conv1 + PReLU and
+    conv2 in each cycle)."""
+    from ood_gan_inversion_tpu_torch.ops import alignnet as an
+    from ood_gan_inversion_tpu_torch.ops.samm_conv import conv3x3_act, conv3x3_act_reference
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    ids = ("B2a", "B2b", "B5")
+    per_image = {k: dict.fromkeys(keys, 0.0) for k in ids}
+    max_err = dict.fromkeys(ids, 0.0)
+    bound_by = {k: {} for k in ids}
+    body0 = {"fused": 0.0, "algebraic": 0.0}
+    bf16 = lambda v: v.to(torch.bfloat16)
+    for h, c in SAMM_SCALES:
+        for b in ((1, 2) if h == 64 else (1,)):
+            a = samm_operands(b, h, c, seed=h + c + b)
+            c2, px = 2 * c, b * h * h
+            conv_flops = 2 * 9 * px * c2 * c2
+            conv1 = (a["s"], a["t"], a["coeffs"], a["k1"], a["alpha"])
+            z = an.alignnet_conv1_reference(*conv1)
+            s_b, t_b, k1_b, k2_b, z_b = map(bf16, (a["s"], a["t"], a["k1"], a["k2"], z))
+            runs = {
+                # id: (kernel, plain, library, bf16 kernel, bf16 plain on the
+                # same rounded operands, flops, bytes at an itemsize)
+                "B2a": (lambda: an.alignnet_conv1(*conv1),
+                        lambda: an.alignnet_conv1_reference(*conv1),
+                        lambda: F.prelu(F.conv2d(body0_x1(a), a["k1"], padding=1), a["alpha"]),
+                        lambda: an.alignnet_conv1(s_b, t_b, a["coeffs"], k1_b, a["alpha"]),
+                        lambda: an.alignnet_conv1_reference(s_b.float(), t_b.float(), a["coeffs"],
+                                                            k1_b.float(), a["alpha"]),
+                        conv_flops + 6 * px * c2,
+                        lambda isz: (2 * px * c + 9 * c2 * c2 + px * c2) * isz
+                        + 4 * (5 * b * c + c2)),
+                "B2b": (lambda: an.alignnet_conv2(z, a["k2"]),
+                        lambda: an.alignnet_conv2_reference(z, a["k2"]),
+                        lambda: conv_moments(z, a["k2"]),
+                        lambda: an.alignnet_conv2(z_b, k2_b),
+                        lambda: an.alignnet_conv2_reference(z_b.float(), k2_b.float()),
+                        conv_flops + 3 * px * c2,
+                        lambda isz: (px * c2 + 9 * c2 * c2) * isz + 4 * (px * c2 + 2 * b * c2)),
+                "B5 conv1": (lambda: conv3x3_act(a["x1"], a["k1"], a["alpha"], "prelu"),
+                             lambda: conv3x3_act_reference(a["x1"], a["k1"], a["alpha"], "prelu"),
+                             lambda: F.prelu(F.conv2d(a["x1"], a["k1"], padding=1), a["alpha"]),
+                             lambda: conv3x3_act(bf16(a["x1"]), k1_b, a["alpha"], "prelu"),
+                             lambda: conv3x3_act_reference(bf16(a["x1"]).float(), k1_b.float(),
+                                                           a["alpha"], "prelu"),
+                             conv_flops + 2 * px * c2,
+                             lambda isz: (2 * px * c2 + 9 * c2 * c2) * isz + 4 * c2),
+                "B5 conv2": (lambda: conv3x3_act(z, a["k2"], None, "none"),
+                             lambda: conv3x3_act_reference(z, a["k2"], None, "none"),
+                             lambda: F.conv2d(z, a["k2"], padding=1),
+                             lambda: conv3x3_act(z_b, k2_b, None, "none"),
+                             lambda: conv3x3_act_reference(z_b.float(), k2_b.float(), None, "none"),
+                             conv_flops,
+                             lambda isz: (2 * px * c2 + 9 * c2 * c2) * isz),
+            }
+            for name, (kern, plain, lib, kern_b, plain_b, flops, nbytes) in runs.items():
+                what = f"{name} {h}px b={b} ({c2}->{c2})"
+                got, ref = kern(), plain()
+                err = check_close(what, first(got), first(ref), SAMM_TOL)[0]
+                # B2b's moments, each row against its own max|ref|
+                moments = [check_close(f"{what} moments {m}", got[1][:, m], ref[1][:, m],
+                                       SAMM_TOL) for m in range(2) if name == "B2b"]
+                moment_text = "".join(f", sum y{'^2' if m else ''} rel err {e / l * SAMM_TOL:.2e}"
+                                      for m, (e, l) in enumerate(moments))
+                # B2b's bfloat16 run reads the same operands as its plain version
+                errb, limb = check_close(f"{what} bf16", first(kern_b()), first(plain_b()),
+                                         SAMM_TOL if name == "B2b" else SAMM_TOL_BF16)
+                lib_diff = float((first(lib()) - first(ref)).abs().max())
+                t = {"ms": time_ms(kern, iters=10), "plain_ms": time_ms(plain, iters=10),
+                     "library_ms": time_ms(lib, iters=10)}
+                msb = time_ms(kern_b, iters=10)
+                t["bound_ms"], by = bound_ms(flops, nbytes(4), FP32_FLOPS)
+                bf16_ms, bf16_by = bound_ms(flops, nbytes(2), BF16_FLOPS)
+                log(f"[kernel] {what}: fp32 max|err| {err:.3e} (<= {SAMM_TOL:.0e} of max|ref|)"
+                    f"{moment_text}, "
+                    f"bf16 {errb:.3e} <= {limb:.3e}; kernel {t['ms']:.4f} ms "
+                    f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, "
+                    f"cudnn+epilogue {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); bound "
+                    f"{t['bound_ms']:.4f} ms ({by}: {bound_parts(flops, nbytes(4), FP32_FLOPS)}; "
+                    f"{flops / 1e9:.2f} GFLOP); bf16 kernel {msb:.4f} ms, bound {bf16_ms:.4f} ms "
+                    f"({bf16_by})")
+                kid = name.split()[0]
+                max_err[kid] = max(max_err[kid], err)
+                if b == 1:      # the main path: 2 align cycles per scale per image
+                    bound_by[kid][by] = bound_by[kid].get(by, 0.0) + 2 * t["bound_ms"]
+                    for key in keys:
+                        per_image[kid][key] += 2 * t[key]
+            args = [a[k] for k in ("s", "t", "g1", "b1", "k1", "alpha", "k2", "g2", "b2")]
+            fused = an.fused_alignnet_body0(*args, True)
+            alg = an.algebraic_alignnet_body0(*args, True)
+            err, lim = check_close(f"body0 {h}px b={b} fused vs algebraic", fused, alg, SAMM_TOL)
+            tf = time_ms(lambda: an.fused_alignnet_body0(*args, True), iters=10)
+            ta = time_ms(lambda: an.algebraic_alignnet_body0(*args, True), iters=10)
+            log(f"[kernel] body0 {h}px b={b} C={c}: fused {tf:.4f} ms, algebraic {ta:.4f} ms "
+                f"(no t-context), max|diff| {err:.3e} <= {lim:.3e}")
+            if b == 1:
+                body0["fused"] += 2 * tf
+                body0["algebraic"] += 2 * ta
+    log(f"[kernel] body0 per image (8 calls, b=1): fused {body0['fused']:.4f} ms, "
+        f"algebraic {body0['algebraic']:.4f} ms")
+    entries = []
+    for kid, name, line in (("B2a", "alignnet_conv1", 982), ("B2b", "alignnet_conv2", 1005),
+                            ("B5", "conv3x3_act", 517)):
+        log(f"[kernel] {kid} {name} per image (b=1): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in per_image[kid].items()))
+        entries.append({"name": name, "route": "cuda",
+                        "source": "ood_gan_inversion_tpu_torch/csrc/samm_conv.cu",
+                        "replaces": f"ood_gan_inversion_tpu/ops/pallas_kernels.py:{line}",
+                        "max_abs_err": max_err[kid],
+                        "bound_by": max(bound_by[kid], key=bound_by[kid].get),
+                        **per_image[kid]})
+    return entries
+
+
+def phase_probe():
+    """The halo probe's own path: the box sum of the probe's input, a
+    (32, 32) float32 array from numpy seed 0, through box3x3 with the counts
+    set to 0 just before and read just after; held against its plain version
+    and against the oracle (a convolution with a ones kernel); timed."""
+    from ood_gan_inversion_tpu_torch.ops.halo_probe import box3x3, box3x3_reference
+    x = torch.from_numpy(np.random.RandomState(0).randn(32, 32).astype(np.float32)).cuda()
+    reset_counts()
+    out = box3x3(x)
+    torch.cuda.synchronize()
+    launches = read_counts()["box3x3"]
+    if launches != 1:
+        raise AssertionError(f"probe: {launches} box3x3 launches, expected 1")
+    ref = box3x3_reference(x)
+    oracle = lambda: F.conv2d(x[None, None], torch.ones(1, 1, 3, 3, device="cuda"),
+                              padding=1)[0, 0]
+    if not torch.equal(out, ref):
+        raise AssertionError("probe: box3x3 differs from its plain version")
+    err = float((out - oracle()).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"probe: box3x3 vs the oracle max|err| {err} > 1e-5")
+    t = {"ms": time_ms(lambda: box3x3(x)), "plain_ms": time_ms(lambda: box3x3_reference(x)),
+         "library_ms": time_ms(oracle)}
+    t["bound_ms"], by = bound_ms(8 * x.numel(), 2 * 4 * x.numel(), FP32_FLOPS)
+    log(f"[probe] box3x3 (32, 32): equal to its plain version, max|err| vs the oracle "
+        f"{err:.3e} <= 1e-5; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"conv2d {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms ({by}); launches "
+        f"{launches}")
+    return {"name": "box3x3", "route": "cuda",
+            "source": "ood_gan_inversion_tpu_torch/csrc/halo_probe.cu",
+            "replaces": "tools/prof/prof_pallas_halo.py:23", "launches": launches,
+            "max_abs_err": float((out - ref).abs().max()), "bound_by": by, **t}
+
+
 def e4e_opt(**overrides):
     """options/test/E4E_Face_test.yml `network_g`, as a dict."""
     g = {"type": "ood_faceGAN_e4e", "out_size": 1024, "style_dim": 512,
@@ -407,14 +617,24 @@ def noisy(engine):
     return engine
 
 
-KERNEL_COUNTERS = ("warp_blend", "fused_conv3x3_act", "fused_packed_stage")
+KERNEL_COUNTERS = ("warp_blend", "fused_conv3x3_act", "fused_packed_stage",
+                   "alignnet_conv1", "alignnet_conv2", "conv3x3_act", "box3x3")
 
 
 def counters():
+    from ood_gan_inversion_tpu_torch.ops.alignnet import alignnet_conv1, alignnet_conv2
+    from ood_gan_inversion_tpu_torch.ops.halo_probe import box3x3
     from ood_gan_inversion_tpu_torch.ops.packed_conv import (
         fused_conv3x3_act, fused_packed_stage)
+    from ood_gan_inversion_tpu_torch.ops.samm_conv import conv3x3_act
     from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend
-    return dict(zip(KERNEL_COUNTERS, (warp_blend, fused_conv3x3_act, fused_packed_stage)))
+    return dict(zip(KERNEL_COUNTERS, (warp_blend, fused_conv3x3_act, fused_packed_stage,
+                                      alignnet_conv1, alignnet_conv2, conv3x3_act, box3x3)))
+
+
+def expected_counts(**launches):
+    """Every kernel's count: 0 except the ones given."""
+    return {**dict.fromkeys(KERNEL_COUNTERS, 0), **launches}
 
 
 def reset_counts():
@@ -477,7 +697,7 @@ def phase_main_path():
     engine.invert(imgs[0], seed=7)           # warm-up: cuDNN plans, libraries
     torch.cuda.synchronize()
     alone, batch, launches, ms_single, ms_batch = drive(engine, imgs)
-    want = {"warp_blend": 8 * 4, "fused_conv3x3_act": 0, "fused_packed_stage": 0}
+    want = expected_counts(warp_blend=8 * 4)
     if launches != want:
         raise AssertionError(f"default path launched {launches}, expected {want}")
     check_replies("default", alone, batch)
@@ -507,8 +727,8 @@ def phase_packed_tail(engine, imgs, replies):
         eng.invert(imgs[0], seed=7)          # warm-up
         torch.cuda.synchronize()
         alone, batch, counts, _, _ = drive(eng, imgs)
-        want = {"warp_blend": 8 * 4, "fused_conv3x3_act": 0, "fused_packed_stage": 0}
-        want.update({k: 4 * v for k, v in per_image[kern].items()})
+        want = expected_counts(warp_blend=8 * 4,
+                               **{k: 4 * v for k, v in per_image[kern].items()})
         if counts != want:
             raise AssertionError(f"packed tail {kern!r} launched {counts}, expected {want}")
         check_replies(f"packed tail {kern!r}", alone, batch)
@@ -545,38 +765,111 @@ def phase_packed_tail(engine, imgs, replies):
     return launches
 
 
+def phase_samm_body0(engine, imgs, replies):
+    """The same engine's weights with AlignNet's body0 through the fused
+    kernels ("fused": B2a and B2b at every scale) and through the
+    conv3x3 + activation kernel ("literal" + samm_conv_kernel: B5 for both
+    body0 convs at every scale). Each path's launch counts, its replies
+    against the default engine's (lats bit-identical: the encoder runs
+    before any SAMM block; image, gen_image and mask within BODY0_RTOL of
+    max|ref|), per-seed determinism; then invert ms/img of the three,
+    5 interleaved rounds. Returns each kernel's count from its path."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    params = engine.net.state_dict()
+    engines, launches = {"algebraic (default)": engine}, {}
+    modes = {"fused": ({"samm_body0": "fused"},
+                       {"alignnet_conv1": 8, "alignnet_conv2": 8}),
+             "literal + B5": ({"samm_body0": "literal", "samm_conv_kernel": True},
+                              {"conv3x3_act": 16})}
+    for label, (kwargs, per_image) in modes.items():
+        eng = InversionEngine(e4e_opt(), params=params, device="cuda", **kwargs)
+        eng.invert(imgs[0], seed=7)          # warm-up
+        torch.cuda.synchronize()
+        alone, batch, counts, _, _ = drive(eng, imgs)
+        want = expected_counts(warp_blend=8 * 4, **{k: 4 * v for k, v in per_image.items()})
+        if counts != want:
+            raise AssertionError(f"body0 {label!r} launched {counts}, expected {want}")
+        check_replies(f"body0 {label!r}", alone, batch)
+        errs = {}
+        for got, ref in zip((alone, batch), replies):
+            if not torch.equal(got["lats"], ref["lats"]):
+                raise AssertionError(f"body0 {label!r}: lats differ from the default engine")
+            for k in ("image", "gen_image", "mask"):
+                err = float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+                if not err <= BODY0_RTOL:
+                    raise AssertionError(f"body0 {label!r} {k}: rel err {err} > {BODY0_RTOL}")
+                errs[k] = max(errs.get(k, 0.0), err)
+        log(f"[main] body0 {label!r}: launches {counts}; lats bit-identical to the default "
+            f"engine; max rel err image {errs['image']:.2e}, gen_image "
+            f"{errs['gen_image']:.2e}, mask {errs['mask']:.2e} <= {BODY0_RTOL}; "
+            "slot 2 == the lone request: True")
+        launches.update({k: counts[k] for k in per_image})
+        engines[label] = eng
+    reps = {name: [] for name in engines}
+    for i in range(5):
+        for name, eng in engines.items():
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            eng.invert(imgs[i % 3], seed=i)
+            b.record()
+            b.synchronize()
+            reps[name].append(a.elapsed_time(b))
+    for name, r in reps.items():
+        log(f"[main] invert ms/img, body0 {name}, 5 interleaved rounds: median "
+            f"{float(np.median(r)):.2f}, all {[round(v, 2) for v in r]}")
+    return launches
+
+
 def phase_small_reference():
     """The slice at a small width on the card (kernels) against the same
     weights on the CPU (plain versions), the port's CPU path being the one
-    the tests hold against the JAX package: unpacked, and with the packed
-    tail through the whole-stage kernel."""
+    the tests hold against the JAX package: unpacked, with the packed tail
+    through the whole-stage kernel, and with body0 "fused" and "literal" +
+    B5, the gates' channel floors lowered so that every SAMM scale runs
+    the kernels."""
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    from ood_gan_inversion_tpu_torch.ops import alignnet, samm_conv
     opt = e4e_opt(out_size=512, channel_multiplier=1, narrow=0.25,
                   encoder_num_layers=4)
     params = noisy(InversionEngine(opt, seed=SEED + 1, device="cuda")).net.state_dict()
     img = np.random.RandomState(SEED + 1).rand(512, 512, 3).astype(np.float32)
     x = torch.from_numpy(img[None] * 2.0 - 1.0)
-    for tail in ({}, {"packed_tail": True, "tail_kernel": "stage"}):
-        gpu = InversionEngine(opt, params=params, device="cuda", **tail)
-        cpu = InversionEngine(opt, params=params, device="cpu", **tail)
-        # the same noise on both devices: draw it on the CPU, copy to the card
-        noise = cpu.net.generator.make_noise(
-            1, torch.Generator().manual_seed(3), torch.device("cpu"))
-        reset_counts()
-        with torch.inference_mode():
-            ref = cpu.net(x, mod_size=256, noise=noise)
-            out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
-        torch.cuda.synchronize()
-        stages = read_counts()["fused_packed_stage"]
-        if stages != (1 if tail else 0):
-            raise AssertionError(f"small slice {tail}: {stages} stage launches")
-        for k in ("image", "mask", "gen_image"):
-            r = ref[k].numpy()
-            err = float(np.abs(out[k].cpu().numpy() - r).max() / np.abs(r).max())
-            if not err <= 1e-3:
-                raise AssertionError(f"small slice {tail} {k}: card vs CPU rel err {err}")
-            log(f"[check] small slice (512px, tail {tail or 'unpacked'}) {k}: card "
-                f"vs CPU max rel err {err:.2e}")
+    # (what, engine options, launches of the card's forward); SAMM C is 128,
+    # 64, 32, 16 at 32..256px, so 2C >= 32 everywhere
+    cases = [("unpacked", {}, {}),
+             ("packed tail, stage kernel", {"packed_tail": True, "tail_kernel": "stage"},
+              {"fused_packed_stage": 1}),
+             ("body0 fused", {"samm_body0": "fused"},
+              {"alignnet_conv1": 8, "alignnet_conv2": 8}),
+             ("body0 literal + B5", {"samm_body0": "literal", "samm_conv_kernel": True},
+              {"conv3x3_act": 16})]
+    floors = (alignnet.FUSED_MIN_CHANNELS, samm_conv.CONV_ACT_MIN_CHANNELS)
+    alignnet.FUSED_MIN_CHANNELS, samm_conv.CONV_ACT_MIN_CHANNELS = 16, 32
+    try:
+        for what, kwargs, launches in cases:
+            gpu = InversionEngine(opt, params=params, device="cuda", **kwargs)
+            cpu = InversionEngine(opt, params=params, device="cpu", **kwargs)
+            # the same noise on both devices: draw it on the CPU, copy to the card
+            noise = cpu.net.generator.make_noise(
+                1, torch.Generator().manual_seed(3), torch.device("cpu"))
+            with torch.inference_mode():
+                ref = cpu.net(x, mod_size=256, noise=noise)
+                reset_counts()
+                out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
+                torch.cuda.synchronize()
+                counts = read_counts()
+            want = expected_counts(warp_blend=8, **launches)
+            if counts != want:
+                raise AssertionError(f"small slice {what}: launched {counts}, expected {want}")
+            for k in ("image", "mask", "gen_image"):
+                r = ref[k].numpy()
+                err = float(np.abs(out[k].cpu().numpy() - r).max() / np.abs(r).max())
+                if not err <= 1e-3:
+                    raise AssertionError(f"small slice {what} {k}: card vs CPU rel err {err}")
+                log(f"[check] small slice (512px, {what}) {k}: card vs CPU max rel err "
+                    f"{err:.2e}")
+    finally:
+        alignnet.FUSED_MIN_CHANNELS, samm_conv.CONV_ACT_MIN_CHANNELS = floors
 
 
 def main():
@@ -591,12 +884,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
-    entries = [phase_kernels(), *phase_packed_kernels()]
+    entries = [phase_kernels(), *phase_packed_kernels(), *phase_samm_kernels()]
     entries[0]["launches"], engine, imgs, replies = phase_main_path()
-    tail = phase_packed_tail(engine, imgs, replies)
+    launches = phase_packed_tail(engine, imgs, replies)
+    launches.update(phase_samm_body0(engine, imgs, replies))
     for e in entries[1:]:
-        e["launches"] = tail[e["name"]]
+        e["launches"] = launches[e["name"]]
     phase_small_reference()
+    entries.append(phase_probe())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]

@@ -8,9 +8,11 @@ Layout. The public entry points (`archs.ood_e4e.OODFaceGANE4E.forward` and
 `infer.InversionEngine`) take and return NHWC tensors, like the JAX package.
 Inside, activations are NCHW (PyTorch's convolution layout) and weights are
 OIHW; the SAMM warp-blend kernel reads and writes NHWC, so `nn/samm.py`
-permutes its feature around that one call. The phase-packed >=512px tail
-(`nn/stylegan2.py:Generator.packed_stage`, off by default) works in NHWC
-from a stage's input to its outputs, as its kernels do.
+permutes its feature around that one call, while the AlignNet body0
+kernels (`ops/alignnet.py`, `ops/samm_conv.py`) read NCHW and OIHW as they
+are. The phase-packed >=512px tail (`nn/stylegan2.py:Generator.packed_stage`,
+off by default) works in NHWC from a stage's input to its outputs, as its
+kernels do.
 
 Devices. Entry points run on `cuda` unless the caller passes
 `device="cpu"`; with no GPU and no explicit CPU request they raise

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..nn.encoders.e4e import Encoder4Editing
 from ..nn.layers import Conv2dTorch
-from ..nn.samm import StyledScaleNShiftBlock
+from ..nn.samm import StyledScaleNShiftBlock, check_samm_options
 from ..nn.stylegan2 import STYLEGAN2_CHANNELS, Generator
 from ..ops.resize import resize_bilinear
 from .common import blend_and_pack, cond_layers_for, conditioned_decode
@@ -28,15 +28,19 @@ def _nhwc(x):
 class OODFaceGANE4E(nn.Module):
     """Constructor keys mirror the `network_g` schema of the YAML configs;
     packed_tail and tail_kernel choose how the generator computes its
-    >=512px stages (nn/stylegan2.py) and add no parameter."""
+    >=512px stages (nn/stylegan2.py), samm_body0 and samm_conv_kernel how
+    the SAMM blocks compute AlignNet's body0 (nn/samm.py); none of them adds
+    a parameter."""
 
     def __init__(self, out_size=1024, style_dim=512, channel_multiplier=2,
                  narrow=1.0, encoder="E4E", encoder_num_layers=50,
                  enable_modulation=True, modulation_type="NOISE",
                  warp_scale=0.02, cycle_align=1, mod_btn=None, diff_fAndg=True,
                  blend_with_gen=True, blend_cnt=1, dtype="float32",
-                 packed_tail=False, tail_kernel="none"):
+                 packed_tail=False, tail_kernel="none", samm_body0="algebraic",
+                 samm_conv_kernel=False):
         super().__init__()
+        check_samm_options(samm_body0, samm_conv_kernel)
         if encoder != "E4E" or modulation_type != "NOISE" or mod_btn is not None:
             raise NotImplementedError(
                 "ported: encoder='E4E', modulation_type='NOISE', mod_btn=None")
@@ -56,7 +60,9 @@ class OODFaceGANE4E(nn.Module):
             self.modulation = nn.ModuleList(
                 StyledScaleNShiftBlock(channels[s], warp_scale=warp_scale,
                                        cycle_align=cycle_align,
-                                       diff_f_and_g=diff_fAndg)
+                                       diff_f_and_g=diff_fAndg,
+                                       samm_body0=samm_body0,
+                                       samm_conv_kernel=samm_conv_kernel)
                 for s in sizes)
         self.generator = Generator(out_size, style_dim, channel_multiplier, narrow,
                                    packed_tail=packed_tail, tail_kernel=tail_kernel)

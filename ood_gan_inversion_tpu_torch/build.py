@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 sm_90a into `build/ogi_torch_kernels/lib<name>-<hash>.so` at the root of the
-checkout (the hash is of the source, so an edited kernel is rebuilt), then
-loaded with ctypes. The build happens at the first launch on a CUDA tensor;
+checkout, then loaded with ctypes. The hash covers the source, every shared
+header `csrc/*.cuh` and the compiler flags, so an edited kernel or header is
+rebuilt. The build happens at the first launch on a CUDA tensor;
 `build_all()` compiles several sources at once, one nvcc each, started
 together.
 """
@@ -36,7 +37,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -12,12 +12,25 @@ the joint moments are known, so norm1(h) = [as*s + at*t + b1, ct*t + b2]
 and conv1 splits into a conv of the s-dependent half plus a conv of the
 t-only half. Within one SAMM block the encoder feature t does not change
 across align cycles, so `alignnet_t_context` computes the t-only half once.
-This is plain PyTorch, the JAX package's default path; the TPU kernels that
-fuse it (B2) are ported in a later slice.
+`algebraic_alignnet_body0` is plain PyTorch, the JAX package's default path.
+
+`fused_alignnet_body0` computes the same body0 with two hand-written CUDA
+kernels (csrc/samm_conv.cu) between plain PyTorch passes: the coefficients,
+then `alignnet_conv1` (x1 built on chip, conv1, PReLU), then
+`alignnet_conv2` (conv2 and norm2's moments), then the norm2 affine and the
+shortcut. Each wrapper launches its kernel for CUDA tensors and runs its
+plain version (`alignnet_conv1_reference`, `alignnet_conv2_reference`) for
+CPU tensors, and counts its launches in `.launches`.
 """
 
 import torch
 import torch.nn.functional as F
+
+from .cuda_call import activation, entry, expect, launch, on_card
+
+# the channel floor of the fused path (C, as in JAX); tests lower it to run
+# narrow widths through the kernels
+FUSED_MIN_CHANNELS = 64
 
 
 def _mean_hw(x):
@@ -149,3 +162,102 @@ def algebraic_alignnet_body0(s, t, g1, b1, k1, alpha, k2, g2, b2,
     bb = _cv(b2[None].float()) - mu2 * kk
     h = torch.cat([h1, h2], dim=1)
     return ((y2f * kk + bb).to(s.dtype) + h).to(s.dtype)
+
+
+# ------------------------------------------------------- fused body0 (B2)
+
+def alignnet_body0_supported(c: int) -> bool:
+    """Whether body0 over C-channel features takes the fused path. JAX also
+    requires 2C <= 512, because its TPU kernels block the whole 3x3 weights
+    into VMEM; the CUDA kernels stream the weights through shared memory in
+    chunks, so the port keeps only the channel floor and runs every SAMM
+    scale of the 1024px model (2C up to 1024) fused."""
+    return c >= FUSED_MIN_CHANNELS
+
+
+def alignnet_conv1_reference(s, t, coeffs, k1, alpha):
+    """The plain version of the first fused kernel: x1 = [as*s + at*t + b1,
+    ct*t + b2] (coeffs (B, 5, C) float32), in s.dtype, zero outside the
+    image; z = prelu(conv3x3(x1, k1)). s, t (B, C, H, W); k1 (2C, 2C, 3, 3);
+    alpha (2C,). Returns z (B, 2C, H, W) in s.dtype."""
+    s32, t32 = s.float(), t.float()
+    as_, at_, b1h, ct_, b2h = (_cv(coeffs[:, i]) for i in range(5))
+    x1 = torch.cat([as_ * s32 + at_ * t32 + b1h, ct_ * t32 + b2h], dim=1).to(s.dtype)
+    z = _conv(x1, k1)
+    return torch.where(z >= 0, z, _cv(alpha[None].to(z.dtype)) * z)
+
+
+def alignnet_conv2_reference(z, k2):
+    """The plain version of the second fused kernel: y2 = conv3x3(z, k2) in
+    float32 and part (B, 2, 2C) = [sum y2, sum y2^2] over H, W."""
+    y2 = _conv(z, k2).float()
+    return y2, torch.stack([y2.sum(dim=(2, 3)), (y2 * y2).sum(dim=(2, 3))], dim=1)
+
+
+def alignnet_conv1(s, t, coeffs, k1, alpha):
+    """B2a: arguments and result as alignnet_conv1_reference; s, t and k1
+    float32 or bfloat16 (the same), coeffs and alpha float32."""
+    dtype = activation(s, "alignnet_conv1")
+    b, c, h, w = s.shape
+    expect("t", t, s.shape, s.dtype)
+    expect("coeffs", coeffs, (b, 5, c), torch.float32)
+    expect("k1", k1, (2 * c, 2 * c, 3, 3), s.dtype)
+    expect("alpha", alpha, (2 * c,), torch.float32)
+    if not on_card("alignnet_conv1", (s, t, coeffs, k1, alpha)):
+        return alignnet_conv1_reference(s, t, coeffs, k1, alpha)
+    z = s.new_empty((b, 2 * c, h, w))
+    launch("alignnet_conv1", entry("samm_conv", "ogi_alignnet_conv1", 6, 5), s,
+           *(v.data_ptr() for v in (s, t, coeffs, k1, alpha, z)), b, h, w, c, dtype)
+    alignnet_conv1.launches += 1
+    return z
+
+
+alignnet_conv1.launches = 0
+
+
+def alignnet_conv2(z, k2):
+    """B2b: y2 (B, 2C, H, W) float32 and part (B, 2, 2C) float32 as
+    alignnet_conv2_reference; z and k2 float32 or bfloat16 (the same). Each
+    block of the kernel writes the moments of its pixel tile into a scratch,
+    which a fixed-order pass then sums: no atomics, so the moments are
+    bit-identical from call to call and in every batch slot."""
+    dtype = activation(z, "alignnet_conv2")
+    b, c2, h, w = z.shape
+    expect("k2", k2, (c2, c2, 3, 3), z.dtype)
+    if not on_card("alignnet_conv2", (z, k2)):
+        return alignnet_conv2_reference(z, k2)
+    n_tiles = entry("samm_conv", "ogi_samm_conv_tiles", 0, 2, stream=False)(h, w)
+    y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)
+    tile_part = z.new_empty((b, n_tiles, 2, c2), dtype=torch.float32)
+    part = z.new_empty((b, 2, c2), dtype=torch.float32)
+    launch("alignnet_conv2", entry("samm_conv", "ogi_alignnet_conv2", 5, 5), z,
+           *(v.data_ptr() for v in (z, k2, y2, tile_part, part)), b, h, w, c2, dtype)
+    alignnet_conv2.launches += 1
+    return y2, part
+
+
+alignnet_conv2.launches = 0
+
+
+def fused_alignnet_body0(s, t, g1, b1, k1, alpha, k2, g2, b2,
+                         diff_f_and_g: bool = True, eps: float = 1e-5):
+    """body0 through the two fused kernels; arguments and result as
+    algebraic_alignnet_body0 (without t_ctx). The coefficients and the
+    shortcut halves come from the joint moments of (s, t); after the
+    kernels, norm2's affine comes from their moments: mu = sum y / n,
+    v = max(sum y^2 / n - mu^2, 0). Unlike JAX's kernels, these take
+    2C = 1024 (alignnet_body0_supported keeps only JAX's channel floor).
+    s and t may be strided views (SPMWarp's aligned feature is the NHWC
+    warp output permuted to NCHW); the kernels read them as contiguous NCHW
+    copies."""
+    n = s.shape[2] * s.shape[3]
+    s, t = s.contiguous(), t.contiguous()
+    coeffs, h1, h2 = _alignnet_coeffs(s.float(), t.float(), g1, b1, diff_f_and_g, eps)
+    z = alignnet_conv1(s, t, coeffs, k1.to(s.dtype), alpha.float())
+    y2, part = alignnet_conv2(z, k2.to(s.dtype))
+    mu2 = part[:, 0] / n
+    v2 = torch.clamp(part[:, 1] / n - mu2 * mu2, min=0.0)
+    kk = _cv(torch.rsqrt(v2 + eps) * g2.float())
+    bb = _cv(b2.float()[None] - mu2 * torch.rsqrt(v2 + eps) * g2.float())
+    h = torch.cat([h1, h2], dim=1)
+    return (y2 * kk + bb + h).to(s.dtype)

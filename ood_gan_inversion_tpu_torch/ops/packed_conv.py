@@ -20,17 +20,14 @@ bfloat16; noise, style scales, demodulation and biases in float32. The
 kernels sum in float32 and write their outputs in x's dtype.
 """
 
-import ctypes
-import functools
 import math
 
 import torch
 
-from .. import build
+from .cuda_call import DTYPES, entry, expect, launch, on_card
 from .polyphase import conv_packed
 
 SQRT2 = math.sqrt(2.0)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _per_sample(v: torch.Tensor, b: int) -> torch.Tensor:
@@ -74,45 +71,6 @@ def packed_stage_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
 
 # ------------------------------------------------------------- CUDA kernels
 
-@functools.cache
-def _conv_kernel():
-    """The C entry point of csrc/packed_pair.cu (built at first use)."""
-    fn = build.load("packed_pair").ogi_packed_conv3x3_act
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _stage_kernel():
-    """The C entry point of csrc/packed_stage.cu (built at first use)."""
-    fn = build.load("packed_stage").ogi_packed_stage
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _expect(name, t, shape, dtype):
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
-
-
-def _on_card(x, tensors):
-    """True for CUDA tensors, False for CPU tensors; raises on mixed
-    devices, other devices and non-contiguous operands."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on different devices: {devs}")
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"packed kernels run on cuda or cpu, not {x.device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("packed kernels take contiguous tensors")
-    return True
-
-
 def _vec(v, b, c):
     """A per-channel float32 operand as a contiguous (B, C) tensor."""
     if v.dtype != torch.float32 or v.shape[-1] != c:
@@ -123,27 +81,22 @@ def _vec(v, b, c):
 def fused_conv3x3_act(x, noise4, k, s_in, d_out, bias):
     """One fused packed conv (B3): arguments as packed_conv3x3_act_reference;
     x and k float32 or bfloat16 (the same), the rest float32."""
-    if x.dim() != 4 or x.dtype not in _DTYPES:
+    if x.dim() != 4 or x.dtype not in DTYPES:
         raise ValueError(f"x must be float32 or bfloat16 (B, H, W, Ci), got "
                          f"{x.dtype} {tuple(x.shape)}")
     b, h, w, ci = x.shape
     co = k.shape[-1]
     if co % 4:
         raise ValueError(f"output channels {co} are not 4 phases")
-    _expect("noise4", noise4, (b, h, w, 4), torch.float32)
-    _expect("k", k, (3, 3, ci, co), x.dtype)
-    if not _on_card(x, (x, noise4, k, s_in, d_out, bias)):
+    expect("noise4", noise4, (b, h, w, 4), torch.float32)
+    expect("k", k, (3, 3, ci, co), x.dtype)
+    if not on_card("fused_conv3x3_act", (x, noise4, k, s_in, d_out, bias)):
         return packed_conv3x3_act_reference(x, noise4, k, s_in, d_out, bias)
     s_in, d_out, bias = _vec(s_in, b, ci), _vec(d_out, b, co), _vec(bias, b, co)
-    fn = _conv_kernel()
     out = x.new_empty((b, h, w, co))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), noise4.data_ptr(), k.data_ptr(), s_in.data_ptr(),
-                 d_out.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 b, h, w, ci, co, _DTYPES[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"packed conv3x3 kernel launch failed: error {err}")
+    launch("packed conv3x3", entry("packed_pair", "ogi_packed_conv3x3_act", 7, 6), x,
+           *(t.data_ptr() for t in (x, noise4, k, s_in, d_out, bias, out)),
+           b, h, w, ci, co, DTYPES[x.dtype])
     fused_conv3x3_act.launches += 1
     return out
 
@@ -161,7 +114,7 @@ def fused_packed_pair(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2):
     it is two launches of the B3 kernel, the first writing z to device
     memory in x.dtype."""
     if x.device.type == "cpu":
-        _on_card(x, (x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2))
+        on_card("fused_packed_pair", (x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2))
         return packed_pair_reference(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2)
     z = fused_conv3x3_act(x, n1, k1, s1, d1, b1)
     return fused_conv3x3_act(z, n2, k2, s2, d2, b2)
@@ -181,7 +134,7 @@ def fused_packed_stage(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
     back to the pair kernel elsewhere; this kernel takes any channel count
     whose conv1 activation tile fits in shared memory, so the port runs it
     at both packed stages."""
-    if x.dim() != 4 or x.dtype not in _DTYPES:
+    if x.dim() != 4 or x.dtype not in DTYPES:
         raise ValueError(f"x must be float32 or bfloat16 (B, H, W, C1), got "
                          f"{x.dtype} {tuple(x.shape)}")
     b, h, w, c1 = x.shape
@@ -189,23 +142,23 @@ def fused_packed_stage(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
     if c4 % 4:
         raise ValueError(f"packed channels {c4} are not 4 phases")
     for name, t, shape in (("n1", n1, (b, h, w, 4)), ("n2", n2, (b, h, w, 4))):
-        _expect(name, t, shape, torch.float32)
+        expect(name, t, shape, torch.float32)
     for name, t, shape in (("skip", skip, (b, h, w, 3)), ("k1", k1, (3, 3, c1, c4)),
                            ("k2", k2, (3, 3, c4, c4)), ("k3sr", k3sr, (b, c4, 12)),
                            ("k4", k4, (3, 3, 3, 12))):
-        _expect(name, t, shape, x.dtype)
+        expect(name, t, shape, x.dtype)
     args = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4)
-    if not _on_card(x, args):
+    if not on_card("fused_packed_stage", args):
         return packed_stage_reference(*args)
     s1, b3 = _vec(s1, b, c1), _vec(b3, b, 12)
     d1, b1, s2, d2, b2 = (_vec(v, b, c4) for v in (d1, b1, s2, d2, b2))
-    fn = _stage_kernel()
+    fn = entry("packed_stage", "ogi_packed_stage", 17, 6)
     rgb, z2 = x.new_empty((b, h, w, 12)), x.new_empty((b, h, w, c4))
     ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(t.data_ptr() for t in ptrs), b, h, w, c1, c4,
-                 _DTYPES[x.dtype], stream)
+                 DTYPES[x.dtype], stream)
     if err == 1001:
         raise ValueError(f"packed stage kernel: the conv1 activation tile of "
                          f"C4={c4} {x.dtype} does not fit in shared memory")

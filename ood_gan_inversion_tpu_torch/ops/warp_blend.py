@@ -7,15 +7,10 @@ Counterpart of ops/pallas_warp.py (`_warp_kernel`, its variants v2-v4 and
 two. All tensors are NHWC.
 """
 
-import ctypes
-import functools
-
 import torch
 
-from .. import build
+from .cuda_call import DTYPES, entry, launch
 from .grid_sample import grid_sample_bilinear
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def warp_blend_reference(target: torch.Tensor, grid: torch.Tensor,
@@ -26,20 +21,11 @@ def warp_blend_reference(target: torch.Tensor, grid: torch.Tensor,
     return (warped * alpha + target * (1.0 - alpha)).to(target.dtype)
 
 
-@functools.cache
-def _kernel():
-    """The C entry point of csrc/warp_blend.cu (built at first use)."""
-    fn = build.load("warp_blend").ogi_warp_blend
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(target, grid, alpha):
     if target.dim() != 4:
         raise ValueError(f"target must be (B, H, W, C), got {tuple(target.shape)}")
     b, h, w, _ = target.shape
-    if target.dtype not in _DTYPES:
+    if target.dtype not in DTYPES:
         raise TypeError(f"target dtype {target.dtype} not supported "
                         "(float32 or bfloat16)")
     if tuple(grid.shape) != (b, h, w, 2) or grid.dtype != torch.float32:
@@ -66,15 +52,10 @@ def warp_blend(target: torch.Tensor, grid: torch.Tensor,
         return warp_blend_reference(target, grid, alpha)
     if target.device.type != "cuda":
         raise ValueError(f"warp_blend runs on cuda or cpu, not {target.device}")
-    fn = _kernel()
     out = torch.empty_like(target)
-    b, h, w, c = target.shape
-    with torch.cuda.device(target.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(target.data_ptr(), grid.data_ptr(), alpha.data_ptr(),
-                 out.data_ptr(), b, h, w, c, _DTYPES[target.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"warp_blend kernel launch failed: error {err}")
+    launch("warp_blend", entry("warp_blend", "ogi_warp_blend", 4, 5), target,
+           target.data_ptr(), grid.data_ptr(), alpha.data_ptr(), out.data_ptr(),
+           *target.shape, DTYPES[target.dtype])
     warp_blend.launches += 1
     return out
 

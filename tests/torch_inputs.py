@@ -49,3 +49,33 @@ def packed_stage_inputs(b, h, w, c1, c4, seed=0):
 
 
 PAIR_KEYS = ("x", "n1", "n2", "k1", "s1", "d1", "b1", "k2", "s2", "d2", "b2")
+
+
+def samm_body0_inputs(b, c, h, w, seed=0):
+    """Operands of AlignNet body0 over C-channel features, NCHW and OIHW,
+    at O(1) activations: raw features s, t (B, C, H, W), norm1's affine g1,
+    b1 (2C,), conv kernels k1, k2 (2C, 2C, 3, 3) scaled by 1/sqrt(fan-in),
+    PReLU slopes alpha (2C,), norm2's affine g2, b2 (2C,). float32 arrays."""
+    rs = np.random.RandomState(seed)
+    c2 = 2 * c
+    a = {
+        "s": rs.randn(b, c, h, w),
+        "t": 2.0 * rs.randn(b, c, h, w) + 0.3,
+        "g1": 1.0 + 0.1 * rs.randn(c2),
+        "b1": 0.1 * rs.randn(c2),
+        "k1": rs.randn(c2, c2, 3, 3) / np.sqrt(9 * c2),
+        "alpha": 0.25 + 0.05 * rs.randn(c2),
+        "k2": rs.randn(c2, c2, 3, 3) / np.sqrt(9 * c2),
+        "g2": 1.0 + 0.1 * rs.randn(c2),
+        "b2": 0.1 * rs.randn(c2),
+    }
+    return {k: v.astype(np.float32) for k, v in a.items()}
+
+
+def conv_act_inputs(b, ci, co, h, w, seed=0):
+    """x (B, Ci, H, W), k (Co, Ci, 3, 3) scaled by 1/sqrt(fan-in) and PReLU
+    slopes alpha (Co,), float32 arrays."""
+    rs = np.random.RandomState(seed)
+    return (rs.randn(b, ci, h, w).astype(np.float32),
+            (rs.randn(co, ci, 3, 3) / np.sqrt(9 * ci)).astype(np.float32),
+            (0.25 + 0.05 * rs.randn(co)).astype(np.float32))
