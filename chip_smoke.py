@@ -40,10 +40,11 @@ import torch
 import torch.nn.functional as F
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32
-# (non-tensor-core) and bf16 tensor-core rates. A card run below its 700 W
-# limit is slower.
+# (non-tensor-core), TF32 and bf16 tensor-core rates. A card run below its
+# 700 W limit is slower.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 SEED = 0
 WARP_SHAPES = [(256, 128), (128, 256), (64, 512), (32, 512)]   # (H = W, C)
@@ -242,6 +243,15 @@ def conv_flops(b, h, k):
     return 2 * px * k[..., 0, 0].numel() * k.shape[2] * k.shape[3], 2 * px * int((k != 0).sum())
 
 
+def tc_bound_ms(flops, nbytes, itemsize):
+    """The tensor-core bound of a convolution: float32 operands as 3xTF32
+    (three TF32 products for each float32 one, 3 * flops over 495 TFLOP/s),
+    bfloat16 ones as flops over 989 TFLOP/s; or bytes over HBM."""
+    if itemsize == 4:
+        return bound_ms(3 * flops, nbytes, TF32_FLOPS)
+    return bound_ms(flops, nbytes, BF16_FLOPS)
+
+
 def bound_parts(flops, nbytes, peak):
     """Both sides of a bound, as text: flops over `peak`, bytes over HBM."""
     return (f"ops {1e3 * flops / peak:.4f} ms, bytes "
@@ -272,7 +282,8 @@ def phase_packed_kernels():
     from ood_gan_inversion_tpu_torch.ops.packed_conv import (
         fused_conv3x3_act, fused_packed_stage, packed_conv3x3_act_reference,
         packed_stage_reference)
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one
+    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms")
     per_image = {"B3": dict.fromkeys(keys, 0.0), "B4": dict.fromkeys(keys, 0.0)}
     max_err = {"B3": 0.0, "B4": 0.0}
     bound_by = {"B3": {}, "B4": {}}        # per image: bound ms by what bounds it
@@ -311,14 +322,17 @@ def phase_packed_kernels():
                 epi = 5 * b * h * h * co
                 nbytes = lambda isz: ((b * h * h * (ci + co) + 9 * ci * co) * isz
                                       + b * h * h * 16 + 4 * b * (ci + 2 * co))
-                t["bound_ms"], by = bound_ms(useful + epi, nbytes(4), FP32_FLOPS)
+                t["bound_ms"], by = tc_bound_ms(useful + epi, nbytes(4), 4)
+                cc_ms, cc_by = bound_ms(useful + epi, nbytes(4), FP32_FLOPS)
+                t["cc_bound_ms"] = cc_ms
                 dense_ms, _ = bound_ms(dense + epi, nbytes(4), FP32_FLOPS)
-                bf16_ms, bf16_by = bound_ms(useful + epi, nbytes(2), BF16_FLOPS)
+                bf16_ms, bf16_by = tc_bound_ms(useful + epi, nbytes(2), 2)
                 log(f"[kernel] B3 {stage} {name} b={b} ({h}x{h}, {ci}->{co}): fp32 "
                     f"max|err| {err:.3e} <= {lim:.3e}, bf16 {errb:.3e} <= {limb:.3e}; "
                     f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                     f"cudnn+epilogue {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); "
-                    f"bound {t['bound_ms']:.4f} ms ({by}: "
+                    f"kernel {useful / t['ms'] / 1e9:.1f} useful TFLOP/s; bound: tensor cores "
+                    f"{t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms ({cc_by}: "
                     f"{bound_parts(useful + epi, nbytes(4), FP32_FLOPS)}; "
                     f"{useful / 1e9:.2f} useful GFLOP), dense {dense_ms:.4f} ms "
                     f"({dense / 1e9:.2f} GFLOP); "
@@ -370,14 +384,17 @@ def phase_packed_kernels():
             nbytes = lambda isz: ((px * (c1 + c4 + 12 + 3) + 9 * c4 * (c1 + c4)
                                    + b * c4 * 12 + 9 * 36) * isz
                                   + 2 * px * 16 + 4 * b * (c1 + 5 * c4 + 12))
-            t["bound_ms"], by = bound_ms(useful, nbytes(4), FP32_FLOPS)
+            t["bound_ms"], by = tc_bound_ms(useful, nbytes(4), 4)
+            cc_ms, cc_by = bound_ms(useful, nbytes(4), FP32_FLOPS)
+            t["cc_bound_ms"] = cc_ms
             dense_ms, _ = bound_ms(dense, nbytes(4), FP32_FLOPS)
-            bf16_ms, bf16_by = bound_ms(useful, nbytes(2), BF16_FLOPS)
+            bf16_ms, bf16_by = tc_bound_ms(useful, nbytes(2), 2)
             log(f"[kernel] B4 {stage} b={b} ({h}x{h}, {c1}->{c4}->{c4}, rgb 12): fp32 "
                 f"max|err| {err:.3e} <= {PACKED_TOL:.0e} of max|ref|, bf16 "
                 f"{errb:.3e}; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                 f"cudnn chain {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); "
-                f"bound {t['bound_ms']:.4f} ms ({by}: "
+                f"kernel {useful / t['ms'] / 1e9:.1f} useful TFLOP/s; bound: tensor cores "
+                f"{t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms ({cc_by}: "
                 f"{bound_parts(useful, nbytes(4), FP32_FLOPS)}; {useful / 1e9:.2f} useful GFLOP), "
                 f"dense {dense_ms:.4f} ms ({dense / 1e9:.2f} GFLOP); bf16 kernel "
                 f"{msb:.4f} ms, bound {bf16_ms:.4f} ms ({bf16_by})")
@@ -454,7 +471,8 @@ def phase_samm_kernels():
     conv2 in each cycle)."""
     from ood_gan_inversion_tpu_torch.ops import alignnet as an
     from ood_gan_inversion_tpu_torch.ops.samm_conv import conv3x3_act, conv3x3_act_reference
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one
+    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms")
     ids = ("B2a", "B2b", "B5")
     per_image = {k: dict.fromkeys(keys, 0.0) for k in ids}
     max_err = dict.fromkeys(ids, 0.0)
@@ -520,16 +538,19 @@ def phase_samm_kernels():
                 t = {"ms": time_ms(kern, iters=10), "plain_ms": time_ms(plain, iters=10),
                      "library_ms": time_ms(lib, iters=10)}
                 msb = time_ms(kern_b, iters=10)
-                t["bound_ms"], by = bound_ms(flops, nbytes(4), FP32_FLOPS)
-                bf16_ms, bf16_by = bound_ms(flops, nbytes(2), BF16_FLOPS)
+                t["bound_ms"], by = tc_bound_ms(flops, nbytes(4), 4)
+                cc_ms, cc_by = bound_ms(flops, nbytes(4), FP32_FLOPS)
+                t["cc_bound_ms"] = cc_ms
+                bf16_ms, bf16_by = tc_bound_ms(flops, nbytes(2), 2)
                 log(f"[kernel] {what}: fp32 max|err| {err:.3e} (<= {SAMM_TOL:.0e} of max|ref|)"
                     f"{moment_text}, "
                     f"bf16 {errb:.3e} <= {limb:.3e}; kernel {t['ms']:.4f} ms "
                     f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, "
-                    f"cudnn+epilogue {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); bound "
-                    f"{t['bound_ms']:.4f} ms ({by}: {bound_parts(flops, nbytes(4), FP32_FLOPS)}; "
-                    f"{flops / 1e9:.2f} GFLOP); bf16 kernel {msb:.4f} ms, bound {bf16_ms:.4f} ms "
-                    f"({bf16_by})")
+                    f"cudnn+epilogue {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); bound: "
+                    f"tensor cores {t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms "
+                    f"({cc_by}: {bound_parts(flops, nbytes(4), FP32_FLOPS)}; "
+                    f"{flops / 1e9:.2f} GFLOP); bf16 kernel {msb:.4f} ms "
+                    f"({flops / msb / 1e9:.1f} TFLOP/s), bound {bf16_ms:.4f} ms ({bf16_by})")
                 kid = name.split()[0]
                 max_err[kid] = max(max_err[kid], err)
                 if b == 1:      # the main path: 2 align cycles per scale per image

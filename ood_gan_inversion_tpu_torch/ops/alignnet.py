@@ -217,7 +217,8 @@ alignnet_conv1.launches = 0
 
 def alignnet_conv2(z, k2):
     """B2b: y2 (B, 2C, H, W) float32 and part (B, 2, 2C) float32 as
-    alignnet_conv2_reference; z and k2 float32 or bfloat16 (the same). Each
+    alignnet_conv2_reference; z and k2 float32 or bfloat16 (the same). The
+    kernel runs on the tensor cores as conv3x3_act does. Each
     block of the kernel writes the moments of its pixel tile into a scratch,
     which a fixed-order pass then sums: no atomics, so the moments are
     bit-identical from call to call and in every batch slot."""
@@ -226,7 +227,7 @@ def alignnet_conv2(z, k2):
     expect("k2", k2, (c2, c2, 3, 3), z.dtype)
     if not on_card("alignnet_conv2", (z, k2)):
         return alignnet_conv2_reference(z, k2)
-    n_tiles = entry("samm_conv", "ogi_samm_conv_tiles", 0, 2, stream=False)(h, w)
+    n_tiles = entry("samm_conv", "ogi_samm_conv_tiles", 0, 3, stream=False)(h, w, c2)
     y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)
     tile_part = z.new_empty((b, n_tiles, 2, c2), dtype=torch.float32)
     part = z.new_empty((b, 2, c2), dtype=torch.float32)

@@ -6,8 +6,10 @@ kernels as everywhere in the port's SAMM.
 `conv3x3_act` launches the hand-written CUDA kernel `csrc/samm_conv.cu` for
 CUDA tensors and runs the plain version for CPU tensors; there is no
 fallback between the two. `.launches` counts kernel launches. Operands are
-float32 or bfloat16 (x and k alike), PReLU slopes float32; the kernel sums
-in float32 and writes the output in x's dtype.
+float32 or bfloat16 (x and k alike), PReLU slopes float32; the kernel
+multiplies on the tensor cores (float32 operands as three TF32 products,
+hi*hi + hi*lo + lo*hi, for float32 accuracy), sums in float32 and writes
+the output in x's dtype.
 """
 
 import math

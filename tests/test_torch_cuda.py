@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from torch_inputs import (PAIR_KEYS, conv_act_inputs, packed_stage_inputs,
-                          samm_body0_inputs, warp_inputs)
+                          samm_body0_inputs, tf32_cancel_inputs, warp_inputs)
 
 from ood_gan_inversion_tpu_torch.ops import alignnet, halo_probe, packed_conv, samm_conv
 from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
@@ -233,6 +233,75 @@ def test_samm_kernels_give_each_batch_slot_its_own_result(cuda):
     assert torch.equal(z[1:], z1)
     assert torch.equal(y2[1:], y21) and torch.equal(part[1:], part1)
     assert torch.equal(c[1:], c1)
+
+
+def b5_and_b2b(x, k, alpha, act):
+    """{kernel: (its output, the plain version's)} for B5 and B2b on the same
+    operands: B5's output, and B2b's y2 with its two moments."""
+    y2, part = alignnet.alignnet_conv2(x, k)
+    y2_ref, part_ref = alignnet.alignnet_conv2_reference(x.float(), k.float())
+    return {"B5": ([samm_conv.conv3x3_act(x, k, alpha, act)],
+                   [samm_conv.conv3x3_act_reference(x.float(), k.float(), alpha, act)]),
+            "B2b": ([y2, part[:, 0], part[:, 1]], [y2_ref, part_ref[:, 0], part_ref[:, 1]])}
+
+
+@pytest.mark.cuda
+def test_samm_kernels_float32_accuracy_on_card(cuda):
+    """B5 and B2b at the 64px 1024 -> 1024 shape on inputs where one TF32
+    pass misses 1e-4 of max|ref| by >10x (tests/test_torch_tf32_split.py):
+    x = 1 + 0.1 noise, weights summing to 0 over ci. The 3xTF32 products
+    meet the float32 tolerance."""
+    x, k = (torch.from_numpy(v).to(cuda) for v in tf32_cancel_inputs(1, 1024, 1024, 64, 64))
+    for name, (outs, refs) in b5_and_b2b(x, k, None, "none").items():
+        for got, ref in zip(outs, refs):
+            assert rel_err(got, ref) <= SAMM_TOL[torch.float32], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_samm_kernels_at_32px_slot_bitwise(cuda, dtype):
+    """The 32px 1024 -> 1024 launch (the grid of small tiles) at b = 1 and
+    b = 3: each slot of the batch of 3 is bit-identical to that sample
+    alone, for B5 and B2b (moments included), and within tolerance of the
+    plain version."""
+    x, k, alpha = (torch.from_numpy(v).to(cuda)
+                   for v in conv_act_inputs(3, 1024, 1024, 32, 32, seed=32))
+    x, k = x.to(dtype), k.to(dtype)
+    batch = b5_and_b2b(x, k, alpha, "prelu")
+    for s in range(3):
+        alone = b5_and_b2b(x[s:s + 1].contiguous(), k, alpha, "prelu")
+        for name in batch:
+            for got, one in zip(batch[name][0], alone[name][0]):
+                assert torch.equal(got[s:s + 1], one), (name, s)
+    tol = {"B5": SAMM_TOL[dtype], "B2b": SAMM_TOL[torch.float32]}
+    for name, (outs, refs) in batch.items():
+        for got, ref in zip(outs, refs):
+            assert rel_err(got, ref) <= tol[name], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,ci,co,h,w", [
+    (2, 37, 100, 19, 27),      # small tiles; odd Ci: 4-byte / plain weight loads
+    (1, 37, 136, 100, 90),     # big tiles, ragged rows, columns and channel block
+    (2, 36, 36, 19, 27),       # B2b's Ci = Co; 16-byte (fp32) / 8-byte (bf16) copies
+    (1, 140, 140, 100, 90)])
+def test_samm_kernels_ragged_on_card(cuda, b, ci, co, h, w, dtype):
+    """Ci not a multiple of 8 and Co not a multiple of the channel block,
+    H and W not multiples of the pixel tile: B5 (lrelu) where Ci != Co, B5
+    and B2b where Ci = Co, against their plain versions."""
+    x, k, alpha = (torch.from_numpy(v).to(cuda) for v in conv_act_inputs(b, ci, co, h, w, seed=ci))
+    x, k = x.to(dtype), k.to(dtype)
+    if ci != co:
+        out = samm_conv.conv3x3_act(x, k, alpha, "lrelu")
+        ref = samm_conv.conv3x3_act_reference(x.float(), k.float(), alpha, "lrelu")
+        assert out.dtype == dtype and out.shape == (b, co, h, w)
+        assert rel_err(out, ref) <= SAMM_TOL[dtype]
+        return
+    tol = {"B5": SAMM_TOL[dtype], "B2b": SAMM_TOL[torch.float32]}
+    for name, (outs, refs) in b5_and_b2b(x, k, alpha, "prelu").items():
+        for got, ref in zip(outs, refs):
+            assert rel_err(got, ref) <= tol[name], name
 
 
 @pytest.mark.cuda

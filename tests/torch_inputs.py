@@ -72,6 +72,20 @@ def samm_body0_inputs(b, c, h, w, seed=0):
     return {k: v.astype(np.float32) for k, v in a.items()}
 
 
+def tf32_cancel_inputs(b, ci, co, h, w, seed=0):
+    """x = 1 + 0.1 * noise (B, Ci, H, W) and k (Co, Ci, 3, 3) whose sum over
+    ci is 0 for every (co, tap), float32 arrays: the common offset 1 cancels
+    at every pixel, borders included (padding drops whole taps), so the
+    output comes from the small part while every product carries the large
+    one. Products of TF32-rounded operands (~2^-11 relative) then err by
+    ~4e-3 of max|output|, a 3-term TF32 split by ~1e-6."""
+    rs = np.random.RandomState(seed)
+    x = 1.0 + 0.1 * rs.randn(b, ci, h, w)
+    k = rs.randn(co, ci, 3, 3) / np.sqrt(9 * ci)
+    k -= k.mean(axis=1, keepdims=True)
+    return x.astype(np.float32), k.astype(np.float32)
+
+
 def conv_act_inputs(b, ci, co, h, w, seed=0):
     """x (B, Ci, H, W), k (Co, Ci, 3, 3) scaled by 1/sqrt(fan-in) and PReLU
     slopes alpha (Co,), float32 arrays."""
