@@ -18,7 +18,8 @@
    against the unpacked engine. Then drives the engine with AlignNet's
    body0 through the fused kernels ("fused": B2a, B2b) and through the
    conv3x3 + activation kernel ("literal" + samm_conv_kernel: B5), checks
-   each against the default engine, and times all three. Then holds the
+   each against the default engine. Then times all six configurations in
+   interleaved rounds. Then holds the
    slice on the card against the same slice on the CPU at a small width,
    unpacked, with the whole-stage kernel, and in both body0 modes. Then
    runs the halo probe, the box-sum kernel's own path, against its oracle.
@@ -133,15 +134,26 @@ def bound_ms(flops, nbytes, peak):
 
 
 def phase_build():
+    """Builds every source, one nvcc each, all at once; prints each kernel
+    instantiation's registers and spills from ptxas, and fails on a ptxas
+    C7517 ("warpgroup.wait is injected"): a wgmma hazard that the compiler
+    papers over by serialising the tensor cores."""
     from ood_gan_inversion_tpu_torch import build
     t0 = time.time()
     logs = build.build_all(["warp_blend", "packed_pair", "packed_stage", "samm_conv",
-                            "halo_probe"])
+                            "alignnet_conv1", "alignnet_conv2", "halo_probe"])
     log(f"[build] nvcc sm_90a: {sorted(logs)} in {time.time() - t0:.1f} s")
+    hazards = []
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                log(f"[build] {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {name}:   {line.strip()}")
+            if "C7517" in line:
+                hazards.append(f"{name}: {line.strip()}")
+    if hazards:
+        raise AssertionError("ptxas injected warpgroup waits:\n" + "\n".join(hazards))
 
 
 def phase_kernels():
@@ -354,7 +366,12 @@ def phase_packed_kernels():
                       else v) for k, v in a.items()}
             argsb = tuple(bf.values())
             rgbb, z2b = fused_packed_stage(*argsb)
-            rgbb_ref, z2b_ref = packed_stage_reference(*(v.float() for v in argsb))
+            # the plain version in float32 on conv1's input as JAX rounds it:
+            # x * s1 in bfloat16, s1 rounded first
+            refb = {k: v.float() for k, v in bf.items()}
+            refb["x"] = (bf["x"] * a["s1"][:, None, None, :].to(torch.bfloat16)).float()
+            refb["s1"] = torch.ones_like(a["s1"])
+            rgbb_ref, z2b_ref = packed_stage_reference(*refb.values())
             errb = max(check_close(f"B4 {stage} b={b} bf16 z2", z2b, z2b_ref, PACKED_TOL_BF16)[0],
                        check_close(f"B4 {stage} b={b} bf16 rgb", rgbb, rgbb_ref,
                                    PACKED_TOL_BF16)[0])
@@ -571,12 +588,13 @@ def phase_samm_kernels():
     log(f"[kernel] body0 per image (8 calls, b=1): fused {body0['fused']:.4f} ms, "
         f"algebraic {body0['algebraic']:.4f} ms")
     entries = []
-    for kid, name, line in (("B2a", "alignnet_conv1", 982), ("B2b", "alignnet_conv2", 1005),
-                            ("B5", "conv3x3_act", 517)):
+    for kid, name, line, src in (("B2a", "alignnet_conv1", 982, "alignnet_conv1.cu"),
+                                 ("B2b", "alignnet_conv2", 1005, "alignnet_conv2.cu"),
+                                 ("B5", "conv3x3_act", 517, "samm_conv.cu")):
         log(f"[kernel] {kid} {name} per image (b=1): "
             + ", ".join(f"{k} {v:.4f}" for k, v in per_image[kid].items()))
         entries.append({"name": name, "route": "cuda",
-                        "source": "ood_gan_inversion_tpu_torch/csrc/samm_conv.cu",
+                        "source": f"ood_gan_inversion_tpu_torch/csrc/{src}",
                         "replaces": f"ood_gan_inversion_tpu/ops/pallas_kernels.py:{line}",
                         "max_abs_err": max_err[kid],
                         "bound_by": max(bound_by[kid], key=bound_by[kid].get),
@@ -733,13 +751,13 @@ def phase_packed_tail(engine, imgs, replies):
     """The same engine's weights with the packed tail: plain ("none"), B3
     ("pair") and B4 ("stage"). Each path's launch counts, its replies
     against the unpacked engine's (mask and lats bit-identical: the tail
-    lies after every SAMM block), per-seed determinism; then invert ms/img
-    of the four configurations, 5 interleaved rounds. Returns the B3 count
-    of the pair path and the B4 count of the stage path."""
+    lies after every SAMM block), per-seed determinism. Returns the B3
+    count of the pair path, the B4 count of the stage path, and the three
+    engines by name."""
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     from ood_gan_inversion_tpu_torch.nn.stylegan2 import TAIL_KERNELS
     params = engine.net.state_dict()
-    engines, launches = {"unpacked": engine}, {}
+    engines, launches = {}, {}
     per_image = {"none": {}, "pair": {"fused_conv3x3_act": 4},
                  "stage": {"fused_packed_stage": 2}}
     for kern in TAIL_KERNELS:
@@ -770,20 +788,8 @@ def phase_packed_tail(engine, imgs, replies):
             f"{errs['image']:.2e}, gen_image {errs['gen_image']:.2e} <= {TAIL_RTOL}; "
             "slot 2 == the lone request: True")
         launches.update({k: counts[k] for k in per_image[kern]})
-        engines[f"packed {kern}"] = eng
-    reps = {name: [] for name in engines}
-    for i in range(5):
-        for name, eng in engines.items():
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            eng.invert(imgs[i % 3], seed=i)
-            b.record()
-            b.synchronize()
-            reps[name].append(a.elapsed_time(b))
-    for name, r in reps.items():
-        log(f"[main] invert ms/img, {name} tail, 5 interleaved rounds: median "
-            f"{float(np.median(r)):.2f}, all {[round(v, 2) for v in r]}")
-    return launches
+        engines[f"packed tail {kern}"] = eng
+    return launches, engines
 
 
 def phase_samm_body0(engine, imgs, replies):
@@ -793,11 +799,11 @@ def phase_samm_body0(engine, imgs, replies):
     body0 convs at every scale). Each path's launch counts, its replies
     against the default engine's (lats bit-identical: the encoder runs
     before any SAMM block; image, gen_image and mask within BODY0_RTOL of
-    max|ref|), per-seed determinism; then invert ms/img of the three,
-    5 interleaved rounds. Returns each kernel's count from its path."""
+    max|ref|), per-seed determinism. Returns each kernel's count from its
+    path and the two engines by name."""
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     params = engine.net.state_dict()
-    engines, launches = {"algebraic (default)": engine}, {}
+    engines, launches = {}, {}
     modes = {"fused": ({"samm_body0": "fused"},
                        {"alignnet_conv1": 8, "alignnet_conv2": 8}),
              "literal + B5": ({"samm_body0": "literal", "samm_conv_kernel": True},
@@ -825,9 +831,16 @@ def phase_samm_body0(engine, imgs, replies):
             f"{errs['gen_image']:.2e}, mask {errs['mask']:.2e} <= {BODY0_RTOL}; "
             "slot 2 == the lone request: True")
         launches.update({k: counts[k] for k in per_image})
-        engines[label] = eng
+        engines[f"body0 {label}"] = eng
+    return launches, engines
+
+
+def phase_end_to_end(engines, imgs, rounds=9):
+    """invert ms/img of every configuration on the same weights, `rounds`
+    interleaved rounds (one call of each configuration per round, in turn,
+    images and seeds cycling), CUDA events around each call."""
     reps = {name: [] for name in engines}
-    for i in range(5):
+    for i in range(rounds):
         for name, eng in engines.items():
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
@@ -836,9 +849,8 @@ def phase_samm_body0(engine, imgs, replies):
             b.synchronize()
             reps[name].append(a.elapsed_time(b))
     for name, r in reps.items():
-        log(f"[main] invert ms/img, body0 {name}, 5 interleaved rounds: median "
+        log(f"[main] invert ms/img, {name}, {rounds} interleaved rounds: median "
             f"{float(np.median(r)):.2f}, all {[round(v, 2) for v in r]}")
-    return launches
 
 
 def phase_small_reference():
@@ -907,8 +919,11 @@ def main():
     phase_build()
     entries = [phase_kernels(), *phase_packed_kernels(), *phase_samm_kernels()]
     entries[0]["launches"], engine, imgs, replies = phase_main_path()
-    launches = phase_packed_tail(engine, imgs, replies)
-    launches.update(phase_samm_body0(engine, imgs, replies))
+    launches, tails = phase_packed_tail(engine, imgs, replies)
+    body0_launches, body0s = phase_samm_body0(engine, imgs, replies)
+    launches.update(body0_launches)
+    phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s},
+                     imgs)
     for e in entries[1:]:
         e["launches"] = launches[e["name"]]
     phase_small_reference()
@@ -917,8 +932,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     log(smi)
+    # bound_ms is the tensor-core bound of a conv kernel; cc_bound_ms the
+    # CUDA-core one (for B1 and the probe, which use no tensor cores, the same)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cc_bound_ms")
+    for e in entries:
+        e.setdefault("cc_bound_ms", e["bound_ms"])
     log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-// A whole phase-packed generator stage in one kernel, for Hopper (sm_90a):
+// A whole phase-packed generator stage, for Hopper (sm_90a):
 //
 //   z   = lrelu(conv3x3(x * s1; k1) * d1 + n1[phase] + b1) * sqrt(2) * s2
 //   z2  = lrelu(conv3x3(z; k2) * d2 + n2[phase] + b2) * sqrt(2)
@@ -9,61 +9,72 @@
 // packed channels by the phase co / Cmid; per-sample s1 (B, C1), d1, b1,
 // s2, d2, b2 (B, C4), k3sr (B, C4, 12) (toRGB kernel, style scale folded
 // in), b3 (B, 12); k4 (3, 3, 3, 12) the packed skip upsample. Outputs rgb
-// (B, H, W, 12) and z2 (B, H, W, C4).
+// (B, H, W, 12) and z2 (B, H, W, C4), both in the operand dtype.
 //
 // Replaces the TPU kernel ops/pallas_kernels.py:_stage_band_kernel (called
-// by fused_packed_stage_pallas / fused_packed_stage). Like it, conv1's
-// activation never goes to device memory, and toRGB reads z2 rounded to the
-// operand dtype. Unlike it, x, n1 and skip are read in place with masked
-// loads (no padded copies), and the noise is read at index co / Cmid (no
-// one-hot matmul). The TPU kernel runs only at channel counts that are
-// multiples of 128; this one takes any C4 whose activation tile fits in
-// shared memory (C4 <= 469 in float32, <= 938 in bfloat16).
+// by fused_packed_stage_pallas / fused_packed_stage). Like it, x * s1 is
+// rounded to the operand dtype before conv1, conv1's activation z is
+// rounded to it before conv2, and toRGB reads z2 as stored. Unlike it, x,
+// z, n1 and skip are read in place with masked loads (no padded copies),
+// the noise is read at index co / Cmid (no one-hot matmul), and any C4 that
+// is a multiple of 4 runs (the TPU kernel takes multiples of 128 only).
 //
-// What bounds it: operations, as for the pair kernel (packed_pair.cu), and
-// more so: conv2 reads its input from shared memory. A block computes an
-// 8 x 8 output tile. It first computes conv1 on the 10 x 10 region around
-// the tile (the 1-pixel halo conv2 needs; conv1 reads x with a 2-pixel
-// halo), applies the epilogue and s2, and keeps the result in shared memory
-// in the operand dtype: 10 x 10 x C4 values, 100 KB at C4 = 256 in float32,
-// the reason for the 8 x 8 tile. Activations outside the image are stored
-// as 0 (conv2's zero padding), not as lrelu(bias + noise). Recomputing the
-// halo costs (10 x 10) / (8 x 8) = 1.56x of conv1's work. Then conv2 runs
-// from that tile, writes z2, and each thread's 8 channels of z2 are folded
-// into toRGB partial sums, which a fixed butterfly of warp shuffles adds over
-// the channels; the 3 -> 12 skip conv and the bias finish rgb. All sums in
-// float32 registers, 256 threads, weights through shared memory in chunks of
-// 8 input channels, CUDA cores only (no wgmma yet).
+// What bounds it: operations. The two convs do 2 * 9 * (C1 + C4) * C4
+// flops per pixel against a few hundred bytes. Both run on the tensor cores
+// as the implicit GEMM of tc_conv.cuh (wgmma; 3xTF32 for float32 operands,
+// one bf16 pass for bfloat16; each chunk's products in fresh fragments), in
+// three launches:
+//   1. conv1 (stage_conv_kernel<T, 1>): z, in the operand dtype, to a
+//      (B, H, W, C4) scratch. Keeping z on chip instead would recompute
+//      conv1 on each tile's halo (1.56x its work at 8 x 8 tiles) and cap C4
+//      by shared memory; the round trip costs 2 * H * W * C4 * sizeof(T)
+//      bytes, tens of microseconds at the packed stages.
+//   2. conv2 (stage_conv_kernel<T, 2>): reads z with masked halo loads (the
+//      zeros outside the image are conv2's padding), writes z2, and sums
+//      each pixel's toRGB partial over the block's 128 channels in channel
+//      order into a (B, n_cblocks, H, W, 12) float32 scratch.
+//   3. rgb_kernel: the channel blocks' partials added in order, then b3 and
+//      the 3 -> 12 skip conv.
+// Every sum runs in a fixed order without atomics, and the grid and tiling
+// depend on (H, W, C4) only, so a sample's outputs are the same bits in any
+// batch slot.
 //
-// Deterministic: every sum is taken in a fixed order, without atomics.
+// In NHWC a pixel's KC channels are contiguous, so each 16-byte K half of
+// the B layout is one 16-byte load of the input (plain loads where C is not
+// a multiple of the half). A chunk's HWIO slab, k[:, :, c0:c0+KC,
+// n0:n0+128], is 9 * KC rows of 128 contiguous output channels, copied as
+// it lies by cp.async into the ring; the A-fragments are gathered from it
+// transposed (row = output channel, k = input channel), at a row stride of
+// 136 elements, so that a gather hits all 32 banks.
 //
 // Plain C interface (bound with ctypes): launches on the given stream and
 // returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "tc_conv.cuh"
+
+#include <type_traits>
 
 namespace {
 
-constexpr int T = 8;             // output tile side
-constexpr int ZT = T + 2;        // conv1 region (the tile and a 1-pixel halo)
-constexpr int XT = T + 4;        // x region conv1 reads (a 2-pixel halo)
-constexpr int TN = 128;          // output channels per pass
-constexpr int KC = 8;            // input channels per shared-memory chunk
-constexpr int THREADS = 256;
-constexpr int SLOTS1 = (ZT * ZT + 15) / 16;   // conv1 pixels per thread: 7
-constexpr int SMEM_FIXED = (9 * KC * TN + KC * XT * XT + T * T * 12) * 4;
-constexpr int SMEM_MAX = 232448;
-constexpr float SQRT2 = 1.41421356237309515f;
+using namespace tc;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename S> __device__ __forceinline__ S from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+using C = Tile<4>;                 // 4 x 32 pixels per block at every shape
+constexpr int WSN = TN + 8;        // slab row stride, elements (= 8 words mod 32 in float32)
+constexpr int SP = TN + 4;         // staged tile: pixel stride, floats
+template <typename T> __host__ __device__ constexpr int slab_elems() { return 9 * Op<T>::KC * WSN; }
+template <typename T> __host__ __device__ constexpr int ring_bytes() {
+  return NSTAGE * slab_elems<T>() * (int)sizeof(T);
 }
+// the staged float32 tile (P pixels x SP) and conv2's toRGB weights (TN x 12)
+// reuse the ring once the main loop is done
+static_assert(C::P * SP * 4 + TN * 12 * 4 <= ring_bytes<float>(), "epilogue fits the ring");
+static_assert(C::P * SP * 4 + TN * 12 * 4 <= ring_bytes<__nv_bfloat16>(), "epilogue fits the ring");
+// conv1's table of s1 follows the input buffers
+template <typename T> __host__ __device__ constexpr int s1_offset() {
+  return ring_bytes<T>() + 2 * Op<T>::PLANES * C::PLANE;
+}
+
+__device__ __forceinline__ float lrelu(float z) { return (z >= 0.0f ? z : 0.2f * z) * SQRT2; }
 
 __device__ __forceinline__ void store4(float* p, const float v[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -77,247 +88,344 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = q;
 }
 
-__device__ __forceinline__ float lrelu(float z) { return (z >= 0.0f ? z : 0.2f * z) * SQRT2; }
-
-// ws[tap][kc][n] = k[tap][c0 + kc][n0 + n], 0 past Cin or Cout.
-template <typename S>
-__device__ __forceinline__ void stage_weights(float* ws, const S* __restrict__ k,
-                                              int c0, int n0, int Cin, int Cout) {
-  for (int e = threadIdx.x; e < 9 * KC * TN; e += THREADS) {
-    const int n = e % TN, kc = (e / TN) % KC, tap = e / (TN * KC);
-    const int ci = c0 + kc, co = n0 + n;
-    ws[e] = (ci < Cin && co < Cout) ? to_f(k[((int64_t)tap * Cin + ci) * Cout + co]) : 0.0f;
+__device__ __forceinline__ uint32_t scale2(uint32_t w, float s0, float s1) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w);
+  return pack_bf16(__float2bfloat16_rn(__low2float(v) * s0),
+                   __float2bfloat16_rn(__high2float(v) * s1));
+}
+// 16 bytes of T values (4 float32 or 8 bfloat16), each multiplied by s[i]
+// and rounded to T: x * s1 as the plain version computes it
+template <typename T> __device__ __forceinline__ uint4 scale16(uint4 q, const float* s) {
+  const float4 a = *reinterpret_cast<const float4*>(s);
+  if constexpr (sizeof(T) == 4) {
+    return make_uint4(__float_as_uint(__uint_as_float(q.x) * a.x),
+                      __float_as_uint(__uint_as_float(q.y) * a.y),
+                      __float_as_uint(__uint_as_float(q.z) * a.z),
+                      __float_as_uint(__uint_as_float(q.w) * a.w));
+  } else {
+    const float4 c = *reinterpret_cast<const float4*>(s + 4);
+    return make_uint4(scale2(q.x, a.x, a.y), scale2(q.y, a.z, a.w),
+                      scale2(q.z, c.x, c.y), scale2(q.w, c.z, c.w));
   }
 }
 
-// 8 multiply-adds: acc[0..7] += v * (wa, wb).
-__device__ __forceinline__ void fma8(float acc[8], float v, float4 wa, float4 wb) {
-  acc[0] += v * wa.x; acc[1] += v * wa.y; acc[2] += v * wa.z; acc[3] += v * wa.w;
-  acc[4] += v * wb.x; acc[5] += v * wb.y; acc[6] += v * wb.z; acc[7] += v * wb.w;
-}
+struct Args {
+  const void* x;          // conv1: x (B, H, W, C1); conv2: z (B, H, W, C4)
+  const void* k;          // (3, 3, Cin, C4)
+  const float* noise;     // n1 or n2 (B, H, W, 4)
+  const float* s_in;      // conv1: s1 (B, C1)
+  const float* d;         // d1 or d2 (B, C4)
+  const float* bias;      // b1 or b2 (B, C4)
+  const float* s_out;     // conv1: s2 (B, C4)
+  const void* k3sr;       // conv2: (B, C4, 12)
+  void* out;              // conv1: z; conv2: z2 (B, H, W, C4)
+  float* part;            // conv2: toRGB partials (B, n_cblocks, H, W, 12)
+  int H, W, Cin, Cout, tiles_w;
+  int vec;                // bytes per weight copy (16, 8, 4; else plain loads)
+  int vec_x;              // 1: the input's 16-byte halves are aligned 16-byte loads
+};
 
-// Block (tile, sample). Thread tid: tn = tid % 16 owns the channels
-// n0 + tn*4 + {0..3} and n0 + 64 + tn*4 + {0..3} of each pass; tm = tid / 16
-// picks its pixels (conv1: region pixels tm + 16 j; conv2: tile column
-// tm % 8, rows (tm / 8) * 4 + {0..3}).
-template <typename S>
-__global__ void __launch_bounds__(THREADS, 2)
-stage_kernel(const S* __restrict__ x, const float* __restrict__ n1,
-             const float* __restrict__ n2, const S* __restrict__ skip,
-             const S* __restrict__ k1, const float* __restrict__ s1,
-             const float* __restrict__ d1, const float* __restrict__ b1,
-             const S* __restrict__ k2, const float* __restrict__ s2,
-             const float* __restrict__ d2, const float* __restrict__ b2,
-             const S* __restrict__ k3sr, const float* __restrict__ b3,
-             const S* __restrict__ k4, S* __restrict__ rgb, S* __restrict__ z2,
-             int H, int W, int C1, int C4, int tiles_w) {
-  extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                                  // [9][KC][TN]
-  float* xs = ws + 9 * KC * TN;                      // [KC][XT * XT]
-  float* rgbs = xs + KC * XT * XT;                   // [T * T][12]
-  S* zs = reinterpret_cast<S*>(rgbs + T * T * 12);   // [C4][ZT * ZT]
+// Block (pixel tile, channel block, sample): conv1 (STAGE 1) or conv2
+// (STAGE 2) on TN output channels of a 4 x 32 tile; the main loop is
+// conv_loop.
+template <typename T, int STAGE>
+__global__ void __launch_bounds__(THREADS, 1) stage_conv_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int KC = Op<T>::KC, R = C::R, P = C::P, XN = C::XN, TW = C::TW;
+  constexpr int ND = C::N / 2;
+  constexpr int VE = 16 / (int)sizeof(T);          // channels per K half: one 16-byte vector
+  constexpr int NV = 2 * C::XPIX;                  // vectors of the halo chunk
+  constexpr int LV = (NV + THREADS - 1) / THREADS;
+  T* ws = reinterpret_cast<T*>(smem);
+  unsigned char* xs = smem + ring_bytes<T>();
+  float* s1s = reinterpret_cast<float*>(smem + s1_offset<T>());   // conv1: s1 rounded to T
 
-  const int tid = threadIdx.x;
-  const int tn = tid % 16, tm = tid / 16;
-  const int b = blockIdx.y;
-  const int y0 = (blockIdx.x / tiles_w) * T;
-  const int x0 = (blockIdx.x % tiles_w) * T;
-  const int cmid = C4 / 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = (warp >> 2) * 64 + (warp & 3) * 16;      // the warp's first channel
+  const int b = blockIdx.z, tile = blockIdx.x;
+  const int y0 = (tile / a.tiles_w) * R, x0 = (tile % a.tiles_w) * TW;
+  const int n0 = blockIdx.y * TN;
+  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
+  const T* x = static_cast<const T*>(a.x) + (int64_t)b * H * W * Cin;
+  const T* k = static_cast<const T*>(a.k);
+  const int nchunks = (Cin + KC - 1) / KC;
 
-  // ---- conv1 on the ZT x ZT region, pass by pass over 128 channels
-  int off1[SLOTS1];
-#pragma unroll
-  for (int j = 0; j < SLOTS1; ++j) {
-    const int p = min(tm + 16 * j, ZT * ZT - 1);      // slots past the region compute p = 99 again
-    off1[j] = (p / ZT) * XT + p % ZT;
+  if constexpr (STAGE == 1) {
+    for (int ci = tid; ci < nchunks * KC; ci += THREADS)
+      s1s[ci] = ci < Cin ? to_f(from_f<T>(a.s_in[(int64_t)b * Cin + ci])) : 0.0f;
+    __syncthreads();
   }
-  for (int n0 = 0; n0 < C4; n0 += TN) {
-    float acc[SLOTS1][8];
-#pragma unroll
-    for (int j = 0; j < SLOTS1; ++j)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[j][c] = 0.0f;
-    for (int c0 = 0; c0 < C1; c0 += KC) {
-      for (int e = tid; e < XT * XT * KC; e += THREADS) {
-        const int kc = e % KC, p = e / KC;
-        const int gy = y0 + p / XT - 2, gx = x0 + p % XT - 2, ci = c0 + kc;
-        float v = 0.0f;
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W && ci < C1)
-          v = to_f(x[(((int64_t)b * H + gy) * W + gx) * C1 + ci]) * s1[b * C1 + ci];
-        xs[kc * XT * XT + p] = v;
+
+  // the HWIO slab of `chunk` into ring buffer `stage`: row (tap, kc) is
+  // k[tap][c0 + kc][n0 .. n0 + 127], 0 past Cin and Cout
+  auto load_w = [&](int chunk, int stage) {
+    const int c0 = chunk * KC;
+    T* dst = ws + stage * slab_elems<T>();
+    auto copies = [&](auto per_row_c) {
+      constexpr int PER_ROW = decltype(per_row_c)::value, E_PER = TN / PER_ROW;
+#pragma unroll 3
+      for (int p = tid; p < 9 * KC * PER_ROW; p += THREADS) {
+        const int row = p / PER_ROW, e = (p - row * PER_ROW) * E_PER;
+        const int tap = row / KC, ci = c0 + row - tap * KC, co = n0 + e;
+        const int valid = ci < Cin ? max(0, min(E_PER, Cout - co)) : 0;
+        const T* src = valid ? k + ((int64_t)tap * Cin + ci) * Cout + co : k;
+        cp_async(dst + row * WSN + e, src, E_PER * (int)sizeof(T), valid * (int)sizeof(T));
       }
-      stage_weights(ws, k1, c0, n0, C1, C4);
-      __syncthreads();
-      const int kmax = min(KC, C1 - c0);
-      for (int kc = 0; kc < kmax; ++kc) {
-        const float* xk = xs + kc * XT * XT;
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const float* w = ws + (tap * KC + kc) * TN;
-          const float4 wa = *reinterpret_cast<const float4*>(w + tn * 4);
-          const float4 wb = *reinterpret_cast<const float4*>(w + 64 + tn * 4);
-          const int o = (tap / 3) * XT + tap % 3;
-#pragma unroll
-          for (int j = 0; j < SLOTS1; ++j) fma8(acc[j], xk[off1[j] + o], wa, wb);
-        }
-      }
-      __syncthreads();
-    }
-    // epilogue: z = lrelu(...) * s2 in the operand dtype; 0 outside the image
-#pragma unroll
-    for (int j = 0; j < SLOTS1; ++j) {
-      const int p = tm + 16 * j;
-      if (p >= ZT * ZT) break;
-      const int zy = y0 + p / ZT - 1, zx = x0 + p % ZT - 1;
-      const bool inside = zy >= 0 && zy < H && zx >= 0 && zx < W;
-      const int64_t pix = ((int64_t)b * H + zy) * W + zx;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int co = n0 + (c / 4) * 64 + tn * 4 + c % 4;
-        if (co >= C4) continue;
-        float z = 0.0f;
-        if (inside)
-          z = lrelu(acc[j][c] * d1[b * C4 + co] + n1[pix * 4 + co / cmid]
-                    + b1[b * C4 + co]) * s2[b * C4 + co];
-        zs[co * (ZT * ZT) + p] = from_f<S>(z);
+    };
+    const int per_row = a.vec >= 4 ? TN * (int)sizeof(T) / a.vec : 0;
+    if (per_row == 16) copies(std::integral_constant<int, 16>());
+    else if (per_row == 32) copies(std::integral_constant<int, 32>());
+    else if (per_row == 64) copies(std::integral_constant<int, 64>());
+    else if (per_row == 128) copies(std::integral_constant<int, 128>());
+    else {
+      for (int p = tid; p < 9 * KC * TN; p += THREADS) {
+        const int row = p / TN, e = p - row * TN;
+        const int tap = row / KC, ci = c0 + row - tap * KC, co = n0 + e;
+        dst[row * WSN + e] = ci < Cin && co < Cout ? k[((int64_t)tap * Cin + ci) * Cout + co]
+                                                   : from_f<T>(0.0f);
       }
     }
-  }
-  __syncthreads();
+  };
 
-  // ---- conv2 on the T x T tile from zs, then z2 and the toRGB partial sums
-  const int tx = tm % 8, ty0 = (tm / 8) * 4;
-  for (int n0 = 0; n0 < C4; n0 += TN) {
-    float acc[4][8];
+  // the input chunk with its halo, 16 bytes (one K half of a pixel) per
+  // value: vector v is half v % 2 of halo pixel v / 2, so neighbouring
+  // lanes read a pixel's two halves (32 contiguous bytes) and store into
+  // different banks
+  uint4 xr[LV];
+  auto fetch_x = [&](int chunk) {
+    const int c0 = chunk * KC;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < LV; ++j) {
+      const int v = tid + j * THREADS, half = v & 1, pix = v >> 1;
+      const int r = pix / XN, c = pix - r * XN;
+      const int gy = y0 + r - 1, gx = x0 + c - 1, ci = c0 + half * VE;
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (v < NV && ci < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const T* p = x + ((int64_t)gy * W + gx) * Cin + ci;
+        if (a.vec_x) {
+          q = __ldg(reinterpret_cast<const uint4*>(p));
+        } else {
+          uint32_t wd[4];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[j][c] = 0.0f;
-    for (int c0 = 0; c0 < C4; c0 += KC) {
-      stage_weights(ws, k2, c0, n0, C4, C4);
-      __syncthreads();
-      const int kmax = min(KC, C4 - c0);
-      for (int kc = 0; kc < kmax; ++kc) {
-        const S* zk = zs + (c0 + kc) * (ZT * ZT);
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          float zv[6];
-#pragma unroll
-          for (int r = 0; r < 6; ++r) zv[r] = to_f(zk[(ty0 + r) * ZT + tx + dx]);
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            const float* w = ws + ((dy * 3 + dx) * KC + kc) * TN;
-            const float4 wa = *reinterpret_cast<const float4*>(w + tn * 4);
-            const float4 wb = *reinterpret_cast<const float4*>(w + 64 + tn * 4);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) fma8(acc[j], zv[j + dy], wa, wb);
+          for (int u = 0; u < 4; ++u) {
+            if constexpr (sizeof(T) == 4) {
+              wd[u] = ci + u < Cin ? __float_as_uint(to_f(p[u])) : 0u;
+            } else {
+              const uint32_t lo = ci + 2 * u < Cin ? __bfloat16_as_ushort(p[2 * u]) : 0u;
+              const uint32_t hi = ci + 2 * u + 1 < Cin ? __bfloat16_as_ushort(p[2 * u + 1]) : 0u;
+              wd[u] = lo | hi << 16;
+            }
           }
+          q = make_uint4(wd[0], wd[1], wd[2], wd[3]);
         }
       }
-      __syncthreads();
+      xr[j] = q;
     }
-    const int gx = x0 + tx;
+  };
+  auto put_x = [&](int chunk) {
+    unsigned char* base = xs + (chunk & 1) * Op<T>::PLANES * C::PLANE;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gy = y0 + ty0 + j;
-      const bool inside = gy < H && gx < W;
-      const int64_t pix = ((int64_t)b * H + gy) * W + gx;
-      float part[12];
-#pragma unroll
-      for (int o = 0; o < 12; ++o) part[o] = 0.0f;
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        const int cb = n0 + g * 64 + tn * 4;
-        if (cb >= C4) continue;        // C4 % 4 == 0: a group is all in or all out
-        float v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int co = cb + q;
-          const float nz = inside ? n2[pix * 4 + co / cmid] : 0.0f;
-          const float z = lrelu(acc[j][g * 4 + q] * d2[b * C4 + co] + nz + b2[b * C4 + co]);
-          v[q] = to_f(from_f<S>(z));     // toRGB reads z2 as stored
-          const S* kr = k3sr + ((int64_t)b * C4 + co) * 12;
-#pragma unroll
-          for (int o = 0; o < 12; ++o) part[o] += v[q] * to_f(kr[o]);
-        }
-        if (inside) store4(z2 + pix * C4 + cb, v);
-      }
-      // sum over the 16 channel groups (lanes tn = 0..15 of a half warp);
-      // every lane ends with the same sum
-#pragma unroll
-      for (int o = 0; o < 12; ++o)
-#pragma unroll
-        for (int m = 8; m >= 1; m /= 2) part[o] += __shfl_xor_sync(0xffffffffu, part[o], m);
-      if (tn == 0) {
-        float* rp = rgbs + ((ty0 + j) * T + tx) * 12;
-#pragma unroll
-        for (int o = 0; o < 12; ++o) rp[o] = (n0 == 0 ? 0.0f : rp[o]) + part[o];
+    for (int j = 0; j < LV; ++j) {
+      const int v = tid + j * THREADS, half = v & 1, pix = v >> 1;
+      if (v >= NV) continue;
+      unsigned char* dst = base + half * C::HALF + pix * 16;
+      uint4 q = xr[j];
+      if constexpr (STAGE == 1) q = scale16<T>(q, s1s + chunk * KC + half * VE);
+      if constexpr (sizeof(T) == 4) {
+        uint32_t h[4], l[4];
+        split_tf32(__uint_as_float(q.x), h[0], l[0]);
+        split_tf32(__uint_as_float(q.y), h[1], l[1]);
+        split_tf32(__uint_as_float(q.z), h[2], l[2]);
+        split_tf32(__uint_as_float(q.w), h[3], l[3]);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(dst + C::PLANE) = make_uint4(l[0], l[1], l[2], l[3]);
+      } else {
+        *reinterpret_cast<uint4*>(dst) = q;
       }
     }
+    // these generic-proxy stores are read by wgmma through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  // A-fragments from the HWIO slab, transposed: row = output channel (the
+  // slab's column), k = input channel (the slab's row within the tap)
+  auto frag = [&](int stage, int tap, uint32_t (&w)[4]) {
+    const T* wp = ws + stage * slab_elems<T>() + tap * KC * WSN + m0 + gid;
+    if constexpr (sizeof(T) == 4) {
+      const float* fp = reinterpret_cast<const float*>(wp);
+      w[0] = __float_as_uint(fp[tig * WSN]);              // (channel gid, k tig)
+      w[1] = __float_as_uint(fp[tig * WSN + 8]);          // (gid + 8, tig)
+      w[2] = __float_as_uint(fp[(tig + 4) * WSN]);        // (gid, tig + 4)
+      w[3] = __float_as_uint(fp[(tig + 4) * WSN + 8]);    // (gid + 8, tig + 4)
+    } else {
+      w[0] = pack_bf16(wp[2 * tig * WSN], wp[(2 * tig + 1) * WSN]);
+      w[1] = pack_bf16(wp[2 * tig * WSN + 8], wp[(2 * tig + 1) * WSN + 8]);
+      w[2] = pack_bf16(wp[(2 * tig + 8) * WSN], wp[(2 * tig + 9) * WSN]);
+      w[3] = pack_bf16(wp[(2 * tig + 8) * WSN + 8], wp[(2 * tig + 9) * WSN + 8]);
+    }
+  };
+
+  float acc[ND];
+  conv_loop<T, C>(acc, nchunks, smem_addr(xs), load_w, fetch_x, put_x, frag);
+
+  // epilogue: stage the float32 sums st[pixel][channel] in shared memory
+  float* st = reinterpret_cast<float*>(smem);
+  float* k3s = st + P * SP;                                 // conv2: k3sr[b, n0 + n, :]
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    // fragment i: channel gid (+8 for i % 4 >= 2), flat pixel f = 8 (i / 4)
+    // + 2 tig + i % 2 of the run, row f / 34, column f % 34
+    const int n = m0 + gid + ((i >> 1) & 1) * 8;
+    const int f = (i >> 2) * 8 + 2 * tig + (i & 1), r = f / XN, c = f % XN;
+    if (r < R && c < TW) st[(r * TW + c) * SP + n] = acc[i];
+  }
+  if constexpr (STAGE == 2) {
+    const T* k3 = static_cast<const T*>(a.k3sr) + ((int64_t)b * Cout + n0) * 12;
+    for (int e = tid; e < TN * 12; e += THREADS)
+      k3s[e] = n0 + e / 12 < Cout ? to_f(k3[e]) : 0.0f;
   }
   __syncthreads();
 
-  // ---- rgb = toRGB + b3 + the packed skip upsample (3 -> 12, 3x3, zero pad)
-  for (int e = tid; e < T * T * 12; e += THREADS) {
-    const int p = e / 12, o = e % 12;
-    const int gy = y0 + p / T, gx = x0 + p % T;
-    if (gy >= H || gx >= W) continue;
-    float v = rgbs[e] + b3[b * 12 + o];
-    for (int dy = 0; dy < 3; ++dy) {
-      const int sy = gy + dy - 1;
-      if (sy < 0 || sy >= H) continue;
-      for (int dx = 0; dx < 3; ++dx) {
-        const int sx = gx + dx - 1;
-        if (sx < 0 || sx >= W) continue;
-        const S* sp = skip + (((int64_t)b * H + sy) * W + sx) * 3;
-        const S* kp = k4 + (dy * 3 + dx) * 36 + o;
-        v += to_f(sp[0]) * to_f(kp[0]) + to_f(sp[1]) * to_f(kp[12])
-             + to_f(sp[2]) * to_f(kp[24]);
-      }
+  // d, noise, bias, lrelu (conv1: and s2), rounded to T and stored: 4
+  // channels of a pixel per thread, a warp's stores 128 channels of a pixel
+  const int cmid = Cout / 4;
+  for (int idx = tid; idx < P * (TN / 4); idx += THREADS) {
+    const int px = idx / (TN / 4), co = n0 + (idx % (TN / 4)) * 4;
+    const int gy = y0 + px / TW, gx = x0 + px % TW;
+    if (co >= Cout || gy >= H || gx >= W) continue;     // Cout % 4 == 0: all 4 or none
+    const int64_t pix = ((int64_t)b * H + gy) * W + gx;
+    float* sp = st + px * SP + co - n0;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = co + u;
+      float z = lrelu(sp[u] * a.d[b * Cout + c] + a.noise[pix * 4 + c / cmid] + a.bias[b * Cout + c]);
+      if constexpr (STAGE == 1) z *= a.s_out[b * Cout + c];
+      v[u] = to_f(from_f<T>(z));
     }
-    rgb[(((int64_t)b * H + gy) * W + gx) * 12 + o] = from_f<S>(v);
+    store4(static_cast<T*>(a.out) + pix * Cout + co, v);
+    if constexpr (STAGE == 2) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sp[u] = v[u];           // toRGB reads z2 as stored
+    }
+  }
+  if constexpr (STAGE == 2) {
+    __syncthreads();
+    // toRGB partials: per pixel, 6 of the 12 outputs per thread, summed over
+    // the block's channels in channel order
+    const int nc = min(TN, Cout - n0);
+    for (int idx = tid; idx < P * 2; idx += THREADS) {
+      const int px = idx >> 1, og = (idx & 1) * 6;
+      const int gy = y0 + px / TW, gx = x0 + px % TW;
+      if (gy >= H || gx >= W) continue;
+      float s[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int n = 0; n < nc; n += 4) {
+        const float4 z4 = *reinterpret_cast<const float4*>(st + px * SP + n);
+        const float zz[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int o = 0; o < 6; ++o) s[o] += zz[u] * k3s[(n + u) * 12 + og + o];
+      }
+      float* p = a.part + ((((int64_t)b * gridDim.y + blockIdx.y) * H + gy) * W + gx) * 12 + og;
+#pragma unroll
+      for (int o = 0; o < 6; ++o) p[o] = s[o];
+    }
   }
 }
 
-template <typename S>
-int launch(const void* const* p, int B, int H, int W, int C1, int C4,
-           cudaStream_t stream) {
-  const size_t smem = SMEM_FIXED + (size_t)C4 * ZT * ZT * sizeof(S);
-  if (smem > SMEM_MAX) return 1001;
-  cudaError_t err = cudaFuncSetAttribute(
-      stage_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// rgb = the toRGB partials of the channel blocks, added in order, + b3 + the
+// packed skip upsample (3 -> 12, 3x3, zero padding); one thread per output.
+template <typename T>
+__global__ void rgb_kernel(const float* __restrict__ part, const T* __restrict__ skip,
+                           const float* __restrict__ b3, const T* __restrict__ k4,
+                           T* __restrict__ rgb, int B, int H, int W, int n_cblocks) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)B * H * W * 12) return;
+  const int o = (int)(i % 12);
+  const int64_t p = i / 12;
+  const int gx = (int)(p % W), gy = (int)((p / W) % H), b = (int)(p / ((int64_t)H * W));
+  float v = 0.0f;
+  for (int cb = 0; cb < n_cblocks; ++cb)
+    v += part[((((int64_t)b * n_cblocks + cb) * H + gy) * W + gx) * 12 + o];
+  v += b3[b * 12 + o];
+  for (int dy = 0; dy < 3; ++dy) {
+    const int sy = gy + dy - 1;
+    if (sy < 0 || sy >= H) continue;
+    for (int dx = 0; dx < 3; ++dx) {
+      const int sx = gx + dx - 1;
+      if (sx < 0 || sx >= W) continue;
+      const T* sp = skip + (((int64_t)b * H + sy) * W + sx) * 3;
+      const T* kp = k4 + (dy * 3 + dx) * 36 + o;
+      v += to_f(sp[0]) * to_f(kp[0]) + to_f(sp[1]) * to_f(kp[12]) + to_f(sp[2]) * to_f(kp[24]);
+    }
+  }
+  rgb[i] = from_f<T>(v);
+}
+
+int n_cblocks(int C4) { return (C4 + TN - 1) / TN; }
+
+template <typename T, int STAGE>
+int launch_conv(Args a, int B, cudaStream_t stream) {
+  a.tiles_w = (a.W + C::TW - 1) / C::TW;
+  const int n_tiles = a.tiles_w * ((a.H + C::R - 1) / C::R);
+  a.vec = copy_width(a.k, (int64_t)a.Cout * sizeof(T), sizeof(T));
+  a.vec_x = a.Cin % (16 / (int)sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
+  const int padded_cin = (a.Cin + Op<T>::KC - 1) / Op<T>::KC * Op<T>::KC;
+  const int bytes = s1_offset<T>() + (STAGE == 1 ? padded_cin * 4 : 0);
+  if (bytes > SMEM_MAX) return 1000;
+  cudaError_t err = cudaFuncSetAttribute(stage_conv_kernel<T, STAGE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const int tiles_w = (W + T - 1) / T, tiles_h = (H + T - 1) / T;
-  const dim3 grid(tiles_h * tiles_w, B);
-  auto S_ = [&](int i) { return static_cast<const S*>(p[i]); };
+  const dim3 grid(n_tiles, n_cblocks(a.Cout), B);
+  stage_conv_kernel<T, STAGE><<<grid, THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* const* p, int B, int H, int W, int C1, int C4, cudaStream_t stream) {
   auto F_ = [&](int i) { return static_cast<const float*>(p[i]); };
-  stage_kernel<S><<<grid, THREADS, smem, stream>>>(
-      S_(0), F_(1), F_(2), S_(3), S_(4), F_(5), F_(6), F_(7), S_(8), F_(9),
-      F_(10), F_(11), S_(12), F_(13), S_(14),
-      static_cast<S*>(const_cast<void*>(p[15])), static_cast<S*>(const_cast<void*>(p[16])),
-      H, W, C1, C4, tiles_w);
+  void* z = const_cast<void*>(p[17]);
+  float* part = static_cast<float*>(const_cast<void*>(p[18]));
+  const Args conv1{p[0], p[4], F_(1), F_(5), F_(6), F_(7), F_(9), nullptr, z, nullptr,
+                   H, W, C1, C4, 0, 0, 0};
+  int err = launch_conv<T, 1>(conv1, B, stream);
+  if (err != 0) return err;
+  const Args conv2{z, p[8], F_(2), nullptr, F_(10), F_(11), nullptr, p[12],
+                   const_cast<void*>(p[16]), part, H, W, C4, C4, 0, 0, 0};
+  err = launch_conv<T, 2>(conv2, B, stream);
+  if (err != 0) return err;
+  const int64_t n = (int64_t)B * H * W * 12;
+  rgb_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, static_cast<const T*>(p[3]), F_(13), static_cast<const T*>(p[14]),
+      static_cast<T*>(const_cast<void*>(p[15])), B, H, W, n_cblocks(C4));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, skip, k1, k2, k3sr, k4, rgb, z2; the
-// rest float32). All tensors contiguous, shapes as in the note above.
-// Returns cudaGetLastError() after the launch (0 = success); 1000 for an
-// argument the kernel does not take, 1001 when the conv1 activation tile
-// does not fit in shared memory.
+// The number of 128-channel blocks of ogi_packed_stage at C4 packed
+// channels: the second axis of its toRGB scratch.
+extern "C" int ogi_packed_stage_cblocks(int C4) { return n_cblocks(C4); }
+
+// dtype: 0 = float32, 1 = bfloat16 (x, skip, k1, k2, k3sr, k4, rgb, z2, z;
+// the rest float32). All tensors contiguous, shapes as in the note above;
+// z (B, H, W, C4) and part (B, ogi_packed_stage_cblocks(C4), H, W, 12)
+// float32 are scratch. Returns cudaGetLastError() after the launches
+// (0 = success); 1000 for an argument the kernels do not take.
 extern "C" int ogi_packed_stage(const void* x, const void* n1, const void* n2,
                                 const void* skip, const void* k1, const void* s1,
                                 const void* d1, const void* b1, const void* k2,
                                 const void* s2, const void* d2, const void* b2,
                                 const void* k3sr, const void* b3, const void* k4,
-                                void* rgb, void* z2, int B, int H, int W, int C1,
-                                int C4, int dtype, void* stream) {
+                                void* rgb, void* z2, void* z, void* part, int B, int H,
+                                int W, int C1, int C4, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C1 <= 0 || C4 <= 0 ||
       C4 % 4 != 0 || (dtype != 0 && dtype != 1))
     return 1000;
-  const void* p[17] = {x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
-                       k3sr, b3, k4, rgb, z2};
+  const void* p[19] = {x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
+                       k3sr, b3, k4, rgb, z2, z, part};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch<float>(p, B, H, W, C1, C4, st)
                     : launch<__nv_bfloat16>(p, B, H, W, C1, C4, st);

@@ -15,8 +15,9 @@ across align cycles, so `alignnet_t_context` computes the t-only half once.
 `algebraic_alignnet_body0` is plain PyTorch, the JAX package's default path.
 
 `fused_alignnet_body0` computes the same body0 with two hand-written CUDA
-kernels (csrc/samm_conv.cu) between plain PyTorch passes: the coefficients,
-then `alignnet_conv1` (x1 built on chip, conv1, PReLU), then
+kernels (csrc/alignnet_conv1.cu, csrc/alignnet_conv2.cu, both the
+tensor-core conv of csrc/samm_conv.cuh) between plain PyTorch passes: the
+coefficients, then `alignnet_conv1` (x1 built on chip, conv1, PReLU), then
 `alignnet_conv2` (conv2 and norm2's moments), then the norm2 affine and the
 shortcut. Each wrapper launches its kernel for CUDA tensors and runs its
 plain version (`alignnet_conv1_reference`, `alignnet_conv2_reference`) for
@@ -206,7 +207,7 @@ def alignnet_conv1(s, t, coeffs, k1, alpha):
     if not on_card("alignnet_conv1", (s, t, coeffs, k1, alpha)):
         return alignnet_conv1_reference(s, t, coeffs, k1, alpha)
     z = s.new_empty((b, 2 * c, h, w))
-    launch("alignnet_conv1", entry("samm_conv", "ogi_alignnet_conv1", 6, 5), s,
+    launch("alignnet_conv1", entry("alignnet_conv1", "ogi_alignnet_conv1", 6, 5), s,
            *(v.data_ptr() for v in (s, t, coeffs, k1, alpha, z)), b, h, w, c, dtype)
     alignnet_conv1.launches += 1
     return z
@@ -227,11 +228,11 @@ def alignnet_conv2(z, k2):
     expect("k2", k2, (c2, c2, 3, 3), z.dtype)
     if not on_card("alignnet_conv2", (z, k2)):
         return alignnet_conv2_reference(z, k2)
-    n_tiles = entry("samm_conv", "ogi_samm_conv_tiles", 0, 3, stream=False)(h, w, c2)
+    n_tiles = entry("alignnet_conv2", "ogi_samm_conv_tiles", 0, 3, stream=False)(h, w, c2)
     y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)
     tile_part = z.new_empty((b, n_tiles, 2, c2), dtype=torch.float32)
     part = z.new_empty((b, 2, c2), dtype=torch.float32)
-    launch("alignnet_conv2", entry("samm_conv", "ogi_alignnet_conv2", 5, 5), z,
+    launch("alignnet_conv2", entry("alignnet_conv2", "ogi_alignnet_conv2", 5, 5), z,
            *(v.data_ptr() for v in (z, k2, y2, tile_part, part)), b, h, w, c2, dtype)
     alignnet_conv2.launches += 1
     return y2, part

@@ -8,8 +8,8 @@ Two hand-written CUDA kernels:
     lrelu(conv3x3(x * s_in) * d_out + phase_bcast(noise4) + bias) * sqrt(2);
     `fused_packed_pair` launches it twice, once per conv of the pair.
   * `fused_packed_stage` (csrc/packed_stage.cu) computes a whole packed
-    stage: the pair with conv1's activation kept on chip, then toRGB and the
-    packed skip upsample.
+    stage: the pair on the tensor cores, then toRGB and the packed skip
+    upsample.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no fallback between the two. `.launches`
@@ -122,18 +122,21 @@ def fused_packed_pair(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2):
 
 def fused_packed_stage(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
                        k3sr, b3, k4):
-    """A whole packed stage in one launch of the B4 kernel (the JAX
-    `fused_packed_stage`). Arguments as fused_packed_pair, plus skip
-    (B, H, W, 3) coarse RGB, k3sr (B, C4, 12) toRGB kernel with the style
-    scale folded in, b3 (12,) or (B, 12) float32, k4 (3, 3, 3, 12); skip,
-    k3sr and k4 in x.dtype. Returns (rgb (B, H, W, 12), z2 (B, H, W, C4)),
-    both in x.dtype; z2 is written even where the caller drops it.
+    """A whole packed stage through the B4 kernels (the JAX
+    `fused_packed_stage`): one call of csrc/packed_stage.cu, which launches
+    conv1 and conv2 on the tensor cores and a pass that finishes rgb.
+    Arguments as fused_packed_pair, plus skip (B, H, W, 3) coarse RGB, k3sr
+    (B, C4, 12) toRGB kernel with the style scale folded in, b3 (12,) or
+    (B, 12) float32, k4 (3, 3, 3, 12); skip, k3sr and k4 in x.dtype. Returns
+    (rgb (B, H, W, 12), z2 (B, H, W, C4)), both in x.dtype; z2 is written
+    even where the caller drops it. conv1's activation goes through a
+    (B, H, W, C4) scratch in x.dtype, the toRGB partials of each
+    128-channel block through a float32 one.
 
     The JAX package runs its stage kernel only where both channel counts
     are multiples of 128 (a lowering limit of the TPU compiler) and falls
-    back to the pair kernel elsewhere; this kernel takes any channel count
-    whose conv1 activation tile fits in shared memory, so the port runs it
-    at both packed stages."""
+    back to the pair kernel elsewhere; these kernels take any C4 that is a
+    multiple of 4, so the port runs them at both packed stages."""
     if x.dim() != 4 or x.dtype not in DTYPES:
         raise ValueError(f"x must be float32 or bfloat16 (B, H, W, C1), got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -152,18 +155,13 @@ def fused_packed_stage(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
         return packed_stage_reference(*args)
     s1, b3 = _vec(s1, b, c1), _vec(b3, b, 12)
     d1, b1, s2, d2, b2 = (_vec(v, b, c4) for v in (d1, b1, s2, d2, b2))
-    fn = entry("packed_stage", "ogi_packed_stage", 17, 6)
+    n_cblocks = entry("packed_stage", "ogi_packed_stage_cblocks", 0, 1, stream=False)(c4)
     rgb, z2 = x.new_empty((b, h, w, 12)), x.new_empty((b, h, w, c4))
-    ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in ptrs), b, h, w, c1, c4,
-                 DTYPES[x.dtype], stream)
-    if err == 1001:
-        raise ValueError(f"packed stage kernel: the conv1 activation tile of "
-                         f"C4={c4} {x.dtype} does not fit in shared memory")
-    if err != 0:
-        raise RuntimeError(f"packed stage kernel launch failed: error {err}")
+    z = x.new_empty((b, h, w, c4))
+    part = x.new_empty((b, n_cblocks, h, w, 12), dtype=torch.float32)
+    ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2, z, part)
+    launch("packed stage", entry("packed_stage", "ogi_packed_stage", 19, 6), x,
+           *(t.data_ptr() for t in ptrs), b, h, w, c1, c4, DTYPES[x.dtype])
     fused_packed_stage.launches += 1
     return rgb, z2
 

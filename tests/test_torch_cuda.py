@@ -13,8 +13,9 @@ file imports no JAX, so it also runs where JAX is not installed:
 import pytest
 import torch
 
-from torch_inputs import (PAIR_KEYS, conv_act_inputs, packed_stage_inputs,
-                          samm_body0_inputs, tf32_cancel_inputs, warp_inputs)
+from torch_inputs import (PAIR_KEYS, conv_act_inputs, packed_cancel_inputs,
+                          packed_stage_inputs, samm_body0_inputs, tf32_cancel_inputs,
+                          warp_inputs)
 
 from ood_gan_inversion_tpu_torch.ops import alignnet, halo_probe, packed_conv, samm_conv
 from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend, warp_blend_reference
@@ -67,11 +68,11 @@ def test_warp_blend_kernel_bf16_target(cuda):
     assert float((out.float() - ref).abs().max()) <= 2.0 ** -8 * float(x.abs().max())
 
 
-def packed_operands(dev, b, h, w, c1, c4, dtype, seed=0):
+def packed_operands(dev, b, h, w, c1, c4, dtype, seed=0, inputs=packed_stage_inputs):
     """(kernel operands, float32 operands of the plain version): x, skip
     and the kernels rounded to `dtype`, the rest float32."""
     a = {k: torch.from_numpy(v).to(dev)
-         for k, v in packed_stage_inputs(b, h, w, c1, c4, seed).items()}
+         for k, v in inputs(b, h, w, c1, c4, seed).items()}
     for k in ("x", "skip", "k1", "k2", "k3sr", "k4"):
         a[k] = a[k].to(dtype)
     return a, {k: v.float() for k, v in a.items()}
@@ -99,22 +100,55 @@ def test_packed_conv_kernel_on_card(cuda, b, h, w, ci, co, dtype, tol):
     assert rel_err(out, ref) <= tol
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, PACKED_TOL),
-                                       (torch.bfloat16, PACKED_TOL_BF16)])
-@pytest.mark.parametrize("b,h,w,c1,c4", [(1, 256, 256, 128, 256),   # 512px stage
-                                         (2, 19, 27, 12, 20)])      # ragged tiles
-def test_packed_stage_kernel_on_card(cuda, b, h, w, c1, c4, dtype, tol):
-    """The whole-stage kernel (B4) against its plain version: z2 and rgb."""
-    a, ref_args = packed_operands(cuda, b, h, w, c1, c4, dtype, seed=c1 + c4)
+def check_packed_stage(a, ref_args, tol):
+    """One call of the whole-stage kernels against the plain version: one
+    launch counted, z2 and rgb within tol of max|ref|."""
     before = packed_conv.fused_packed_stage.launches
     rgb, z2 = packed_conv.fused_packed_stage(*a.values())
     rgb_ref, z2_ref = packed_conv.packed_stage_reference(*ref_args.values())
     torch.cuda.synchronize()
     assert packed_conv.fused_packed_stage.launches == before + 1
-    assert rgb.dtype == z2.dtype == dtype and rgb.shape == (b, h, w, 12)
+    assert rgb.dtype == z2.dtype == a["x"].dtype and rgb.shape == rgb_ref.shape
     assert rel_err(z2, z2_ref) <= tol
     assert rel_err(rgb, rgb_ref) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, PACKED_TOL),
+                                       (torch.bfloat16, PACKED_TOL_BF16)])
+@pytest.mark.parametrize("b,h,w,c1,c4", [(1, 256, 256, 128, 256),   # 512px stage
+                                         (1, 512, 512, 64, 128),    # 1024px stage
+                                         (2, 19, 27, 12, 20),       # ragged tiles
+                                         # C4 beyond 469 (float32) and 938 (bfloat16),
+                                         # where conv1's activation tile would not
+                                         # fit in shared memory
+                                         (1, 64, 64, 32, 512), (1, 40, 40, 16, 1024)])
+def test_packed_stage_kernel_on_card(cuda, b, h, w, c1, c4, dtype, tol):
+    """The whole-stage kernels (B4) against their plain version: z2 and rgb."""
+    a, ref_args = packed_operands(cuda, b, h, w, c1, c4, dtype, seed=c1 + c4)
+    check_packed_stage(a, ref_args, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c1,c4", [(128, 256), (64, 128)])
+def test_packed_stage_float32_accuracy_on_card(cuda, c1, c4):
+    """B4 in float32 on inputs where both convs cancel a large common offset
+    (`packed_cancel_inputs`), so a single TF32 pass would miss 1e-4 of
+    max|ref| by ~30x (tests/test_torch_tf32_split.py): the 3xTF32 products
+    meet it, for z2 and rgb."""
+    a, ref_args = packed_operands(cuda, 1, 64, 64, c1, c4, torch.float32, seed=c1,
+                                  inputs=packed_cancel_inputs)
+    check_packed_stage(a, ref_args, PACKED_TOL)
+
+
+@pytest.mark.cuda
+def test_packed_stage_bf16_rounds_x_s1_on_card(cuda):
+    """bfloat16 B4 against the plain version in float32 on conv1's input
+    as JAX rounds it: x * s1 in bfloat16 (s1 rounded first), s1 then 1."""
+    a, ref_args = packed_operands(cuda, 2, 64, 64, 64, 128, torch.bfloat16, seed=11)
+    ref_args["x"] = (a["x"] * a["s1"][:, None, None, :].to(torch.bfloat16)).float()
+    ref_args["s1"] = torch.ones_like(ref_args["s1"])
+    check_packed_stage(a, ref_args, PACKED_TOL_BF16)
 
 
 @pytest.mark.cuda
@@ -148,9 +182,11 @@ def test_packed_kernels_give_each_batch_slot_its_own_result(cuda):
 # ------------------------------------------------ AlignNet body0 kernels
 
 # (b, C, H, W): AlignNet body0 at the four SAMM scales of the 1024px model
-# (2C = 1024, 1024, 512, 256), and a ragged case (tiles of 8 x 16 pixels)
+# (2C = 1024, 1024, 512, 256), and ragged cases: H, W off the pixel tile, and
+# C not a multiple of 8 (nor 16), so that one of B2a's chunks of input
+# channels straddles the s/t halves of x1
 SAMM_CASES = [(1, 512, 32, 32), (1, 512, 64, 64), (1, 256, 128, 128),
-              (1, 128, 256, 256), (2, 48, 19, 27)]
+              (1, 128, 256, 256), (2, 48, 19, 27), (2, 37, 19, 27), (1, 12, 100, 90)]
 # float32: sums over up to K = 9 * 1024 terms in another order than cuDNN's
 # -> 1e-4 of max|ref|; bfloat16 operands against the plain version on the
 # same rounded operands in float32 -> 2^-7 of max|ref| (the kernels round
@@ -195,6 +231,25 @@ def test_alignnet_conv_kernels_on_card(cuda, b, c, h, w, dtype):
     for m in range(2):
         assert rel_err(part[:, m], part_ref[:, m]) <= SAMM_TOL[torch.float32]
     assert torch.equal(y2, y2_again) and torch.equal(part, part_again)
+
+
+def conv1_ops(a):
+    return [a[k] for k in ("s", "t", "coeffs", "k1", "alpha")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alignnet_conv1_at_32px_slot_bitwise(cuda, dtype):
+    """B2a at 32px, C = 512 (the grid of small tiles), b = 3: each slot is
+    bit-identical to that sample alone, and within tolerance of the plain
+    version."""
+    a, r = samm_operands(cuda, 3, 512, 32, 32, dtype, seed=3)
+    z = alignnet.alignnet_conv1(*conv1_ops(a))
+    for s in range(3):
+        one = {k: (v[s:s + 1].contiguous() if k in ("s", "t", "coeffs") else v)
+               for k, v in a.items()}
+        assert torch.equal(z[s:s + 1], alignnet.alignnet_conv1(*conv1_ops(one))), s
+    assert rel_err(z, alignnet.alignnet_conv1_reference(*conv1_ops(r))) <= SAMM_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -247,14 +302,22 @@ def b5_and_b2b(x, k, alpha, act):
 
 @pytest.mark.cuda
 def test_samm_kernels_float32_accuracy_on_card(cuda):
-    """B5 and B2b at the 64px 1024 -> 1024 shape on inputs where one TF32
-    pass misses 1e-4 of max|ref| by >10x (tests/test_torch_tf32_split.py):
-    x = 1 + 0.1 noise, weights summing to 0 over ci. The 3xTF32 products
-    meet the float32 tolerance."""
+    """B5, B2b and B2a at the 64px 1024 -> 1024 shape on inputs where one
+    TF32 pass misses 1e-4 of max|ref| by >10x (tests/test_torch_tf32_split.py):
+    x = 1 + 0.1 noise, weights summing to 0 over ci. B2a gets x through its
+    x1 prologue: s and t are x's two halves and the coefficients
+    [1, 0, 0, 1, 0] give x1 = x. The 3xTF32 products meet the float32
+    tolerance."""
     x, k = (torch.from_numpy(v).to(cuda) for v in tf32_cancel_inputs(1, 1024, 1024, 64, 64))
     for name, (outs, refs) in b5_and_b2b(x, k, None, "none").items():
         for got, ref in zip(outs, refs):
             assert rel_err(got, ref) <= SAMM_TOL[torch.float32], name
+    coeffs = torch.tensor([1.0, 0.0, 0.0, 1.0, 0.0], device=cuda)[None, :, None].expand(
+        1, 5, 512).contiguous()
+    conv1 = (x[:, :512].contiguous(), x[:, 512:].contiguous(), coeffs, k,
+             torch.full((1024,), 0.25, device=cuda))
+    z = alignnet.alignnet_conv1(*conv1)
+    assert rel_err(z, alignnet.alignnet_conv1_reference(*conv1)) <= SAMM_TOL[torch.float32]
 
 
 @pytest.mark.cuda

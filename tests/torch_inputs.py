@@ -48,6 +48,23 @@ def packed_stage_inputs(b, h, w, c1, c4, seed=0):
     return {k: v.astype(np.float32) for k, v in a.items()}
 
 
+def packed_cancel_inputs(b, h, w, c1, c4, seed=0):
+    """packed_stage_inputs where both convs cancel a large common offset, as
+    tf32_cancel_inputs does for one: x = 1 + 0.1 * noise with s1 = 1, conv1's
+    activation offset by b1 = 4 with s2 = 1, and k1, k2 summing to 0 over the
+    input channels for every (tap, output channel). Every product of either
+    conv carries the offset, while the sums do not."""
+    a = packed_stage_inputs(b, h, w, c1, c4, seed)
+    rs = np.random.RandomState(seed + 1)
+    a["x"] = 1.0 + 0.1 * rs.randn(b, h, w, c1)
+    a["s1"] = np.ones((b, c1))
+    a["s2"] = np.ones((b, c4))
+    a["b1"] = np.full(c4, 4.0)
+    for k in ("k1", "k2"):
+        a[k] = a[k] - a[k].mean(axis=2, keepdims=True)
+    return {k: v.astype(np.float32) for k, v in a.items()}
+
+
 PAIR_KEYS = ("x", "n1", "n2", "k1", "s1", "d1", "b1", "k2", "s2", "d2", "b2")
 
 
