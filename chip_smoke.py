@@ -23,6 +23,9 @@
    slice on the card against the same slice on the CPU at a small width,
    unpacked, with the whole-stage kernel, and in both body0 modes. Then
    runs the halo probe, the box-sum kernel's own path, against its oracle.
+   Before the main path, runs every kernel's autograd Function with inputs
+   that require grad: its output must come from the Function and equal the
+   kernel's, its gradients those of the plain version.
 4. Prints the card's name and power limit, one JSON line describing the
    kernels, and as the last line {"ok": true, "device": {...}}.
 
@@ -140,7 +143,7 @@ def phase_build():
     papers over by serialising the tensor cores."""
     from ood_gan_inversion_tpu_torch import build
     t0 = time.time()
-    logs = build.build_all(["warp_blend", "packed_pair", "packed_stage", "samm_conv",
+    logs = build.build_all(["warp_blend", "packed_stage", "samm_conv",
                             "alignnet_conv1", "alignnet_conv2", "halo_probe"])
     log(f"[build] nvcc sm_90a: {sorted(logs)} in {time.time() - t0:.1f} s")
     hazards = []
@@ -157,11 +160,12 @@ def phase_build():
 
 
 def phase_kernels():
-    """warp_blend against warp_blend_reference at the main-path shapes."""
+    """warp_blend against warp_blend_reference at the main-path shapes;
+    timed beside a plain copy of the same target and on a zero flow."""
     from ood_gan_inversion_tpu_torch.ops.warp_blend import (
         warp_blend, warp_blend_reference)
     per_image = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    max_err, bound_by = 0.0, "bytes"
+    max_err, bound_by, copy_per_image = 0.0, "bytes", 0.0
     for size, c in WARP_SHAPES:
         for b, at_bound in ((1, False), (2, False), (2, True)):
             x, grid, alpha = warp_inputs(b, size, c, WARP_SCALE,
@@ -200,21 +204,34 @@ def phase_kernels():
             ms = time_ms(lambda: warp_blend(x, grid, alpha))
             plain = time_ms(lambda: warp_blend_reference(x, grid, alpha))
             lib = time_ms(library)
+            # yardsticks: a plain copy of the target (the bound's bytes but
+            # the grid's and alpha's, without the gather), and the kernel on
+            # a zero flow (every tap at or next to its own pixel)
+            copied = torch.empty_like(x)
+            copy = time_ms(lambda: copied.copy_(x))
+            zero = warp_inputs(b, size, c, 0.0, seed=size + c + b)
+            zero_ms = time_ms(lambda: warp_blend(*zero))
             bound, bound_by = warp_bound_ms(b, size, c, 4)
+            nbytes = 2 * x.numel() * 4 + 12 * b * size * size
             log(f"[kernel] warp_blend b={b} {size}px C={c} fp32: max|err| "
                 f"{err:.3e} <= {tol:.3e}; bf16 max|err| {errb:.3e} <= "
-                f"{tolb:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"{tolb:.3e}; kernel {ms:.5f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                f"{bound / ms:.0%} of the bound), zero flow {zero_ms:.5f} ms, "
+                f"copy of the target {copy:.5f} ms (kernel / copy {ms / copy:.2f}), "
+                f"plain {plain:.4f} ms, "
                 f"grid_sample+blend {lib:.4f} ms (|diff| {lib_err:.1e}), "
-                f"bound {bound:.4f} ms ({bound_by})")
+                f"bound {bound:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB)")
             if b == 1:      # the main path: 2 align cycles per scale per image
                 for k, v in (("ms", ms), ("plain_ms", plain),
                              ("bound_ms", bound), ("library_ms", lib)):
                     per_image[k] += 2 * v
+                copy_per_image += 2 * copy
     log(f"[kernel] warp_blend per image (8 launches, b=1): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in per_image.items()))
+        + ", ".join(f"{k} {v:.4f}" for k, v in per_image.items())
+        + f", copy of the targets {copy_per_image:.4f}")
     return {"name": "warp_blend", "route": "cuda",
             "source": "ood_gan_inversion_tpu_torch/csrc/warp_blend.cu",
-            "replaces": "ood_gan_inversion_tpu/ops/pallas_warp.py:64",
+            "replaces": "ood_gan_inversion_tpu/ops/pallas_warp.py:380",
             "max_abs_err": max_err, "bound_by": bound_by, **per_image}
 
 
@@ -317,9 +334,12 @@ def phase_packed_kernels():
                                        packed_conv3x3_act_reference(*args), PACKED_TOL)
                 xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
                 argsb = (xb, n4, kb, s, d, bias)
+                # the plain version in float32 on the input as JAX rounds it:
+                # x * s_in in bfloat16, s_in rounded first
+                xs = (xb * s[:, None, None, :].to(torch.bfloat16)).float()
                 errb, limb = check_close(
                     f"B3 {stage} {name} b={b} bf16", fused_conv3x3_act(*argsb),
-                    packed_conv3x3_act_reference(xb.float(), n4, kb.float(), s, d, bias),
+                    packed_conv3x3_act_reference(xs, n4, kb.float(), torch.ones_like(s), d, bias),
                     PACKED_TOL_BF16)
                 xn, n4n = x.permute(0, 3, 1, 2), n4.permute(0, 3, 1, 2)
                 wk = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -424,7 +444,7 @@ def phase_packed_kernels():
                 gflop["B4"][1] += useful / 1e9
     entries = []
     for kid, name, src, line in (
-            ("B3", "fused_conv3x3_act", "packed_pair.cu", 158),
+            ("B3", "fused_conv3x3_act", "packed_stage.cu", 158),
             ("B4", "fused_packed_stage", "packed_stage.cu", 275)):
         log(f"[kernel] {kid} {name} per image (b=1): "
             + ", ".join(f"{k} {v:.4f}" for k, v in per_image[kid].items())
@@ -600,6 +620,76 @@ def phase_samm_kernels():
                         "bound_by": max(bound_by[kid], key=bound_by[kid].get),
                         **per_image[kid]})
     return entries
+
+
+def grads_of(fn, args, cotangents):
+    """(outputs, gradients of sum(out * cotangent) for every tensor
+    argument) of fn on fresh leaves of args; a None cotangent drops its
+    output from the loss."""
+    leaves = [a.detach().clone().requires_grad_() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    used = [(o, g) for o, g in zip(outs, cotangents) if g is not None]
+    grads = torch.autograd.grad([o for o, _ in used],
+                                [v for v in leaves if isinstance(v, torch.Tensor)],
+                                [g for _, g in used], allow_unused=True)
+    return outs, grads
+
+
+def phase_gradients():
+    """Every kernel wrapper with grad on and inputs that require grad, at a
+    launch shape of the main path, float32: its output must come from its
+    autograd Function (grad_fn), equal the kernel's output without grad bit
+    for bit, and its gradients must equal the plain version's own autograd
+    gradients within 1e-5 of max|ref| (the same computation; the backward's
+    scatters and cuDNN sum in run-dependent order). B4's loss reads rgb
+    only (z2's cotangent None), B2b's both y2 and the moments."""
+    from ood_gan_inversion_tpu_torch.ops import alignnet as an
+    from ood_gan_inversion_tpu_torch.ops import halo_probe, samm_conv
+    from ood_gan_inversion_tpu_torch.ops import packed_conv as pc
+    from ood_gan_inversion_tpu_torch.ops import warp_blend as wb
+    a = packed_operands(1, 256, 128, 64, seed=5)
+    s = samm_operands(1, 32, 512, seed=6)
+    conv1 = (s["s"], s["t"], s["coeffs"], s["k1"], s["alpha"])
+    g = torch.Generator(device="cuda").manual_seed(7)
+    cases = [
+        ("WarpBlend", wb.warp_blend, wb.warp_blend_reference,
+         warp_inputs(1, 128, 256, WARP_SCALE, seed=7)),
+        ("PackedConv3x3Act", pc.fused_conv3x3_act, pc.packed_conv3x3_act_reference,
+         tuple(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1"))),
+        ("PackedStage", pc.fused_packed_stage, pc.packed_stage_reference, tuple(a.values())),
+        ("AlignNetConv1", an.alignnet_conv1, an.alignnet_conv1_reference, conv1),
+        ("AlignNetConv2", an.alignnet_conv2, an.alignnet_conv2_reference,
+         (an.alignnet_conv1_reference(*conv1), s["k2"])),
+        ("Conv3x3Act", samm_conv.conv3x3_act, samm_conv.conv3x3_act_reference,
+         (s["x1"], s["k1"], s["alpha"], "prelu")),
+        ("Box3x3", halo_probe.box3x3, halo_probe.box3x3_reference,
+         (torch.randn(32, 32, generator=g, device="cuda"),))]
+    for name, fn, twin, args in cases:
+        with torch.no_grad():
+            direct = fn(*args)
+        direct = direct if isinstance(direct, tuple) else (direct,)
+        cts = [torch.randn(o.shape, generator=g, device="cuda") for o in direct]
+        if name == "PackedStage":
+            cts[1] = None
+        outs, grads = grads_of(fn, args, cts)
+        node = type(outs[0].grad_fn).__name__
+        if node != name + "Backward":
+            raise AssertionError(f"gradients: {name}'s output has grad_fn {node}")
+        if not all(torch.equal(o, d) for o, d in zip(outs, direct)):
+            raise AssertionError(f"gradients: {name}'s forward differs from the kernel's")
+        _, ref = grads_of(twin, args, cts)
+        rel = []
+        for i, (got, want) in enumerate(zip(grads, ref)):
+            if (got is None) != (want is None):
+                raise AssertionError(f"gradients: {name} input {i}: None against a gradient")
+            if want is not None:
+                rel.append(float((got - want).abs().max()) / float(want.abs().max()))
+        if not max(rel) <= 1e-5:
+            raise AssertionError(f"gradients: {name} max rel err {max(rel)} > 1e-5")
+        log(f"[grad] {name}: grad_fn {node}, forward == kernel, {len(rel)} gradients "
+            f"within {max(rel):.2e} of max|ref| of the plain version's (<= 1e-5)")
 
 
 def phase_probe():
@@ -835,7 +925,7 @@ def phase_samm_body0(engine, imgs, replies):
     return launches, engines
 
 
-def phase_end_to_end(engines, imgs, rounds=9):
+def phase_end_to_end(engines, imgs, rounds=15):
     """invert ms/img of every configuration on the same weights, `rounds`
     interleaved rounds (one call of each configuration per round, in turn,
     images and seeds cycling), CUDA events around each call."""
@@ -918,6 +1008,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     entries = [phase_kernels(), *phase_packed_kernels(), *phase_samm_kernels()]
+    phase_gradients()
     entries[0]["launches"], engine, imgs, replies = phase_main_path()
     launches, tails = phase_packed_tail(engine, imgs, replies)
     body0_launches, body0s = phase_samm_body0(engine, imgs, replies)

@@ -1,29 +1,38 @@
-// A whole phase-packed generator stage, for Hopper (sm_90a):
+// The phase-packed generator stage's convolutions, for Hopper (sm_90a).
+//
+// B4, a whole packed stage (ogi_packed_stage):
 //
 //   z   = lrelu(conv3x3(x * s1; k1) * d1 + n1[phase] + b1) * sqrt(2) * s2
 //   z2  = lrelu(conv3x3(z; k2) * d2 + n2[phase] + b2) * sqrt(2)
 //   rgb = z2 . k3sr[b] + b3 + conv3x3(skip; k4)
+//
+// B3, one packed conv (ogi_packed_conv3x3_act), B4's conv1 without s2:
+//
+//   out = lrelu(conv3x3(x * s_in; k) * d_out + noise4[phase] + bias) * sqrt(2)
 //
 // NHWC x (B, H, W, C1), HWIO k1 (3, 3, C1, C4) and k2 (3, 3, C4, C4), zero
 // padding 1 for each conv; n1, n2 (B, H, W, 4) broadcast to C4 = 4 * Cmid
 // packed channels by the phase co / Cmid; per-sample s1 (B, C1), d1, b1,
 // s2, d2, b2 (B, C4), k3sr (B, C4, 12) (toRGB kernel, style scale folded
 // in), b3 (B, 12); k4 (3, 3, 3, 12) the packed skip upsample. Outputs rgb
-// (B, H, W, 12) and z2 (B, H, W, C4), both in the operand dtype.
+// (B, H, W, 12) and z2 (B, H, W, C4), both in the operand dtype; B3's out
+// (B, H, W, Co) likewise.
 //
-// Replaces the TPU kernel ops/pallas_kernels.py:_stage_band_kernel (called
-// by fused_packed_stage_pallas / fused_packed_stage). Like it, x * s1 is
-// rounded to the operand dtype before conv1, conv1's activation z is
-// rounded to it before conv2, and toRGB reads z2 as stored. Unlike it, x,
-// z, n1 and skip are read in place with masked loads (no padded copies),
-// the noise is read at index co / Cmid (no one-hot matmul), and any C4 that
-// is a multiple of 4 runs (the TPU kernel takes multiples of 128 only).
+// Replaces the TPU kernels ops/pallas_kernels.py:_stage_band_kernel (called
+// by fused_packed_stage_pallas / fused_packed_stage) and _conv_band_kernel
+// (called by fused_conv3x3_act, twice per fused_packed_pair). Like them,
+// x * s1 is rounded to the operand dtype before conv1 (s1 rounded first),
+// conv1's activation z is rounded to it before conv2, and toRGB reads z2 as
+// stored. Unlike them, x, z, n1 and skip are read in place with masked
+// loads (no padded copies), the noise is read at index co / Cmid (no
+// one-hot matmul), and any C4 that is a multiple of 4 runs (the TPU stage
+// kernel takes multiples of 128 only).
 //
 // What bounds it: operations. The two convs do 2 * 9 * (C1 + C4) * C4
 // flops per pixel against a few hundred bytes. Both run on the tensor cores
 // as the implicit GEMM of tc_conv.cuh (wgmma; 3xTF32 for float32 operands,
 // one bf16 pass for bfloat16; each chunk's products in fresh fragments), in
-// three launches:
+// three launches (B3 is the first alone, with no s_out):
 //   1. conv1 (stage_conv_kernel<T, 1>): z, in the operand dtype, to a
 //      (B, H, W, C4) scratch. Keeping z on chip instead would recompute
 //      conv1 on each tile's halo (1.56x its work at 8 x 8 tiles) and cap C4
@@ -116,7 +125,7 @@ struct Args {
   const float* s_in;      // conv1: s1 (B, C1)
   const float* d;         // d1 or d2 (B, C4)
   const float* bias;      // b1 or b2 (B, C4)
-  const float* s_out;     // conv1: s2 (B, C4)
+  const float* s_out;     // conv1: s2 (B, C4); null for B3
   const void* k3sr;       // conv2: (B, C4, 12)
   void* out;              // conv1: z; conv2: z2 (B, H, W, C4)
   float* part;            // conv2: toRGB partials (B, n_cblocks, H, W, 12)
@@ -287,7 +296,7 @@ __global__ void __launch_bounds__(THREADS, 1) stage_conv_kernel(const Args a) {
   }
   __syncthreads();
 
-  // d, noise, bias, lrelu (conv1: and s2), rounded to T and stored: 4
+  // d, noise, bias, lrelu (B4's conv1: and s2), rounded to T and stored: 4
   // channels of a pixel per thread, a warp's stores 128 channels of a pixel
   const int cmid = Cout / 4;
   for (int idx = tid; idx < P * (TN / 4); idx += THREADS) {
@@ -301,7 +310,9 @@ __global__ void __launch_bounds__(THREADS, 1) stage_conv_kernel(const Args a) {
     for (int u = 0; u < 4; ++u) {
       const int c = co + u;
       float z = lrelu(sp[u] * a.d[b * Cout + c] + a.noise[pix * 4 + c / cmid] + a.bias[b * Cout + c]);
-      if constexpr (STAGE == 1) z *= a.s_out[b * Cout + c];
+      if constexpr (STAGE == 1) {
+        if (a.s_out) z *= a.s_out[b * Cout + c];
+      }
       v[u] = to_f(from_f<T>(z));
     }
     store4(static_cast<T*>(a.out) + pix * Cout + co, v);
@@ -429,4 +440,23 @@ extern "C" int ogi_packed_stage(const void* x, const void* n1, const void* n2,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch<float>(p, B, H, W, C1, C4, st)
                     : launch<__nv_bfloat16>(p, B, H, W, C1, C4, st);
+}
+
+// B3: one packed conv, conv1 of the stage without s2. dtype: 0 = float32,
+// 1 = bfloat16 (x, k and out). All tensors contiguous: x (B, H, W, Ci),
+// noise4 (B, H, W, 4) float32, k (3, 3, Ci, Co), s_in (B, Ci), d_out and
+// bias (B, Co) float32, out (B, H, W, Co). Returns cudaGetLastError() after
+// the launch (0 = success); 1000 for an argument the kernel does not take.
+extern "C" int ogi_packed_conv3x3_act(const void* x, const void* noise4, const void* k,
+                                      const void* s_in, const void* d_out,
+                                      const void* bias, void* out, int B, int H, int W,
+                                      int Ci, int Co, int dtype, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 ||
+      Co % 4 != 0 || (dtype != 0 && dtype != 1))
+    return 1000;
+  auto F_ = [](const void* p) { return static_cast<const float*>(p); };
+  const Args a{x, k, F_(noise4), F_(s_in), F_(d_out), F_(bias), nullptr, nullptr, out,
+               nullptr, H, W, Ci, Co, 0, 0, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_conv<float, 1>(a, B, st) : launch_conv<__nv_bfloat16, 1>(a, B, st);
 }

@@ -21,13 +21,16 @@ coefficients, then `alignnet_conv1` (x1 built on chip, conv1, PReLU), then
 `alignnet_conv2` (conv2 and norm2's moments), then the norm2 affine and the
 shortcut. Each wrapper launches its kernel for CUDA tensors and runs its
 plain version (`alignnet_conv1_reference`, `alignnet_conv2_reference`) for
-CPU tensors, and counts its launches in `.launches`.
+CPU tensors, and counts its launches in `.launches`. Their backwards (the
+Functions `AlignNetConv1`, `AlignNetConv2`) differentiate the plain
+versions, so `fused_alignnet_body0`, which composes them, differentiates
+as JAX's custom_vjp does: through the reference.
 """
 
 import torch
 import torch.nn.functional as F
 
-from .cuda_call import activation, entry, expect, launch, on_card
+from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function
 
 # the channel floor of the fused path (C, as in JAX); tests lower it to run
 # narrow widths through the kernels
@@ -195,25 +198,54 @@ def alignnet_conv2_reference(z, k2):
     return y2, torch.stack([y2.sum(dim=(2, 3)), (y2 * y2).sum(dim=(2, 3))], dim=1)
 
 
+def _conv1_run(s, t, coeffs, k1, alpha):
+    """B2a's kernel for CUDA tensors, its plain version for CPU tensors."""
+    if not on_card("alignnet_conv1", (s, t, coeffs, k1, alpha)):
+        return alignnet_conv1_reference(s, t, coeffs, k1, alpha)
+    b, c, h, w = s.shape
+    z = s.new_empty((b, 2 * c, h, w))
+    launch("alignnet_conv1", entry("alignnet_conv1", "ogi_alignnet_conv1", 6, 5), s,
+           *(v.data_ptr() for v in (s, t, coeffs, k1, alpha, z)), b, h, w, c,
+           activation(s, "alignnet_conv1"))
+    alignnet_conv1.launches += 1
+    return z
+
+
+AlignNetConv1 = twin_function("AlignNetConv1", _conv1_run, alignnet_conv1_reference)
+
+
 def alignnet_conv1(s, t, coeffs, k1, alpha):
     """B2a: arguments and result as alignnet_conv1_reference; s, t and k1
     float32 or bfloat16 (the same), coeffs and alpha float32."""
-    dtype = activation(s, "alignnet_conv1")
+    activation(s, "alignnet_conv1")
     b, c, h, w = s.shape
     expect("t", t, s.shape, s.dtype)
     expect("coeffs", coeffs, (b, 5, c), torch.float32)
     expect("k1", k1, (2 * c, 2 * c, 3, 3), s.dtype)
     expect("alpha", alpha, (2 * c,), torch.float32)
-    if not on_card("alignnet_conv1", (s, t, coeffs, k1, alpha)):
-        return alignnet_conv1_reference(s, t, coeffs, k1, alpha)
-    z = s.new_empty((b, 2 * c, h, w))
-    launch("alignnet_conv1", entry("alignnet_conv1", "ogi_alignnet_conv1", 6, 5), s,
-           *(v.data_ptr() for v in (s, t, coeffs, k1, alpha, z)), b, h, w, c, dtype)
-    alignnet_conv1.launches += 1
-    return z
+    return dispatch(AlignNetConv1, s, t, coeffs, k1, alpha)
 
 
 alignnet_conv1.launches = 0
+
+
+def _conv2_run(z, k2):
+    """B2b's kernel for CUDA tensors, its plain version for CPU tensors."""
+    if not on_card("alignnet_conv2", (z, k2)):
+        return alignnet_conv2_reference(z, k2)
+    b, c2, h, w = z.shape
+    n_tiles = entry("alignnet_conv2", "ogi_samm_conv_tiles", 0, 3, stream=False)(h, w, c2)
+    y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)
+    tile_part = z.new_empty((b, n_tiles, 2, c2), dtype=torch.float32)
+    part = z.new_empty((b, 2, c2), dtype=torch.float32)
+    launch("alignnet_conv2", entry("alignnet_conv2", "ogi_alignnet_conv2", 5, 5), z,
+           *(v.data_ptr() for v in (z, k2, y2, tile_part, part)), b, h, w, c2,
+           activation(z, "alignnet_conv2"))
+    alignnet_conv2.launches += 1
+    return y2, part
+
+
+AlignNetConv2 = twin_function("AlignNetConv2", _conv2_run, alignnet_conv2_reference)
 
 
 def alignnet_conv2(z, k2):
@@ -223,19 +255,9 @@ def alignnet_conv2(z, k2):
     block of the kernel writes the moments of its pixel tile into a scratch,
     which a fixed-order pass then sums: no atomics, so the moments are
     bit-identical from call to call and in every batch slot."""
-    dtype = activation(z, "alignnet_conv2")
-    b, c2, h, w = z.shape
-    expect("k2", k2, (c2, c2, 3, 3), z.dtype)
-    if not on_card("alignnet_conv2", (z, k2)):
-        return alignnet_conv2_reference(z, k2)
-    n_tiles = entry("alignnet_conv2", "ogi_samm_conv_tiles", 0, 3, stream=False)(h, w, c2)
-    y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)
-    tile_part = z.new_empty((b, n_tiles, 2, c2), dtype=torch.float32)
-    part = z.new_empty((b, 2, c2), dtype=torch.float32)
-    launch("alignnet_conv2", entry("alignnet_conv2", "ogi_alignnet_conv2", 5, 5), z,
-           *(v.data_ptr() for v in (z, k2, y2, tile_part, part)), b, h, w, c2, dtype)
-    alignnet_conv2.launches += 1
-    return y2, part
+    activation(z, "alignnet_conv2")
+    expect("k2", k2, (z.shape[1], z.shape[1], 3, 3), z.dtype)
+    return dispatch(AlignNetConv2, z, k2)
 
 
 alignnet_conv2.launches = 0

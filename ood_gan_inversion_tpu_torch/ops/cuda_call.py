@@ -1,9 +1,18 @@
 """What the CUDA kernel wrappers share: the operand checks, the choice
-between the kernel (CUDA tensors) and the plain version (CPU tensors), and
-the ctypes binding and call of a kernel's C entry point."""
+between the kernel (CUDA tensors) and the plain version (CPU tensors), the
+ctypes binding and call of a kernel's C entry point, and the autograd
+Function that gives each kernel a backward.
+
+A kernel's backward differentiates its plain version (its "twin"), as the
+JAX package's custom_vjp rules differentiate their references: the
+Function saves the inputs, and its backward recomputes the twin on them
+under autograd. Where autograd records nothing (grad mode off, as under
+`torch.no_grad` or `torch.inference_mode`, or no input that requires grad)
+a wrapper calls its kernel directly, without the Function."""
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -62,3 +71,60 @@ def launch(what, fn, x, *args):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: error {err}")
+
+
+def twin_function(name, run, twin):
+    """A torch.autograd.Function `name` whose forward is run(*args) (the
+    kernel for CUDA tensors, the plain version for CPU tensors) and whose
+    backward is torch.autograd.grad of twin(*args) on the saved inputs.
+    Arguments that are not tensors (an activation's name, an absent
+    operand) pass through and get no gradient; a cotangent that is None
+    (an output the loss does not use) adds nothing. Under create_graph the
+    gradients are the twin's own, so they differentiate again, through the
+    twin. `.run` is `run`."""
+
+    def forward(ctx, *args):
+        ctx.set_materialize_grads(False)
+        ctx.tensor_at = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
+        ctx.args = [None if i in ctx.tensor_at else a for i, a in enumerate(args)]
+        ctx.save_for_backward(*(args[i] for i in ctx.tensor_at))
+        return run(*args)
+
+    def backward(ctx, *cotangents):
+        # grad mode is on here only under create_graph: then the twin runs on
+        # the saved inputs themselves, so its gradients are differentiable in
+        # turn (a gradient of a gradient, as JAX's custom_vjp rules allow)
+        create = torch.is_grad_enabled()
+        args = list(ctx.args)
+        wrt = [i for i in ctx.tensor_at if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
+                args[i] = t if create else t.detach().requires_grad_(ctx.needs_input_grad[i])
+            outs = twin(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            pairs = [(o, g) for o, g in zip(outs, cotangents)
+                     if g is not None and o.requires_grad]
+            grads = [None] * len(wrt)
+            if pairs and wrt:
+                grads = torch.autograd.grad([o for o, _ in pairs], [args[i] for i in wrt],
+                                            [g for _, g in pairs], allow_unused=True,
+                                            create_graph=create)
+        out = [None] * len(args)
+        for i, g in zip(wrt, grads):
+            out[i] = g
+        return tuple(out)
+
+    def body(ns):
+        ns.update(forward=staticmethod(forward), backward=staticmethod(backward),
+                  run=staticmethod(run))
+
+    return types.new_class(name, (torch.autograd.Function,), exec_body=body)
+
+
+def dispatch(fn, *args):
+    """fn.run(*args), through the Function fn where autograd records the
+    call: grad mode on and a tensor argument that requires grad."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return fn.apply(*args)
+    return fn.run(*args)

@@ -7,13 +7,14 @@ not compute its own oracle; both functions here compute the oracle, the
 zero-halo box sum. `box3x3` launches the hand-written CUDA kernel
 `csrc/halo_probe.cu` for a CUDA tensor and runs `box3x3_reference` for a
 CPU tensor; there is no fallback between the two. `.launches` counts
-kernel launches.
+kernel launches. Its backward (the Function `Box3x3`) differentiates the
+plain version.
 """
 
 import torch
 import torch.nn.functional as F
 
-from .cuda_call import entry, launch, on_card
+from .cuda_call import dispatch, entry, launch, on_card, twin_function
 
 
 def box3x3_reference(x):
@@ -28,12 +29,8 @@ def box3x3_reference(x):
     return out
 
 
-def box3x3(x):
-    """The zero-halo 3x3 box sum of x (H, W) float32, in 8 x 8 tiles on the
-    card."""
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(f"box3x3 takes a float32 (H, W) array, got {x.dtype} "
-                         f"{tuple(x.shape)}")
+def _run(x):
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if not on_card("box3x3", (x,)):
         return box3x3_reference(x)
     out = torch.empty_like(x)
@@ -41,6 +38,18 @@ def box3x3(x):
            x.data_ptr(), out.data_ptr(), *x.shape)
     box3x3.launches += 1
     return out
+
+
+Box3x3 = twin_function("Box3x3", _run, box3x3_reference)
+
+
+def box3x3(x):
+    """The zero-halo 3x3 box sum of x (H, W) float32, in 8 x 8 tiles on the
+    card."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"box3x3 takes a float32 (H, W) array, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    return dispatch(Box3x3, x)
 
 
 box3x3.launches = 0

@@ -3,17 +3,20 @@ ops/pallas_kernels.py: `fused_conv3x3_act`, `fused_packed_pair`,
 `fused_packed_stage` and their plain versions), NHWC tensors and HWIO
 kernels as in JAX.
 
-Two hand-written CUDA kernels:
-  * `fused_conv3x3_act` (csrc/packed_pair.cu) computes
-    lrelu(conv3x3(x * s_in) * d_out + phase_bcast(noise4) + bias) * sqrt(2);
-    `fused_packed_pair` launches it twice, once per conv of the pair.
-  * `fused_packed_stage` (csrc/packed_stage.cu) computes a whole packed
-    stage: the pair on the tensor cores, then toRGB and the packed skip
-    upsample.
+Two hand-written CUDA kernels, both in csrc/packed_stage.cu on the
+tensor cores (the `wgmma` conv of csrc/tc_conv.cuh):
+  * `fused_conv3x3_act` (B3) computes
+    lrelu(conv3x3(x * s_in) * d_out + phase_bcast(noise4) + bias) * sqrt(2),
+    the whole stage's conv1 without its s2 factor; `fused_packed_pair`
+    calls it twice, once per conv of the pair.
+  * `fused_packed_stage` (B4) computes a whole packed stage: the pair, then
+    toRGB and the packed skip upsample.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors; there is no fallback between the two. `.launches`
 on `fused_conv3x3_act` and `fused_packed_stage` counts kernel launches.
+Their backwards (the Functions `PackedConv3x3Act`, `PackedStage`)
+differentiate the plain versions, as JAX's custom_vjp rules do.
 
 Operands: x and the conv kernels (and skip, k3sr, k4) in float32 or
 bfloat16; noise, style scales, demodulation and biases in float32. The
@@ -24,7 +27,7 @@ import math
 
 import torch
 
-from .cuda_call import DTYPES, entry, expect, launch, on_card
+from .cuda_call import DTYPES, dispatch, entry, expect, launch, on_card, twin_function
 from .polyphase import conv_packed
 
 SQRT2 = math.sqrt(2.0)
@@ -78,6 +81,25 @@ def _vec(v, b, c):
     return v.expand(b, c).contiguous()
 
 
+def _conv3x3_act_run(x, noise4, k, s_in, d_out, bias):
+    """B3's kernel for CUDA tensors, its plain version for CPU tensors."""
+    if not on_card("fused_conv3x3_act", (x, noise4, k, s_in, d_out, bias)):
+        return packed_conv3x3_act_reference(x, noise4, k, s_in, d_out, bias)
+    b, h, w, ci = x.shape
+    co = k.shape[-1]
+    s_in, d_out, bias = _vec(s_in, b, ci), _vec(d_out, b, co), _vec(bias, b, co)
+    out = x.new_empty((b, h, w, co))
+    launch("packed conv3x3", entry("packed_stage", "ogi_packed_conv3x3_act", 7, 6), x,
+           *(t.data_ptr() for t in (x, noise4, k, s_in, d_out, bias, out)),
+           b, h, w, ci, co, DTYPES[x.dtype])
+    fused_conv3x3_act.launches += 1
+    return out
+
+
+PackedConv3x3Act = twin_function("PackedConv3x3Act", _conv3x3_act_run,
+                                 packed_conv3x3_act_reference)
+
+
 def fused_conv3x3_act(x, noise4, k, s_in, d_out, bias):
     """One fused packed conv (B3): arguments as packed_conv3x3_act_reference;
     x and k float32 or bfloat16 (the same), the rest float32."""
@@ -90,15 +112,7 @@ def fused_conv3x3_act(x, noise4, k, s_in, d_out, bias):
         raise ValueError(f"output channels {co} are not 4 phases")
     expect("noise4", noise4, (b, h, w, 4), torch.float32)
     expect("k", k, (3, 3, ci, co), x.dtype)
-    if not on_card("fused_conv3x3_act", (x, noise4, k, s_in, d_out, bias)):
-        return packed_conv3x3_act_reference(x, noise4, k, s_in, d_out, bias)
-    s_in, d_out, bias = _vec(s_in, b, ci), _vec(d_out, b, co), _vec(bias, b, co)
-    out = x.new_empty((b, h, w, co))
-    launch("packed conv3x3", entry("packed_pair", "ogi_packed_conv3x3_act", 7, 6), x,
-           *(t.data_ptr() for t in (x, noise4, k, s_in, d_out, bias, out)),
-           b, h, w, ci, co, DTYPES[x.dtype])
-    fused_conv3x3_act.launches += 1
-    return out
+    return dispatch(PackedConv3x3Act, x, noise4, k, s_in, d_out, bias)
 
 
 fused_conv3x3_act.launches = 0
@@ -110,14 +124,34 @@ def fused_packed_pair(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2):
     x (B, H, W, C1) coarse input; n1, n2 (B, H, W, 4) phase-packed noise,
     pre-scaled by the NoiseInjection weights; k1 (3, 3, C1, C4) packed
     upconv+blur kernel; s1 (B, C1); d1, s2, d2 (B, C4); b1, b2 (C4,) or
-    (B, C4); k2 (3, 3, C4, C4). Returns (B, H, W, C4) in x.dtype. On the card
-    it is two launches of the B3 kernel, the first writing z to device
-    memory in x.dtype."""
-    if x.device.type == "cpu":
-        on_card("fused_packed_pair", (x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2))
-        return packed_pair_reference(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2)
+    (B, C4); k2 (3, 3, C4, C4). Returns (B, H, W, C4) in x.dtype. Two calls
+    of B3: on the card two launches, the first writing z to device memory in
+    x.dtype; on the CPU packed_pair_reference, conv by conv."""
     z = fused_conv3x3_act(x, n1, k1, s1, d1, b1)
     return fused_conv3x3_act(z, n2, k2, s2, d2, b2)
+
+
+def _stage_run(*args):
+    """B4's kernels for CUDA tensors, its plain version for CPU tensors."""
+    if not on_card("fused_packed_stage", args):
+        return packed_stage_reference(*args)
+    x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4 = args
+    b, h, w, c1 = x.shape
+    c4 = k1.shape[-1]
+    s1, b3 = _vec(s1, b, c1), _vec(b3, b, 12)
+    d1, b1, s2, d2, b2 = (_vec(v, b, c4) for v in (d1, b1, s2, d2, b2))
+    n_cblocks = entry("packed_stage", "ogi_packed_stage_cblocks", 0, 1, stream=False)(c4)
+    rgb, z2 = x.new_empty((b, h, w, 12)), x.new_empty((b, h, w, c4))
+    z = x.new_empty((b, h, w, c4))
+    part = x.new_empty((b, n_cblocks, h, w, 12), dtype=torch.float32)
+    ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2, z, part)
+    launch("packed stage", entry("packed_stage", "ogi_packed_stage", 19, 6), x,
+           *(t.data_ptr() for t in ptrs), b, h, w, c1, c4, DTYPES[x.dtype])
+    fused_packed_stage.launches += 1
+    return rgb, z2
+
+
+PackedStage = twin_function("PackedStage", _stage_run, packed_stage_reference)
 
 
 def fused_packed_stage(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
@@ -150,20 +184,8 @@ def fused_packed_stage(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
                            ("k2", k2, (3, 3, c4, c4)), ("k3sr", k3sr, (b, c4, 12)),
                            ("k4", k4, (3, 3, 3, 12))):
         expect(name, t, shape, x.dtype)
-    args = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4)
-    if not on_card("fused_packed_stage", args):
-        return packed_stage_reference(*args)
-    s1, b3 = _vec(s1, b, c1), _vec(b3, b, 12)
-    d1, b1, s2, d2, b2 = (_vec(v, b, c4) for v in (d1, b1, s2, d2, b2))
-    n_cblocks = entry("packed_stage", "ogi_packed_stage_cblocks", 0, 1, stream=False)(c4)
-    rgb, z2 = x.new_empty((b, h, w, 12)), x.new_empty((b, h, w, c4))
-    z = x.new_empty((b, h, w, c4))
-    part = x.new_empty((b, n_cblocks, h, w, 12), dtype=torch.float32)
-    ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2, z, part)
-    launch("packed stage", entry("packed_stage", "ogi_packed_stage", 19, 6), x,
-           *(t.data_ptr() for t in ptrs), b, h, w, c1, c4, DTYPES[x.dtype])
-    fused_packed_stage.launches += 1
-    return rgb, z2
+    return dispatch(PackedStage, x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
+                    k3sr, b3, k4)
 
 
 fused_packed_stage.launches = 0

@@ -9,7 +9,8 @@ fallback between the two. `.launches` counts kernel launches. Operands are
 float32 or bfloat16 (x and k alike), PReLU slopes float32; the kernel
 multiplies on the tensor cores (float32 operands as three TF32 products,
 hi*hi + hi*lo + lo*hi, for float32 accuracy), sums in float32 and writes
-the output in x's dtype.
+the output in x's dtype. Its backward (the Function `Conv3x3Act`)
+differentiates the plain version, as JAX's custom_vjp does.
 """
 
 import math
@@ -17,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .cuda_call import activation, entry, expect, launch, on_card
+from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function
 
 SQRT2 = math.sqrt(2.0)
 ACTS = {"none": 0, "prelu": 1, "lrelu": 2}
@@ -46,6 +47,24 @@ def conv3x3_act_supported(ci: int, co: int) -> bool:
     return ci >= CONV_ACT_MIN_CHANNELS and co >= CONV_ACT_MIN_CHANNELS
 
 
+def _run(x, k, alpha, act):
+    """B5's kernel for CUDA tensors, its plain version for CPU tensors."""
+    operands = [x, k] + ([alpha] if act == "prelu" else [])
+    if not on_card("conv3x3_act", operands):
+        return conv3x3_act_reference(x, k, alpha, act)
+    b, ci, h, w = x.shape
+    co = k.shape[0]
+    out = x.new_empty((b, co, h, w))
+    launch("conv3x3_act", entry("samm_conv", "ogi_conv3x3_act", 4, 7), x,
+           x.data_ptr(), k.data_ptr(), alpha.data_ptr() if act == "prelu" else None,
+           out.data_ptr(), b, h, w, ci, co, ACTS[act], activation(x, "conv3x3_act"))
+    conv3x3_act.launches += 1
+    return out
+
+
+Conv3x3Act = twin_function("Conv3x3Act", _run, conv3x3_act_reference)
+
+
 def conv3x3_act(x, k, alpha=None, act: str = "prelu"):
     """act(conv3x3(x, k)), zero padding 1 (B5). x (B, Ci, H, W) float32 or
     bfloat16; k (Co, Ci, 3, 3) in x.dtype; alpha (Co,) float32 PReLU slopes,
@@ -55,22 +74,14 @@ def conv3x3_act(x, k, alpha=None, act: str = "prelu"):
     conv3x3_act_supported keeps only JAX's channel floor."""
     if act not in ACTS:
         raise ValueError(f"act {act!r} not in {tuple(ACTS)}")
-    dtype = activation(x, "conv3x3_act")
-    b, ci, h, w = x.shape
-    co = k.shape[0]
+    activation(x, "conv3x3_act")
+    co, ci = k.shape[0], x.shape[1]
     expect("k", k, (co, ci, 3, 3), x.dtype)
-    operands = [x, k]
     if act == "prelu":
         expect("alpha", alpha, (co,), torch.float32)
-        operands.append(alpha)
-    if not on_card("conv3x3_act", operands):
-        return conv3x3_act_reference(x, k, alpha, act)
-    out = x.new_empty((b, co, h, w))
-    launch("conv3x3_act", entry("samm_conv", "ogi_conv3x3_act", 4, 7), x,
-           x.data_ptr(), k.data_ptr(), alpha.data_ptr() if act == "prelu" else None,
-           out.data_ptr(), b, h, w, ci, co, ACTS[act], dtype)
-    conv3x3_act.launches += 1
-    return out
+    else:
+        alpha = None
+    return dispatch(Conv3x3Act, x, k, alpha, act)
 
 
 conv3x3_act.launches = 0

@@ -1,15 +1,16 @@
 """SAMM warp-blend: `bilinear(target, grid) * alpha + target * (1 - alpha)`.
 
-Counterpart of ops/pallas_warp.py (`_warp_kernel`, its variants v2-v4 and
-`warp_blend_reference`). `warp_blend` launches the hand-written CUDA kernel
-`csrc/warp_blend.cu` for CUDA tensors and runs the plain version
-`warp_blend_reference` for CPU tensors; there is no fallback between the
-two. All tensors are NHWC.
+Counterpart of ops/pallas_warp.py (`_warp_kernel`, its variants v2-v4,
+`warp_blend_reference` and the custom_vjp of `mxu_warp_blend`).
+`warp_blend` launches the hand-written CUDA kernel `csrc/warp_blend.cu` for
+CUDA tensors and runs the plain version `warp_blend_reference` for CPU
+tensors; there is no fallback between the two. Its backward (the Function
+`WarpBlend`) differentiates the plain version. All tensors are NHWC.
 """
 
 import torch
 
-from .cuda_call import DTYPES, entry, launch
+from .cuda_call import DTYPES, dispatch, entry, launch, twin_function
 from .grid_sample import grid_sample_bilinear
 
 
@@ -42,12 +43,8 @@ def _check(target, grid, alpha):
         raise ValueError("warp_blend takes contiguous NHWC tensors")
 
 
-def warp_blend(target: torch.Tensor, grid: torch.Tensor,
-               alpha: torch.Tensor) -> torch.Tensor:
-    """target (B, H, W, C) float32 or bfloat16; grid (B, H, W, 2) float32
-    in [-1, 1] (x then y, align_corners=False); alpha (B, H, W, 1) float32.
-    Returns (B, H, W, C) in the target's dtype."""
-    _check(target, grid, alpha)
+def _run(target, grid, alpha):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if target.device.type == "cpu":
         return warp_blend_reference(target, grid, alpha)
     if target.device.type != "cuda":
@@ -58,6 +55,18 @@ def warp_blend(target: torch.Tensor, grid: torch.Tensor,
            *target.shape, DTYPES[target.dtype])
     warp_blend.launches += 1
     return out
+
+
+WarpBlend = twin_function("WarpBlend", _run, warp_blend_reference)
+
+
+def warp_blend(target: torch.Tensor, grid: torch.Tensor,
+               alpha: torch.Tensor) -> torch.Tensor:
+    """target (B, H, W, C) float32 or bfloat16; grid (B, H, W, 2) float32
+    in [-1, 1] (x then y, align_corners=False); alpha (B, H, W, 1) float32.
+    Returns (B, H, W, C) in the target's dtype."""
+    _check(target, grid, alpha)
+    return dispatch(WarpBlend, target, grid, alpha)
 
 
 warp_blend.launches = 0

@@ -1,14 +1,16 @@
 """The port's hand-written CUDA kernels (warp-blend, the packed conv B3, the
 packed stage B4, the AlignNet body0 kernels B2a and B2b, the conv3x3 +
 activation B5 and the halo probe) against their plain PyTorch versions on
-the card. Every
-test here needs a CUDA card and skips without one. The
+the card, and their autograd Functions' gradients against the plain
+versions' own. Every test here needs a CUDA card and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 (--noconftest: tests/conftest.py configures JAX for the JAX package's tests).
 """
+
+import math
 
 import pytest
 import torch
@@ -53,6 +55,40 @@ def test_warp_blend_kernel_on_card(cuda, size, c, at_bound):
     torch.cuda.synchronize()
     assert warp_blend.launches == before + 1
     assert float((out - ref).abs().max()) <= 1e-5 * float(x.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 36), (torch.bfloat16, 36),
+                                     (torch.bfloat16, 40)])
+def test_warp_blend_kernel_ragged_on_card(cuda, dtype, c):
+    """H and W off the 2 x 8 pixel tile, C = 36 (9 float32 vectors of 16
+    bytes; not a multiple of 8, so bfloat16 takes the one-element path) and
+    C = 40 in bfloat16 (5 vectors), the flow pinned at the bound so that
+    taps fall outside the image: float32 within 1e-5 of max|target|,
+    bfloat16 within one bf16 step of the plain version on the same target."""
+    x, grid, alpha = (torch.from_numpy(a).to(cuda) for a in
+                      warp_inputs(3, 19, c, 0.08, seed=c, at_bound=True))
+    x, grid, alpha = x[:, :, :17].contiguous(), grid[:, :, :17].contiguous(), \
+        alpha[:, :, :17].contiguous()
+    xt = x.to(dtype)
+    out = warp_blend(xt, grid, alpha)
+    ref = warp_blend_reference(xt.float(), grid, alpha)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (3, 19, 17, c)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    assert float((out.float() - ref).abs().max()) <= tol * float(x.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_blend_kernel_slot_bitwise(cuda, dtype):
+    """Slot 2 of a batch of 3 is bit-identical to that sample alone."""
+    x, grid, alpha = (torch.from_numpy(a).to(cuda) for a in warp_inputs(3, 64, 512, 0.08, seed=8))
+    x = x.to(dtype)
+    out = warp_blend(x, grid, alpha)
+    one = warp_blend(x[2:].contiguous(), grid[2:].contiguous(), alpha[2:].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out[2:], one)
 
 
 @pytest.mark.cuda
@@ -149,6 +185,29 @@ def test_packed_stage_bf16_rounds_x_s1_on_card(cuda):
     ref_args["x"] = (a["x"] * a["s1"][:, None, None, :].to(torch.bfloat16)).float()
     ref_args["s1"] = torch.ones_like(ref_args["s1"])
     check_packed_stage(a, ref_args, PACKED_TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_packed_conv_bf16_rounds_x_s_in_on_card(cuda):
+    """bfloat16 B3 rounds x * s_in as JAX does: s_in to bfloat16 first,
+    then the product. With s_in = 1 + 2^-8, which bfloat16 rounds to 1, an
+    identity kernel and no noise or bias, the output is lrelu(x) * sqrt(2)
+    in float32 rounded once to bfloat16: within 2^-8 of each value (8
+    significant bits). A kernel that multiplies by the unrounded s_in moves
+    values by 2^-8 before that rounding, and many by up to 2^-7 after it."""
+    b, h, w, c = 2, 32, 32, 64
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(b, h, w, c, generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.zeros(3, 3, c, c, device=cuda)
+    k[1, 1] = torch.eye(c, device=cuda)
+    s_in = torch.full((b, c), 1.0 + 2.0 ** -8, device=cuda)
+    ones, zeros = torch.ones(b, c, device=cuda), torch.zeros(c, device=cuda)
+    noise = torch.zeros(b, h, w, 4, device=cuda)
+    out = packed_conv.fused_conv3x3_act(x, noise, k.to(torch.bfloat16), s_in, ones, zeros)
+    xf = x.float()
+    ref = math.sqrt(2.0) * torch.where(xf >= 0, xf, 0.2 * xf)   # the plain epilogue on x
+    torch.cuda.synchronize()
+    assert float(((out.float() - ref).abs() / ref.abs()).max()) <= 2.0 ** -8
 
 
 @pytest.mark.cuda
@@ -394,3 +453,126 @@ def test_box3x3_kernel_on_card(cuda, h, w):
     torch.cuda.synchronize()
     assert halo_probe.box3x3.launches == before + 1
     assert torch.equal(out, ref)
+
+
+# ------------------------------------------- backward through the Functions
+
+def grad_case(dev, name, main):
+    """(wrapper, plain version, arguments, Function name, counter) of one
+    kernel at a main-path shape (main) or a ragged one, float32."""
+    if name == "warp_blend":
+        x, grid, alpha = (torch.from_numpy(a).to(dev) for a in
+                          (warp_inputs(1, 128, 256, 0.08, seed=1) if main else
+                           warp_inputs(2, 19, 36, 0.08, seed=2, at_bound=True)))
+        return warp_blend, warp_blend_reference, (x, grid, alpha), "WarpBlend", warp_blend
+    if name in ("fused_conv3x3_act", "fused_packed_stage"):
+        shape = (1, 256, 256, 128, 256) if main else (2, 19, 27, 12, 20)
+        a, _ = packed_operands(dev, *shape, torch.float32, seed=3)
+        if name == "fused_conv3x3_act":
+            args = tuple(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1"))
+            return (packed_conv.fused_conv3x3_act, packed_conv.packed_conv3x3_act_reference,
+                    args, "PackedConv3x3Act", packed_conv.fused_conv3x3_act)
+        return (packed_conv.fused_packed_stage, packed_conv.packed_stage_reference,
+                tuple(a.values()), "PackedStage", packed_conv.fused_packed_stage)
+    if name in ("alignnet_conv1", "alignnet_conv2"):
+        a, _ = samm_operands(dev, *((1, 512, 32, 32) if main else (2, 37, 19, 27)),
+                             torch.float32, seed=4)
+        if name == "alignnet_conv1":
+            return (alignnet.alignnet_conv1, alignnet.alignnet_conv1_reference, conv1_ops(a),
+                    "AlignNetConv1", alignnet.alignnet_conv1)
+        z = alignnet.alignnet_conv1_reference(*conv1_ops(a))
+        return (alignnet.alignnet_conv2, alignnet.alignnet_conv2_reference, (z, a["k2"]),
+                "AlignNetConv2", alignnet.alignnet_conv2)
+    if name == "conv3x3_act":
+        b, ci, co, h, w, act = (1, 1024, 1024, 32, 32, "prelu") if main else \
+            (2, 40, 136, 19, 27, "lrelu")
+        x, k, alpha = (torch.from_numpy(v).to(dev) for v in conv_act_inputs(b, ci, co, h, w, 5))
+        alpha = alpha if act == "prelu" else None
+        return (samm_conv.conv3x3_act, samm_conv.conv3x3_act_reference, (x, k, alpha, act),
+                "Conv3x3Act", samm_conv.conv3x3_act)
+    h, w = (32, 32) if main else (37, 45)
+    x = torch.from_numpy(conv_act_inputs(1, 1, 1, h, w, seed=6)[0][0, 0]).to(dev)
+    return halo_probe.box3x3, halo_probe.box3x3_reference, (x,), "Box3x3", halo_probe.box3x3
+
+
+def twin_grads(fn, args, cotangents):
+    """(outputs, gradients of sum(out * cotangent) for every tensor
+    argument) of fn on fresh leaves of args; a None cotangent drops its
+    output from the loss."""
+    leaves = [a.detach().clone().requires_grad_() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    used = [(o, c) for o, c in zip(outs, cotangents) if c is not None]
+    wrt = [v for v in leaves if isinstance(v, torch.Tensor)]
+    grads = torch.autograd.grad([o for o, _ in used], wrt, [c for _, c in used],
+                                allow_unused=True)
+    return outs, grads
+
+
+KERNELS = ["warp_blend", "fused_conv3x3_act", "fused_packed_stage", "alignnet_conv1",
+           "alignnet_conv2", "conv3x3_act", "box3x3"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("main", [True, False], ids=["main", "ragged"])
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_gradients_on_card(cuda, name, main):
+    """With grad on, each wrapper's CUDA output comes from its Function
+    (grad_fn), launches the kernel once, equals the kernel's output without
+    grad bit for bit, and its gradients equal the plain version's own
+    autograd gradients on the same inputs within 1e-5 of max|ref| (the same
+    computation; cuDNN's and the gathers' backward sum in run-dependent
+    order). For two outputs (B2b, B4) the second output's cotangent is
+    None: the loss reads the first only."""
+    fn, twin, args, fname, counter = grad_case(cuda, name, main)
+    with torch.no_grad():
+        direct = fn(*args)
+    direct = direct if isinstance(direct, tuple) else (direct,)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    cotangents = [torch.randn(o.shape, generator=g, device=cuda).to(o.dtype) for o in direct]
+    if len(cotangents) == 2:
+        cotangents[1] = None
+    before = counter.launches
+    outs, grads = twin_grads(fn, args, cotangents)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert type(outs[0].grad_fn).__name__ == fname + "Backward"
+    for got, ref in zip(outs, direct):
+        assert torch.equal(got, ref)
+    _, ref_grads = twin_grads(twin, args, cotangents)
+    for i, (got, ref) in enumerate(zip(grads, ref_grads)):
+        assert (got is None) == (ref is None), i
+        if ref is not None:
+            assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_grad_of_grad_on_card(cuda, name):
+    """Under create_graph each wrapper's gradients differentiate again: at
+    the ragged shape, sum(grad * v) differentiated once more through the
+    Function equals the same through the plain version within 1e-5 of
+    max|ref|."""
+    fn, twin, args, _, _ = grad_case(cuda, name, False)
+    g = torch.Generator(device=cuda).manual_seed(8)
+
+    def second_order(f):
+        leaves = [a.detach().clone().requires_grad_() if isinstance(a, torch.Tensor) else a
+                  for a in args]
+        wrt = [v for v in leaves if isinstance(v, torch.Tensor)]
+        outs = f(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        g.manual_seed(8)
+        cts = [torch.randn(o.shape, generator=g, device=cuda) for o in outs]
+        grads = torch.autograd.grad(outs, wrt, cts, create_graph=True)
+        loss = sum((d * torch.randn(d.shape, generator=g, device=cuda)).sum() for d in grads)
+        if not loss.requires_grad:          # a linear function: no second order
+            return [None] * len(wrt)
+        return torch.autograd.grad(loss, wrt, allow_unused=True)
+
+    got, ref = second_order(fn), second_order(twin)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert (a is None) == (r is None), i
+        if r is not None:
+            assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()), i
