@@ -9,23 +9,31 @@
    PyTorch library call with CUDA events.
 3. Drives the main path -- E4E inversion at 1024px with the IR-SE-50
    encoder, cycle_align 2, warp_scale 0.08, ModSize 256, float32, seeded
-   random weights -- through `InversionEngine.invert` and
-   `invert_batch_perkey`, checks the outputs, the kernel launch counts and
-   per-seed determinism across batch slots, and times it. Then drives the
-   same engine with the phase-packed >=512px tail, plain and through each
-   packed kernel ("pair": B3, "stage": B4), each path with the launch
-   counts set to 0 just before it and read just after, and checks it
-   against the unpacked engine. Then drives the engine with AlignNet's
-   body0 through the fused kernels ("fused": B2a, B2b) and through the
-   conv3x3 + activation kernel ("literal" + samm_conv_kernel: B5), checks
-   each against the default engine. Then times all six configurations in
-   interleaved rounds. Then holds the
-   slice on the card against the same slice on the CPU at a small width,
-   unpacked, with the whole-stage kernel, and in both body0 modes. Then
-   runs the halo probe, the box-sum kernel's own path, against its oracle.
-   Before the main path, runs every kernel's autograd Function with inputs
-   that require grad: its output must come from the Function and equal the
-   kernel's, its gradients those of the plain version.
+   random weights -- through `InversionEngine.invert`, the batched
+   `invert_batch_perkey` and `invert_batch_perkey_split`, checks the
+   outputs, the kernel launch counts and per-seed determinism across batch
+   slots, and times it. Then drives the same engine with the phase-packed
+   >=512px tail, plain and through each packed kernel ("pair": B3,
+   "stage": B4), each path with the launch counts set to 0 just before it
+   and read just after, and checks it against the unpacked engine. Then
+   drives the engine with AlignNet's body0 through the fused kernels
+   ("fused": B2a, B2b) and through the conv3x3 + activation kernel
+   ("literal" + samm_conv_kernel: B5), checks each against the default
+   engine. Then the bfloat16 serving configuration on the same weights:
+   the bfloat16 engine against the float32 one, and its kernel paths (B4,
+   B2a + B2b, B5 in bfloat16) against the bfloat16 default; the batched
+   decode at b = 1, 2, 4, 8 in both dtypes, slot by slot against lone
+   requests, with its ms/img curve; the bfloat16 engine behind
+   `BatchingServer` (in process and over HTTP), every reply against the
+   direct per-seed inversion, then requests/s and reply latency at 1, 4
+   and 8 clients. Then times every configuration in interleaved rounds.
+   Then holds the slice on the card against the same slice on the CPU at a
+   small width, unpacked, with the whole-stage kernel, in both body0 modes
+   and in bfloat16. Then runs the halo probe, the box-sum kernel's own
+   path, against its oracle. Before the main path, runs every kernel's
+   autograd Function with inputs that require grad: its output must come
+   from the Function and equal the kernel's, its gradients those of the
+   plain version.
 4. Prints the card's name and power limit, one JSON line describing the
    kernels, and as the last line {"ok": true, "device": {...}}.
 
@@ -77,6 +85,25 @@ SAMM_TOL, SAMM_TOL_BF16 = 1e-4, 2.0 ** -7
 # the body0-mode engines against the default engine: SAMM moves the flows,
 # so a float32 difference in body0 moves sample positions
 BODY0_RTOL = 1e-3
+# bfloat16 against float32 on the same weights, image and seed, and one
+# bfloat16 path against another: JAX's bound for its bfloat16 island
+# (tests/test_arch_e4e.py), image (and gen_image) within 2% of the
+# reference's range, mask within 0.02, latents within 2% of theirs. Against
+# the float32 engine the script holds what JAX's test holds, image and
+# mask, and reports gen_image against the same bound (at 1024px with seeded
+# weights it reaches it: PERF.md, the drift grows at the 256px SAMM block);
+# a bfloat16 kernel path against the bfloat16 default, and the card's
+# bfloat16 forward against the CPU's, are held on all three
+BF16_SPAN, BF16_MASK = 0.02, 0.02
+# a request's reply from a batched forward against the same request decoded
+# alone: float32 within 1e-5 of max|ref| (JAX's bound for the contract,
+# tests/test_infer.py), bfloat16 within 2^-7 of max|ref|. The port computes
+# every batch-size-dependent op sample by sample (ops/batch_invariant.py),
+# so the two are expected bit for bit; the script says which held
+SLOT_RTOL, BF16_SLOT_RTOL = 1e-5, 2.0 ** -7
+# forwards in one drive(): invert, one batched invert_batch_perkey of 3,
+# invert_batch_perkey_split of 3 (one forward each)
+DRIVE_FORWARDS = 5
 
 
 def log(msg):
@@ -165,7 +192,7 @@ def phase_kernels():
     from ood_gan_inversion_tpu_torch.ops.warp_blend import (
         warp_blend, warp_blend_reference)
     per_image = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    max_err, bound_by, copy_per_image = 0.0, "bytes", 0.0
+    max_err, bound_by, copy_per_image, bf16_per_image = 0.0, "bytes", 0.0, 0.0
     for size, c in WARP_SHAPES:
         for b, at_bound in ((1, False), (2, False), (2, True)):
             x, grid, alpha = warp_inputs(b, size, c, WARP_SCALE,
@@ -211,12 +238,14 @@ def phase_kernels():
             copy = time_ms(lambda: copied.copy_(x))
             zero = warp_inputs(b, size, c, 0.0, seed=size + c + b)
             zero_ms = time_ms(lambda: warp_blend(*zero))
+            msb = time_ms(lambda: warp_blend(xb, grid, alpha))
             bound, bound_by = warp_bound_ms(b, size, c, 4)
             nbytes = 2 * x.numel() * 4 + 12 * b * size * size
             log(f"[kernel] warp_blend b={b} {size}px C={c} fp32: max|err| "
                 f"{err:.3e} <= {tol:.3e}; bf16 max|err| {errb:.3e} <= "
                 f"{tolb:.3e}; kernel {ms:.5f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
-                f"{bound / ms:.0%} of the bound), zero flow {zero_ms:.5f} ms, "
+                f"{bound / ms:.0%} of the bound), bf16 kernel {msb:.5f} ms (bound "
+                f"{warp_bound_ms(b, size, c, 2)[0]:.5f}), zero flow {zero_ms:.5f} ms, "
                 f"copy of the target {copy:.5f} ms (kernel / copy {ms / copy:.2f}), "
                 f"plain {plain:.4f} ms, "
                 f"grid_sample+blend {lib:.4f} ms (|diff| {lib_err:.1e}), "
@@ -226,13 +255,15 @@ def phase_kernels():
                              ("bound_ms", bound), ("library_ms", lib)):
                     per_image[k] += 2 * v
                 copy_per_image += 2 * copy
+                bf16_per_image += 2 * msb
     log(f"[kernel] warp_blend per image (8 launches, b=1): "
         + ", ".join(f"{k} {v:.4f}" for k, v in per_image.items())
-        + f", copy of the targets {copy_per_image:.4f}")
+        + f", copy of the targets {copy_per_image:.4f}, bf16 targets {bf16_per_image:.4f}")
     return {"name": "warp_blend", "route": "cuda",
             "source": "ood_gan_inversion_tpu_torch/csrc/warp_blend.cu",
             "replaces": "ood_gan_inversion_tpu/ops/pallas_warp.py:380",
-            "max_abs_err": max_err, "bound_by": bound_by, **per_image}
+            "max_abs_err": max_err, "bound_by": bound_by, "bf16_ms": bf16_per_image,
+            **per_image}
 
 
 def packed_operands(b, h, c1, cmid, seed):
@@ -312,7 +343,7 @@ def phase_packed_kernels():
         fused_conv3x3_act, fused_packed_stage, packed_conv3x3_act_reference,
         packed_stage_reference)
     # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one
-    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms", "bf16_ms")
     per_image = {"B3": dict.fromkeys(keys, 0.0), "B4": dict.fromkeys(keys, 0.0)}
     max_err = {"B3": 0.0, "B4": 0.0}
     bound_by = {"B3": {}, "B4": {}}        # per image: bound ms by what bounds it
@@ -349,7 +380,7 @@ def phase_packed_kernels():
                 t = {"ms": time_ms(lambda: fused_conv3x3_act(*args), iters=10),
                      "plain_ms": time_ms(lambda: packed_conv3x3_act_reference(*args), iters=10),
                      "library_ms": time_ms(lib, iters=10)}
-                msb = time_ms(lambda: fused_conv3x3_act(*argsb), iters=10)
+                msb = t["bf16_ms"] = time_ms(lambda: fused_conv3x3_act(*argsb), iters=10)
                 dense, useful = conv_flops(b, h, k)
                 epi = 5 * b * h * h * co
                 nbytes = lambda isz: ((b * h * h * (ci + co) + 9 * ci * co) * isz
@@ -410,7 +441,7 @@ def phase_packed_kernels():
             t = {"ms": time_ms(lambda: fused_packed_stage(*args), iters=10),
                  "plain_ms": time_ms(lambda: packed_stage_reference(*args), iters=10),
                  "library_ms": time_ms(lib, iters=10)}
-            msb = time_ms(lambda: fused_packed_stage(*argsb), iters=10)
+            msb = t["bf16_ms"] = time_ms(lambda: fused_packed_stage(*argsb), iters=10)
             d1, u1 = conv_flops(b, h, a["k1"])
             d2, u2 = conv_flops(b, h, a["k2"])
             px = b * h * h
@@ -509,7 +540,7 @@ def phase_samm_kernels():
     from ood_gan_inversion_tpu_torch.ops import alignnet as an
     from ood_gan_inversion_tpu_torch.ops.samm_conv import conv3x3_act, conv3x3_act_reference
     # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one
-    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms", "bf16_ms")
     ids = ("B2a", "B2b", "B5")
     per_image = {k: dict.fromkeys(keys, 0.0) for k in ids}
     max_err = dict.fromkeys(ids, 0.0)
@@ -574,7 +605,7 @@ def phase_samm_kernels():
                 lib_diff = float((first(lib()) - first(ref)).abs().max())
                 t = {"ms": time_ms(kern, iters=10), "plain_ms": time_ms(plain, iters=10),
                      "library_ms": time_ms(lib, iters=10)}
-                msb = time_ms(kern_b, iters=10)
+                msb = t["bf16_ms"] = time_ms(kern_b, iters=10)
                 t["bound_ms"], by = tc_bound_ms(flops, nbytes(4), 4)
                 cc_ms, cc_by = bound_ms(flops, nbytes(4), FP32_FLOPS)
                 t["cc_bound_ms"] = cc_ms
@@ -776,9 +807,11 @@ def read_counts():
 
 
 def drive(engine, imgs):
-    """The main path's four requests: one `invert` and a batch of three
-    whose slot 2 repeats it. Counts set to 0 just before, read just after.
-    Returns (alone, batch, launches, ms of invert, ms/img of the batch)."""
+    """The main path's requests: one `invert`, one batched
+    `invert_batch_perkey` of three whose slot 2 repeats it, and the same
+    three through `invert_batch_perkey_split` (DRIVE_FORWARDS forwards).
+    Counts set to 0 just before, read just after. Returns (alone, batch,
+    split, launches, ms of invert, ms/img of the batch)."""
     reset_counts()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
@@ -786,18 +819,47 @@ def drive(engine, imgs):
     ev[1].record()
     batch = engine.invert_batch_perkey([imgs[1], imgs[2], imgs[0]], [8, 9, 7])
     ev[2].record()
+    split = engine.invert_batch_perkey_split([imgs[1], imgs[2], imgs[0]], [8, 9, 7])
     torch.cuda.synchronize()
-    return (alone, batch, read_counts(), ev[0].elapsed_time(ev[1]),
+    return (alone, batch, split, read_counts(), ev[0].elapsed_time(ev[1]),
             ev[1].elapsed_time(ev[2]) / 3)
 
 
-def check_replies(what, alone, batch):
-    for name, out, n in (("invert", alone, 1), ("invert_batch_perkey", batch, 3)):
+def rel_err(got, ref):
+    """max|got - ref| / max|ref|, in float32."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def slot_err(what, batched, alone, dtype):
+    """A batched forward's reply against the lone request: (rel err, 0.0 if
+    bit for bit, and its text). Within SLOT_RTOL in float32 and
+    BF16_SLOT_RTOL in bfloat16 of max|ref|, or it raises."""
+    keys = [k for k in ("image", "gen_image", "mask") if k in batched]
+    err = max(0.0 if torch.equal(batched[k], alone[k]) else rel_err(batched[k], alone[k])
+              for k in keys)
+    if err == 0.0:
+        return err, "bit for bit"
+    bound = SLOT_RTOL if dtype == torch.float32 else BF16_SLOT_RTOL
+    if not err <= bound:
+        raise AssertionError(f"{what}: batched reply vs the lone request rel err "
+                             f"{err} > {bound}")
+    return err, f"rel err {err:.2e} (<= {bound:.3g})"
+
+
+def check_replies(what, alone, batch, split, dtype=torch.float32):
+    """Shapes, finite values, the mask in [0, 1]; the split path's slot 2
+    bit for bit the lone request; the batched forward's slot 2 within
+    slot_err's bound of it. Returns slot_err's (rel err, text)."""
+    for name, out, n in (("invert", alone, 1), ("invert_batch_perkey", batch, 3),
+                         ("invert_batch_perkey_split", split, 3)):
         if tuple(out["image"].shape) != (n, 1024, 1024, 3):
             raise AssertionError(f"{what} {name} image shape {tuple(out['image'].shape)}")
         if tuple(out["mask"].shape) != (n, 1024, 1024, 1):
             raise AssertionError(f"{what} {name} mask shape {tuple(out['mask'].shape)}")
         for k in ("image", "gen_image", "mask", "lats"):
+            if out[k].dtype != dtype:
+                raise AssertionError(f"{what} {name} {k} is {out[k].dtype}, not {dtype}")
             if not bool(torch.isfinite(out[k]).all()):
                 raise AssertionError(f"{what} {name} {k} has non-finite values")
         m = out["mask"]
@@ -806,10 +868,20 @@ def check_replies(what, alone, batch):
         for k, s in ((1, 32), (2, 64), (3, 128), (4, 256)):
             if tuple(out["aligns"][k].shape) != (n, s, s, 3):
                 raise AssertionError(f"{what} {name} align {k} shape")
-    if not torch.equal(alone["image"][0], batch["image"][2]):
-        raise AssertionError(f"{what}: seed 7 gave a different image in batch slot 2")
+    for k in ("image", "gen_image", "mask", "lats"):
+        if not torch.equal(alone[k][0], split[k][2]):
+            raise AssertionError(f"{what}: seed 7 gave a different {k} in split slot 2")
     if torch.equal(batch["image"][0], batch["image"][1]):
         raise AssertionError(f"{what}: different seeds and images gave one image")
+    return slot_err(what, {k: batch[k][2] for k in ("image", "gen_image", "mask", "lats")},
+                    {k: alone[k][0] for k in ("image", "gen_image", "mask", "lats")}, dtype)
+
+
+def per_forward(**launches):
+    """expected_counts of one drive(): each kernel's launches per forward
+    times DRIVE_FORWARDS, B1's 8 included."""
+    return expected_counts(**{k: DRIVE_FORWARDS * v
+                              for k, v in {"warp_blend": 8, **launches}.items()})
 
 
 def phase_main_path():
@@ -824,17 +896,19 @@ def phase_main_path():
     rs = np.random.RandomState(SEED)
     imgs = [rs.rand(1024, 1024, 3).astype(np.float32) for _ in range(3)]
     engine.invert(imgs[0], seed=7)           # warm-up: cuDNN plans, libraries
+    engine.invert_batch_perkey(imgs, [0, 1, 2])
     torch.cuda.synchronize()
-    alone, batch, launches, ms_single, ms_batch = drive(engine, imgs)
-    want = expected_counts(warp_blend=8 * 4)
+    alone, batch, split, launches, ms_single, ms_batch = drive(engine, imgs)
+    want = per_forward()
     if launches != want:
         raise AssertionError(f"default path launched {launches}, expected {want}")
-    check_replies("default", alone, batch)
-    log(f"[main] 4 requests answered; launches {launches} (warp_blend 8 per "
-        "image); slot 2 of the batch == the lone request: True")
-    log(f"[main] ms/img: invert {ms_single:.2f}, invert_batch_perkey "
+    _, slot = check_replies("default", alone, batch, split)
+    log(f"[main] 7 requests in 5 forwards answered; launches {launches} (warp_blend 8 per "
+        f"forward); split slot 2 == the lone request: True; batched slot 2 vs the lone "
+        f"request: {slot}")
+    log(f"[main] ms/img: invert {ms_single:.2f}, invert_batch_perkey (b=3) "
         f"{ms_batch:.2f} (CUDA events, 1024px, float32)")
-    return launches["warp_blend"], engine, imgs, (alone, batch)
+    return launches["warp_blend"], engine, imgs, (alone, batch, split)
 
 
 def phase_packed_tail(engine, imgs, replies):
@@ -849,20 +923,19 @@ def phase_packed_tail(engine, imgs, replies):
     params = engine.net.state_dict()
     engines, launches = {}, {}
     per_image = {"none": {}, "pair": {"fused_conv3x3_act": 4},
-                 "stage": {"fused_packed_stage": 2}}
+                 "stage": {"fused_packed_stage": 2}}     # per forward
     for kern in TAIL_KERNELS:
         eng = InversionEngine(e4e_opt(), params=params, device="cuda",
                               packed_tail=True, tail_kernel=kern)
         eng.invert(imgs[0], seed=7)          # warm-up
         torch.cuda.synchronize()
-        alone, batch, counts, _, _ = drive(eng, imgs)
-        want = expected_counts(warp_blend=8 * 4,
-                               **{k: 4 * v for k, v in per_image[kern].items()})
+        alone, batch, split, counts, _, _ = drive(eng, imgs)
+        want = per_forward(**per_image[kern])
         if counts != want:
             raise AssertionError(f"packed tail {kern!r} launched {counts}, expected {want}")
-        check_replies(f"packed tail {kern!r}", alone, batch)
+        check_replies(f"packed tail {kern!r}", alone, batch, split)
         errs = {}
-        for got, ref in zip((alone, batch), replies):
+        for got, ref in zip((alone, batch, split), replies):
             for k in ("mask", "lats"):
                 if not torch.equal(got[k], ref[k]):
                     raise AssertionError(f"packed tail {kern!r}: {k} differs from "
@@ -876,7 +949,7 @@ def phase_packed_tail(engine, imgs, replies):
         log(f"[main] packed tail {kern!r}: launches {counts}; mask and lats "
             "bit-identical to the unpacked engine; max rel err image "
             f"{errs['image']:.2e}, gen_image {errs['gen_image']:.2e} <= {TAIL_RTOL}; "
-            "slot 2 == the lone request: True")
+            "split slot 2 == the lone request: True")
         launches.update({k: counts[k] for k in per_image[kern]})
         engines[f"packed tail {kern}"] = eng
     return launches, engines
@@ -902,13 +975,13 @@ def phase_samm_body0(engine, imgs, replies):
         eng = InversionEngine(e4e_opt(), params=params, device="cuda", **kwargs)
         eng.invert(imgs[0], seed=7)          # warm-up
         torch.cuda.synchronize()
-        alone, batch, counts, _, _ = drive(eng, imgs)
-        want = expected_counts(warp_blend=8 * 4, **{k: 4 * v for k, v in per_image.items()})
+        alone, batch, split, counts, _, _ = drive(eng, imgs)
+        want = per_forward(**per_image)
         if counts != want:
             raise AssertionError(f"body0 {label!r} launched {counts}, expected {want}")
-        check_replies(f"body0 {label!r}", alone, batch)
+        check_replies(f"body0 {label!r}", alone, batch, split)
         errs = {}
-        for got, ref in zip((alone, batch), replies):
+        for got, ref in zip((alone, batch, split), replies):
             if not torch.equal(got["lats"], ref["lats"]):
                 raise AssertionError(f"body0 {label!r}: lats differ from the default engine")
             for k in ("image", "gen_image", "mask"):
@@ -919,10 +992,312 @@ def phase_samm_body0(engine, imgs, replies):
         log(f"[main] body0 {label!r}: launches {counts}; lats bit-identical to the default "
             f"engine; max rel err image {errs['image']:.2e}, gen_image "
             f"{errs['gen_image']:.2e}, mask {errs['mask']:.2e} <= {BODY0_RTOL}; "
-            "slot 2 == the lone request: True")
+            "split slot 2 == the lone request: True")
         launches.update({k: counts[k] for k in per_image})
         engines[f"body0 {label}"] = eng
     return launches, engines
+
+
+def bf16_compare(what, got, ref, held=("image", "gen_image", "mask")):
+    """A bfloat16 path's replies against a reference path's on the same
+    image and seed, against JAX's island bound: image, gen_image and lats
+    as a share of the reference's range (under BF16_SPAN), mask as max|diff|
+    (under BF16_MASK). Raises if the latents or a key in `held` miss it;
+    reports the rest. Returns (errors, text)."""
+    errs = {}
+    for k in ("image", "gen_image", "lats"):
+        r = ref[k].float()
+        errs[k] = float((got[k].float() - r).abs().max() / (r.max() - r.min()))
+    errs["mask"] = float((got["mask"].float() - ref["mask"].float()).abs().max())
+    beyond = [k for k, v in errs.items() if not v < (BF16_MASK if k == "mask" else BF16_SPAN)]
+    if set(beyond) & {"lats", *held}:
+        raise AssertionError(f"{what}: {beyond} beyond JAX's island bound "
+                             f"({BF16_SPAN} of the range, mask {BF16_MASK}): {errs}")
+    text = (", ".join(f"{k} {v:.4f}" for k, v in errs.items() if k != "mask")
+            + f" of the range, mask max|diff| {errs['mask']:.4f}: "
+            + (f"{', '.join(beyond)} BEYOND" if beyond else "within")
+            + f" JAX's island bound ({BF16_SPAN}, {BF16_MASK})"
+            + ("" if set(held) >= {"image", "gen_image", "mask"}
+               else f", held on lats, {', '.join(held)}"))
+    return errs, text
+
+
+def record_b1_dtypes():
+    """Wraps the SAMM blocks' warp_blend to record the dtype of every target
+    it is given (the count stays the wrapper's own); returns (the list,
+    a function that restores the original)."""
+    from ood_gan_inversion_tpu_torch.nn import samm
+    real, seen = samm.warp_blend, []
+
+    def spy(target, grid, alpha):
+        seen.append(target.dtype)
+        return real(target, grid, alpha)
+
+    samm.warp_blend = spy
+    return seen, lambda: setattr(samm, "warp_blend", real)
+
+
+def drift_profile(f32, bf, img):
+    """max|bf16 - float32| / range of the float32 output at the encoder's
+    latents, each SAMM block's output feature, and each generator stage's
+    second conv and toRGB, through one forward (same weights, image and
+    seed), in forward order: where the bfloat16 drift grows."""
+    n = len(f32.net.generator.to_rgbs)
+    profile = [("encoder", "lats"), *((f"modulation.{3 - k}", f"SAMM {32 << k}px")
+                                      for k in range(4)),
+               *((f"generator.convs.{2 * i + 1}", f"stage {8 << i}px") for i in range(n)),
+               *((f"generator.to_rgbs.{i}", f"toRGB {8 << i}px") for i in range(n))]
+    outs = {}
+    for tag, eng in (("f32", f32), ("bf16", bf)):
+        hooks = []
+        for name, label in profile:
+            def keep(mod, inp, out, label=label, tag=tag):
+                o = out[0] if isinstance(out, tuple) else out
+                outs.setdefault(tag, []).append((label, o.float()))
+            hooks.append(eng.net.get_submodule(name).register_forward_hook(keep))
+        try:
+            eng.invert(img, seed=7)
+        finally:
+            for h in hooks:
+                h.remove()
+    rows = []
+    for (label, a), (_, b) in zip(outs["f32"], outs["bf16"]):
+        rows.append(f"{label} {float((a - b).abs().max() / (a.max() - a.min())):.4f}")
+    return rows
+
+
+def phase_bf16(engine, imgs, replies):
+    """The bfloat16 engine on the float32 engine's weights: the main path's
+    requests (B1 8 launches per forward, every target bfloat16), the split
+    path's slot bit for bit the lone request, the replies against the
+    float32 engine's (bf16_compare), and the drift's profile through one
+    forward. Then the bfloat16 kernel paths (packed tail "stage": B4;
+    body0 "fused": B2a, B2b; "literal" + samm_conv_kernel: B5): launch
+    counts, the latents bit for bit the bfloat16 default's (the mask too
+    for the tail, which lies after every SAMM block), the rest compared
+    with the default. Returns the engines by name."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    params = engine.net.state_dict()
+    opt = e4e_opt(dtype="bfloat16")
+    bf = InversionEngine(opt, params=params, device="cuda")
+    bf.invert(imgs[0], seed=7)
+    bf.invert_batch_perkey(imgs, [0, 1, 2])
+    torch.cuda.synchronize()
+    seen, restore = record_b1_dtypes()
+    try:
+        alone, batch, split, counts, ms_single, ms_batch = drive(bf, imgs)
+    finally:
+        restore()
+    if counts != per_forward():
+        raise AssertionError(f"bf16 default launched {counts}, expected {per_forward()}")
+    if len(seen) != counts["warp_blend"] or set(seen) != {torch.bfloat16}:
+        raise AssertionError(f"bf16 default: B1 targets {set(seen)} in {len(seen)} calls")
+    _, slot = check_replies("bf16 default", alone, batch, split, torch.bfloat16)
+    log(f"[bf16] default: launches {counts} (B1 8 per forward, {len(seen)} bfloat16 "
+        f"targets); split slot 2 == the lone request: True; batched slot 2 vs the lone "
+        f"request: {slot}; ms/img invert {ms_single:.2f}, invert_batch_perkey (b=3) "
+        f"{ms_batch:.2f}")
+    for name, got, ref in zip(("invert", "batched", "split"), (alone, batch, split), replies):
+        log(f"[bf16] {name} vs the float32 engine: "
+            f"{bf16_compare(f'bf16 {name} vs float32', got, ref, ('image', 'mask'))[1]}")
+    log("[bf16] drift from float32 along one forward (max|diff| / range): "
+        + ", ".join(drift_profile(engine, bf, imgs[0])))
+    engines = {"bf16 default": bf}
+    modes = {"packed tail stage": ({"packed_tail": True, "tail_kernel": "stage"},
+                                   {"fused_packed_stage": 2}),
+             "body0 fused": ({"samm_body0": "fused"},
+                             {"alignnet_conv1": 8, "alignnet_conv2": 8}),
+             "body0 literal + B5": ({"samm_body0": "literal", "samm_conv_kernel": True},
+                                    {"conv3x3_act": 16})}
+    for label, (kwargs, per_fwd) in modes.items():
+        eng = InversionEngine(opt, params=params, device="cuda", **kwargs)
+        eng.invert(imgs[0], seed=7)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = eng.invert(imgs[1], seed=8)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expected_counts(warp_blend=8, **per_fwd):
+            raise AssertionError(f"bf16 {label} launched {counts}")
+        ref = bf.invert(imgs[1], seed=8)
+        same = ("lats", "mask") if "tail" in label else ("lats",)
+        for k in same:
+            if not torch.equal(got[k], ref[k]):
+                raise AssertionError(f"bf16 {label}: {k} differs from the bf16 default")
+        log(f"[bf16] {label}: launches {counts}; {' and '.join(same)} bit-identical to the "
+            f"bf16 default; {bf16_compare(f'bf16 {label}', got, ref)[1]}")
+        engines[f"bf16 {label}"] = eng
+    return engines
+
+
+def phase_batched(engines, imgs, sizes=(1, 2, 4, 8), reps=3):
+    """The batched invert_batch_perkey at b = 1, 2, 4, 8 in float32 and
+    bfloat16: every slot against the same request alone (slot_err: within
+    SLOT_RTOL or BF16_SLOT_RTOL), and ms/img of each b (CUDA events, median of
+    `reps` after a warm-up) beside b lone requests. Returns
+    {dtype: {b: ms/img}}."""
+    curve = {}
+    for name, eng in engines.items():
+        pool = [imgs[i % 3] for i in range(max(sizes))]
+        seeds = list(range(100, 100 + max(sizes)))
+        alone = [eng.invert(pool[i], seed=seeds[i]) for i in range(max(sizes))]
+        ms = {}
+        for b in sizes:
+            out = eng.invert_batch_perkey(pool[:b], seeds[:b])
+            worst = (-1.0, "")
+            for i in range(b):
+                one = {k: out[k][i] for k in ("image", "gen_image", "mask", "lats")}
+                ref = {k: alone[i][k][0] for k in ("image", "gen_image", "mask", "lats")}
+                worst = max(worst, slot_err(f"{name} b={b} slot {i}", one, ref, eng.dtype))
+            times = []
+            for _ in range(reps):
+                a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                eng.invert_batch_perkey(pool[:b], seeds[:b])
+                z.record()
+                z.synchronize()
+                times.append(a.elapsed_time(z) / b)
+            ms[b] = float(np.median(times))
+            log(f"[batched] {name} b={b}: {ms[b]:.2f} ms/img (median of {reps}, "
+                f"{[round(t, 2) for t in times]}); worst slot vs its lone request: "
+                f"{worst[1]}")
+        lone = ms[1]
+        log(f"[batched] {name} curve ms/img: {ms}; a batch of b against b lone requests "
+            f"({lone:.2f} ms each): "
+            + ", ".join(f"b={b} {ms[b] * b:.1f} vs {lone * b:.1f} ms" for b in sizes[1:]))
+        curve[name] = ms
+    return curve
+
+
+def percentile(v, q):
+    return float(np.percentile(np.asarray(v), q))
+
+
+def phase_serving(engine, imgs):
+    """The bfloat16 engine in BatchingServer (max_batch 4, max_inflight 2,
+    after warmup()): 8 concurrent requests in process and 2 over HTTP on
+    127.0.0.1 (one asking for float16), each reply against the engine's
+    direct per-seed inversion of its image (the batched policy within
+    BF16_SLOT_RTOL, the split policy bit for bit); the B1 count of the
+    served forwards, set to 0 just before and read just after; then
+    requests/s and reply latency at 1, 4 and 8 concurrent clients,
+    max_inflight 1 and 2. Returns B1's launches in the batched run."""
+    import asyncio
+    import socket
+    from ood_gan_inversion_tpu_torch.serve import BatchingServer
+    rs = np.random.RandomState(SEED + 2)
+    reqs = [(imgs[i % 3] * (0.8 + 0.2 * rs.rand())).astype(np.float32) for i in range(10)]
+    direct = [engine.invert(im, seed=0) for im in reqs]
+    srv = BatchingServer(engine, max_batch=4, max_wait_ms=5.0, max_inflight=2)
+    t0 = time.time()
+    sizes = srv.warmup()
+    log(f"[serve] warmup ran batch sizes {sizes} in {time.time() - t0:.1f} s")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+
+    async def http(img, dtype):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        body = img.tobytes()
+        writer.write(b"POST /invert HTTP/1.1\r\nx-shape: " + json.dumps(list(img.shape)).encode()
+                     + b"\r\nx-dtype: " + dtype.encode() + b"\r\ncontent-length: "
+                     + str(len(body)).encode() + b"\r\n\r\n" + body)
+        await writer.drain()
+        status = await reader.readline()
+        if b"200" not in status:
+            raise AssertionError(f"serve: HTTP status {status!r}")
+        hdrs = {}
+        while (h := (await reader.readline()).decode().strip()):
+            k, _, v = h.partition(":")
+            hdrs[k.strip().lower()] = v.strip()
+        dt = np.dtype(hdrs["x-dtype"])
+        shape = tuple(json.loads(hdrs["x-shape"]))
+        n_img = int(np.prod(shape)) * dt.itemsize
+        image = np.frombuffer(await reader.readexactly(n_img), dt).reshape(shape)
+        rest = int(hdrs["content-length"]) - n_img
+        mshape = tuple(json.loads(hdrs["x-mask-shape"]))
+        mask = np.frombuffer(await reader.readexactly(rest), dt).reshape(mshape)
+        writer.close()
+        if dt != np.dtype(dtype):
+            raise AssertionError(f"serve: asked for {dtype}, got {dt}")
+        return image.astype(np.float32), mask.astype(np.float32)
+
+    async def correctness(server):
+        task = asyncio.create_task(server.serve_http(port=port))
+        await asyncio.sleep(0.5)
+        outs = await asyncio.gather(*[server.invert(im) for im in reqs[:8]],
+                                    http(reqs[8], "float32"), http(reqs[9], "float16"))
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+        return outs
+
+    # the default policy (one batched forward per group), then the split
+    # policy over every group size (each request decoded alone)
+    split = BatchingServer(engine, max_batch=4, max_wait_ms=5.0, max_inflight=2,
+                           split_below=5)
+    for label, server in (("batched", srv), ("split_below 5", split)):
+        reset_counts()
+        outs = asyncio.run(correctness(server))
+        torch.cuda.synchronize()
+        counts, stats = read_counts(), server.stats
+        forwards = stats["batches"] if server is srv else stats["requests"]
+        if server is srv:
+            launched = counts["warp_blend"]
+        if counts != expected_counts(warp_blend=8 * forwards):
+            raise AssertionError(f"serve {label}: launched {counts}, stats {stats}")
+        if not (stats["requests"] == 10 and stats["batches"] < stats["requests"]):
+            raise AssertionError(f"serve {label}: stats {stats} show no coalescing")
+        worst = (-1.0, "")
+        for i, ((image, mask), ref) in enumerate(zip(outs, direct)):
+            want = {"image": ref["image"][0].float().cpu(), "mask": ref["mask"][0].float().cpu()}
+            got = {"image": torch.from_numpy(image), "mask": torch.from_numpy(mask)}
+            for k in got:
+                if got[k].shape != want[k].shape or not bool(torch.isfinite(got[k]).all()):
+                    raise AssertionError(f"serve {label} reply {i} {k}: {tuple(got[k].shape)}")
+            if i == 9:     # the float16 reply: the float32 one rounded to float16
+                want = {k: v.half().float() for k, v in want.items()}
+            if server is split:
+                if not all(torch.equal(got[k], want[k]) for k in got):
+                    raise AssertionError(f"serve {label} reply {i} differs from the direct "
+                                         "per-seed inversion")
+                continue
+            worst = max(worst, slot_err(f"serve {label} reply {i}", got, want,
+                                        torch.bfloat16))
+        log(f"[serve] {label}: 10 concurrent requests (8 in process, 2 over HTTP, one "
+            f"float16) in {stats['batches']} groups, stats {stats}; launches {counts} (8 "
+            f"per forward); every reply against the direct per-seed inversion: "
+            + ("bit for bit" if server is split else f"worst {worst[1]}"))
+
+    async def load(server, clients, per_client):
+        lat = []
+
+        async def client(c):
+            for j in range(per_client):
+                t = time.perf_counter()
+                await server.invert(reqs[(c + j) % 8])
+                lat.append(1e3 * (time.perf_counter() - t))
+
+        await server.start()
+        t = time.perf_counter()
+        await asyncio.gather(*[client(c) for c in range(clients)])
+        wall = time.perf_counter() - t
+        await server.stop()
+        return lat, wall
+
+    for inflight in (1, 2):
+        for clients in (1, 4, 8):
+            server = BatchingServer(engine, max_batch=4, max_wait_ms=5.0,
+                                    max_inflight=inflight)
+            per_client = 32 // clients if clients > 1 else 16
+            lat, wall = asyncio.run(load(server, clients, per_client))
+            log(f"[serve] max_inflight {inflight}, {clients} clients x {per_client} "
+                f"requests: {len(lat) / wall:.2f} requests/s, reply latency p50 "
+                f"{percentile(lat, 50):.1f} ms, p95 {percentile(lat, 95):.1f} ms "
+                f"(host clock; bfloat16, 1024px, max_batch 4; stats {server.stats})")
+    return launched
 
 
 def phase_end_to_end(engines, imgs, rounds=15):
@@ -949,7 +1324,9 @@ def phase_small_reference():
     the tests hold against the JAX package: unpacked, with the packed tail
     through the whole-stage kernel, and with body0 "fused" and "literal" +
     B5, the gates' channel floors lowered so that every SAMM scale runs
-    the kernels."""
+    the kernels; and unpacked in bfloat16, within JAX's island bound
+    (bf16_compare; cuDNN and oneDNN round and sum in their own orders: the
+    reading was 1.2% of the range and 0.012 on the mask)."""
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     from ood_gan_inversion_tpu_torch.ops import alignnet, samm_conv
     opt = e4e_opt(out_size=512, channel_multiplier=1, narrow=0.25,
@@ -957,21 +1334,24 @@ def phase_small_reference():
     params = noisy(InversionEngine(opt, seed=SEED + 1, device="cuda")).net.state_dict()
     img = np.random.RandomState(SEED + 1).rand(512, 512, 3).astype(np.float32)
     x = torch.from_numpy(img[None] * 2.0 - 1.0)
-    # (what, engine options, launches of the card's forward); SAMM C is 128,
-    # 64, 32, 16 at 32..256px, so 2C >= 32 everywhere
-    cases = [("unpacked", {}, {}),
-             ("packed tail, stage kernel", {"packed_tail": True, "tail_kernel": "stage"},
-              {"fused_packed_stage": 1}),
-             ("body0 fused", {"samm_body0": "fused"},
+    bf16 = e4e_opt(out_size=512, channel_multiplier=1, narrow=0.25,
+                   encoder_num_layers=4, dtype="bfloat16")
+    # (what, options, engine options, launches of the card's forward); SAMM
+    # C is 128, 64, 32, 16 at 32..256px, so 2C >= 32 everywhere
+    cases = [("unpacked", opt, {}, {}),
+             ("packed tail, stage kernel", opt,
+              {"packed_tail": True, "tail_kernel": "stage"}, {"fused_packed_stage": 1}),
+             ("body0 fused", opt, {"samm_body0": "fused"},
               {"alignnet_conv1": 8, "alignnet_conv2": 8}),
-             ("body0 literal + B5", {"samm_body0": "literal", "samm_conv_kernel": True},
-              {"conv3x3_act": 16})]
+             ("body0 literal + B5", opt, {"samm_body0": "literal", "samm_conv_kernel": True},
+              {"conv3x3_act": 16}),
+             ("bfloat16, unpacked", bf16, {}, {})]
     floors = (alignnet.FUSED_MIN_CHANNELS, samm_conv.CONV_ACT_MIN_CHANNELS)
     alignnet.FUSED_MIN_CHANNELS, samm_conv.CONV_ACT_MIN_CHANNELS = 16, 32
     try:
-        for what, kwargs, launches in cases:
-            gpu = InversionEngine(opt, params=params, device="cuda", **kwargs)
-            cpu = InversionEngine(opt, params=params, device="cpu", **kwargs)
+        for what, case_opt, kwargs, launches in cases:
+            gpu = InversionEngine(case_opt, params=params, device="cuda", **kwargs)
+            cpu = InversionEngine(case_opt, params=params, device="cpu", **kwargs)
             # the same noise on both devices: draw it on the CPU, copy to the card
             noise = cpu.net.generator.make_noise(
                 1, torch.Generator().manual_seed(3), torch.device("cpu"))
@@ -984,6 +1364,12 @@ def phase_small_reference():
             want = expected_counts(warp_blend=8, **launches)
             if counts != want:
                 raise AssertionError(f"small slice {what}: launched {counts}, expected {want}")
+            if gpu.dtype == torch.bfloat16:
+                text = bf16_compare(f"small slice {what}, card vs CPU", out,
+                                    {k: ref[k].cuda() for k in ("image", "gen_image",
+                                                                "mask", "lats")})[1]
+                log(f"[check] small slice (512px, {what}): card vs CPU {text}")
+                continue
             for k in ("image", "mask", "gen_image"):
                 r = ref[k].numpy()
                 err = float(np.abs(out[k].cpu().numpy() - r).max() / np.abs(r).max())
@@ -1000,8 +1386,12 @@ def main():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; every time below "
+        f"is on this card: {smi}")
     # plain versions and yardsticks in full float32 (cuDNN defaults to
     # TF32), as InversionEngine sets it for the main path
     torch.backends.cudnn.allow_tf32 = False
@@ -1009,19 +1399,20 @@ def main():
     phase_build()
     entries = [phase_kernels(), *phase_packed_kernels(), *phase_samm_kernels()]
     phase_gradients()
-    entries[0]["launches"], engine, imgs, replies = phase_main_path()
+    _, engine, imgs, replies = phase_main_path()
     launches, tails = phase_packed_tail(engine, imgs, replies)
     body0_launches, body0s = phase_samm_body0(engine, imgs, replies)
     launches.update(body0_launches)
-    phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s},
-                     imgs)
+    bf16s = phase_bf16(engine, imgs, replies)
+    phase_batched({"float32": engine, "bfloat16": bf16s["bf16 default"]}, imgs)
+    # B1's launches: this slice's main path, the bfloat16 engine served
+    entries[0]["launches"] = phase_serving(bf16s["bf16 default"], imgs)
+    phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s,
+                      **bf16s}, imgs)
     for e in entries[1:]:
         e["launches"] = launches[e["name"]]
     phase_small_reference()
     entries.append(phase_probe())
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     log(smi)
     # bound_ms is the tensor-core bound of a conv kernel; cc_bound_ms the
     # CUDA-core one (for B1 and the probe, which use no tensor cores, the same)
@@ -1029,7 +1420,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cc_bound_ms")
     for e in entries:
         e.setdefault("cc_bound_ms", e["bound_ms"])
-    log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    log(json.dumps({"kernels": [{k: e[k] for k in keys + (("bf16_ms",) if "bf16_ms" in e
+                                                         else ())} for e in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,16 @@ decode -> mask composite -> OOD blend.
 
 `forward` takes and returns NHWC like the JAX arch; the work inside is
 NCHW. Ported configuration: the E4E encoder, NOISE modulation without the
-SAMM feature bottleneck, float32 -- the options of the shipped inference
-config; other values raise.
+SAMM feature bottleneck -- the options of the shipped inference config;
+other values raise.
+
+dtype: the activation dtype, float32 or bfloat16 (JAX's serving config,
+`bench.py`). The parameters stay float32 and each module casts them to its
+input's dtype at use, as the JAX modules do; the input is cast to the
+arch dtype at the top of `encode` and `decode_samm`. In bfloat16 the SAMM
+blocks follow the arch dtype, JAX's inference default
+(`OGI_SAMM_FP32_INFER=0`); what stays float32 inside them is said in
+nn/samm.py.
 """
 
 import math
@@ -36,7 +44,7 @@ class OODFaceGANE4E(nn.Module):
                  narrow=1.0, encoder="E4E", encoder_num_layers=50,
                  enable_modulation=True, modulation_type="NOISE",
                  warp_scale=0.02, cycle_align=1, mod_btn=None, diff_fAndg=True,
-                 blend_with_gen=True, blend_cnt=1, dtype="float32",
+                 blend_with_gen=True, blend_cnt=1, dtype=torch.float32,
                  packed_tail=False, tail_kernel="none", samm_body0="algebraic",
                  samm_conv_kernel=False):
         super().__init__()
@@ -44,8 +52,9 @@ class OODFaceGANE4E(nn.Module):
         if encoder != "E4E" or modulation_type != "NOISE" or mod_btn is not None:
             raise NotImplementedError(
                 "ported: encoder='E4E', modulation_type='NOISE', mod_btn=None")
-        if dtype not in ("float32", torch.float32):
-            raise NotImplementedError("ported: dtype float32")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"ported dtypes: float32, bfloat16; got {dtype}")
+        self.dtype = dtype
         self.out_size, self.enable_modulation = out_size, enable_modulation
         self.blend_with_gen, self.blend_cnt = blend_with_gen, blend_cnt
         self.style_cnt = int(math.log2(out_size)) * 2 - 2
@@ -76,16 +85,18 @@ class OODFaceGANE4E(nn.Module):
 
     def encode(self, x, truncation: float = 1.0):
         """x (B, 3, S, S) in [-1, 1] -> (W+ latents, adapted SAMM features)."""
-        lats, feats = self.encoder(resize_bilinear(x, (256, 256)))
-        lats = lats + self.avg_latent[None] + self.delta_latent
+        lats, feats = self.encoder(resize_bilinear(x.to(self.dtype), (256, 256)))
+        avg = self.avg_latent[None].to(lats.dtype)
+        lats = lats + avg + self.delta_latent.to(lats.dtype)
         if truncation < 1.0:
-            lats = self.avg_latent[None] * (1.0 - truncation) + lats * truncation
+            lats = avg * (1.0 - truncation) + lats * truncation
         feats_c = ([conv(f) for conv, f in zip(self.feats_conv, feats)]
                    if self.enable_modulation else None)
         return lats, feats_c
 
     def decode_samm(self, lats, feats_c, x, mod_size: int = 256, noise=None):
         """(W+, adapted features) -> the output dict, NCHW."""
+        x = x.to(self.dtype)
         if not self.enable_modulation or not cond_layers_for(mod_size):
             image = self.generator(lats, noise)
             return {"image": image, "lats": lats, "aligns": {}, "mask": None,
@@ -96,9 +107,10 @@ class OODFaceGANE4E(nn.Module):
     def forward(self, x, mod_size: int = 256, truncation: float = 1.0,
                 noise=None, generator=None):
         """x: (B, S, S, 3) NHWC in [-1, 1]. noise: per-layer list of
-        (B, 1, H, W) tensors (Generator.noise_shapes); drawn from
-        `generator` when None. Returns dict(image, lats, aligns, mask,
-        gen_image) with NHWC images; aligns maps the SAMM index (1 = 32px
+        (B, 1, H, W) tensors (Generator.noise_shapes), cast to the
+        activations' dtype where they are added; drawn from `generator`
+        when None. Returns dict(image, lats, aligns, mask, gen_image) in the
+        arch dtype with NHWC images; aligns maps the SAMM index (1 = 32px
         .. 4 = 256px) to (B, h, w, 3) [dx, dy, alpha] and out_size to the
         composited 3-channel mask."""
         x = x.permute(0, 3, 1, 2)

@@ -14,9 +14,9 @@ an affine transform by stored running statistics.
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops import batch_invariant as bi
 from ..ops.fused_act import fused_leaky_relu
 
 
@@ -48,7 +48,7 @@ class EqualLinear(nn.Module):
 
     def forward(self, x):
         scale = (1.0 / math.sqrt(self.weight.shape[1])) * self.lr_mul
-        y = x @ (self.weight * scale).to(x.dtype).t()
+        y = bi.matmul(x, (self.weight * scale).to(x.dtype).t())
         b = None if self.bias is None else self.bias * self.lr_mul
         if self.activation == "fused_lrelu":
             return fused_leaky_relu(y, b)
@@ -77,9 +77,9 @@ class Conv2dTorch(nn.Module):
                                      self.bias.device))
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype),
-                        None if self.bias is None else self.bias.to(x.dtype),
-                        stride=self.stride, padding=self.padding)
+        return bi.conv2d(x, self.weight.to(x.dtype),
+                         None if self.bias is None else self.bias.to(x.dtype),
+                         stride=self.stride, padding=self.padding)
 
 
 class XavierConv(Conv2dTorch):
@@ -172,8 +172,8 @@ class InstanceNorm2d(nn.Module):
 
     def forward(self, x):
         x32 = x.float()
-        mean = x32.mean(dim=(2, 3), keepdim=True)
-        mean2 = (x32 * x32).mean(dim=(2, 3), keepdim=True)
+        mean = bi.mean_hw(x32, keepdim=True)
+        mean2 = bi.mean_hw(x32 * x32, keepdim=True)
         rstd = torch.rsqrt(torch.clamp(mean2 - mean * mean, min=0.0) + self.eps)
         if self.weight is not None:
             k = rstd * self.weight.float()[:, None, None]
@@ -191,7 +191,7 @@ class SEModule(nn.Module):
         self.fc2 = Conv2dTorch(channels // reduction, channels, 1, bias=False)
 
     def forward(self, x):
-        s = x.mean(dim=(2, 3), keepdim=True)
+        s = bi.mean_hw(x, keepdim=True)
         s = self.fc2(torch.relu(self.fc1(s)))
         return x * torch.sigmoid(s)
 

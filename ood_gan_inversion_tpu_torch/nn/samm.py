@@ -24,6 +24,21 @@ brackets):
     conv3x3 + activation kernel (`ops.samm_conv.conv3x3_act`) where
     `conv3x3_act_supported` holds.
 The options add no parameter.
+
+bfloat16. The blocks follow their inputs' dtype (JAX's inference default,
+`OGI_SAMM_FP32_INFER=0`), with two float32 islands:
+  * the sampling grid, `linspace` + flow, as JAX's `gdt` guard keeps it:
+    in bfloat16, positions near |x| ~ 1 would round to half a pixel at
+    256px;
+  * the alpha blend. alpha is the accumulated align's third channel, a
+    bfloat16 value as in JAX, handed to the warp-blend in float32 (exact);
+    the blend `warped * alpha + target * (1 - alpha)` is then computed in
+    float32 and rounded to bfloat16 once. That is the rounding of JAX's TPU
+    route, whose Pallas kernels upcast the bfloat16 alpha and blend in
+    float32 (ops/pallas_warp.py, `_warp_kernel` and v2-v4). JAX's CPU route
+    blends in bfloat16, op by op (each product and sum rounded); the two
+    differ by a few bfloat16 steps of the feature, which
+    tests/test_torch_bf16.py bounds.
 """
 
 import torch
@@ -185,8 +200,8 @@ class SPMWarp(nn.Module):
         (B, C, H, W). Returns (aligned target (B, C, H, W), align
         (B, 3, H, W) = [dx, dy, alpha])."""
         h, w = source.shape[-2:]
-        lin_y = torch.linspace(-1.0, 1.0, h, device=source.device)
-        lin_x = torch.linspace(-1.0, 1.0, w, device=source.device)
+        lin_y = torch.linspace(-1.0, 1.0, h, dtype=torch.float32, device=source.device)
+        lin_x = torch.linspace(-1.0, 1.0, w, dtype=torch.float32, device=source.device)
         t_ctx = (self.body.t_context(source)
                  if self.cycle_align > 1 and self.body.algebraic_selected() else None)
         target_nhwc = target.permute(0, 2, 3, 1).contiguous()
@@ -198,6 +213,7 @@ class SPMWarp(nn.Module):
             accum = align if accum is None else self._add(accum, align)
             if k == self.cycle_align - 1 and aligned_coarse is not None:
                 accum = self._upsample_add(aligned_coarse, accum)
+            # float32 grid and alpha whatever accum's dtype (module docstring)
             grid = torch.stack([lin_x[None, None, :] + accum[:, 0].float(),
                                 lin_y[None, :, None] + accum[:, 1].float()],
                                dim=-1)

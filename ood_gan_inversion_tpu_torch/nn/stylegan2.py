@@ -72,7 +72,9 @@ class ModulatedConv2d(nn.Module):
 
 
 class NoiseInjection(nn.Module):
-    """image + weight * noise; noise (B, 1, H, W), weight init 0."""
+    """image + weight * noise; noise (B, 1, H, W), weight init 0. Weight
+    and noise are cast to the image's dtype first, so a bfloat16 image
+    stays bfloat16 (JAX draws the noise in the image's dtype)."""
 
     def __init__(self):
         super().__init__()
@@ -83,7 +85,7 @@ class NoiseInjection(nn.Module):
         self.weight.zero_()
 
     def forward(self, image, noise):
-        return image + self.weight.to(image.dtype) * noise
+        return image + self.weight.to(image.dtype) * noise.to(image.dtype)
 
 
 class StyledConv(nn.Module):
@@ -209,20 +211,23 @@ class Generator(nn.Module):
             return weight.permute(2, 3, 1, 0)
 
         n_a, n_b = packed_noise(noise_a, conv_a.noise), packed_noise(noise_b, conv_b.noise)
-        # conv_a: modulated upsample-conv + FIR blur as one packed 3x3 conv
-        s_a = ca.modulation(l0)
+        # conv_a: modulated upsample-conv + FIR blur as one packed 3x3 conv.
+        # The style scales go to the kernels in float32, as their other
+        # per-channel operands: exact for bfloat16 latents, and each use
+        # below rounds them to dt again where JAX does.
+        s_a = ca.modulation(l0).float()
         w_a = ca.weight * (1.0 / math.sqrt(cin * 9))
         d_a = tile_phase_major(demod_scale(w_a, s_a))
         k1 = upconv_blur_packed_kernel(hwio(w_a), ca.blur_kernel).to(dt)
         # conv_b: same-resolution modulated 3x3, packed 4C -> 4C
-        s_b = cb.modulation(l1)
+        s_b = cb.modulation(l1).float()
         w_b = cb.weight * (1.0 / math.sqrt(cmid * 9))
         s_b, d_b = tile_phase_major(s_b), tile_phase_major(demod_scale(w_b, s_b))
         k2 = conv3x3_packed_kernel(hwio(w_b)).to(dt)
         b_a = tile_phase_major(conv_a.activate.bias)
         b_b = tile_phase_major(conv_b.activate.bias)
         # to_rgb (1x1, no demod) and the packed FIR upsample of the skip
-        s_r = tile_phase_major(cr.modulation(l2))
+        s_r = tile_phase_major(cr.modulation(l2).float())
         k3 = conv1x1_packed_kernel(hwio(cr.weight * (1.0 / math.sqrt(cmid))))[0, 0]
         b_r = tile_phase_major(to_rgb.bias)
         k4 = skip_up_packed_kernel(to_rgb.blur_kernel, 3, dt, out.device)

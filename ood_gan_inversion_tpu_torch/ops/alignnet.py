@@ -28,8 +28,8 @@ as JAX's custom_vjp does: through the reference.
 """
 
 import torch
-import torch.nn.functional as F
 
+from . import batch_invariant as bi
 from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function
 
 # the channel floor of the fused path (C, as in JAX); tests lower it to run
@@ -38,7 +38,7 @@ FUSED_MIN_CHANNELS = 64
 
 
 def _mean_hw(x):
-    return x.mean(dim=(2, 3))
+    return bi.mean_hw(x)
 
 
 def _cv(v):
@@ -47,7 +47,7 @@ def _cv(v):
 
 
 def _conv(v, k):
-    return F.conv2d(v, k.to(v.dtype), padding=1)
+    return bi.conv2d(v, k.to(v.dtype), padding=1)
 
 
 def _alignnet_coeffs(s32, t32, g1, b1, diff_f_and_g: bool, eps: float):
@@ -88,8 +88,8 @@ def alignnet_body0_reference(s, t, g1, b1, k1, alpha, k2, g2, b2,
     """The literal module dataflow (entry IN, concat, bottleneck)."""
 
     def inorm(x, gamma=None, beta=None):
-        mean = x.mean(dim=(2, 3), keepdim=True)
-        mean2 = (x * x).mean(dim=(2, 3), keepdim=True)
+        mean = bi.mean_hw(x, keepdim=True)
+        mean2 = bi.mean_hw(x * x, keepdim=True)
         y = (x - mean) * torch.rsqrt(torch.clamp(mean2 - mean * mean, min=0.0) + eps)
         if gamma is not None:
             y = y * _cv(gamma[None].to(y.dtype)) + _cv(beta[None].to(y.dtype))
@@ -160,8 +160,8 @@ def algebraic_alignnet_body0(s, t, g1, b1, k1, alpha, k2, g2, b2,
         z = _conv(x1a, k1[:, :c]) + _conv(x1b, k1[:, c:])
     z = torch.where(z >= 0, z, _cv(alpha[None].to(z.dtype)) * z)
     y2f = _conv(z, k2).float()
-    mu2 = y2f.mean(dim=(2, 3), keepdim=True)
-    v2 = torch.clamp((y2f * y2f).mean(dim=(2, 3), keepdim=True) - mu2 * mu2, min=0.0)
+    mu2 = bi.mean_hw(y2f, keepdim=True)
+    v2 = torch.clamp(bi.mean_hw(y2f * y2f, keepdim=True) - mu2 * mu2, min=0.0)
     kk = torch.rsqrt(v2 + eps) * _cv(g2[None].float())
     bb = _cv(b2[None].float()) - mu2 * kk
     h = torch.cat([h1, h2], dim=1)
@@ -195,7 +195,7 @@ def alignnet_conv2_reference(z, k2):
     """The plain version of the second fused kernel: y2 = conv3x3(z, k2) in
     float32 and part (B, 2, 2C) = [sum y2, sum y2^2] over H, W."""
     y2 = _conv(z, k2).float()
-    return y2, torch.stack([y2.sum(dim=(2, 3)), (y2 * y2).sum(dim=(2, 3))], dim=1)
+    return y2, torch.stack([bi.sum_hw(y2), bi.sum_hw(y2 * y2)], dim=1)
 
 
 def _conv1_run(s, t, coeffs, k1, alpha):
@@ -204,10 +204,10 @@ def _conv1_run(s, t, coeffs, k1, alpha):
         return alignnet_conv1_reference(s, t, coeffs, k1, alpha)
     b, c, h, w = s.shape
     z = s.new_empty((b, 2 * c, h, w))
-    launch("alignnet_conv1", entry("alignnet_conv1", "ogi_alignnet_conv1", 6, 5), s,
+    launch(alignnet_conv1, "alignnet_conv1",
+           entry("alignnet_conv1", "ogi_alignnet_conv1", 6, 5), s,
            *(v.data_ptr() for v in (s, t, coeffs, k1, alpha, z)), b, h, w, c,
            activation(s, "alignnet_conv1"))
-    alignnet_conv1.launches += 1
     return z
 
 
@@ -238,10 +238,10 @@ def _conv2_run(z, k2):
     y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)
     tile_part = z.new_empty((b, n_tiles, 2, c2), dtype=torch.float32)
     part = z.new_empty((b, 2, c2), dtype=torch.float32)
-    launch("alignnet_conv2", entry("alignnet_conv2", "ogi_alignnet_conv2", 5, 5), z,
+    launch(alignnet_conv2, "alignnet_conv2",
+           entry("alignnet_conv2", "ogi_alignnet_conv2", 5, 5), z,
            *(v.data_ptr() for v in (z, k2, y2, tile_part, part)), b, h, w, c2,
            activation(z, "alignnet_conv2"))
-    alignnet_conv2.launches += 1
     return y2, part
 
 

@@ -12,6 +12,7 @@ a wrapper calls its kernel directly, without the Function."""
 
 import ctypes
 import functools
+import threading
 import types
 
 import torch
@@ -20,6 +21,9 @@ from .. import build
 
 # operand dtype codes of the C entry points
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# guards every wrapper's `.launches`: a server's dispatch threads launch
+# kernels concurrently, and `+= 1` on an attribute is not atomic
+_count_lock = threading.Lock()
 
 
 def expect(name, t, shape, dtype):
@@ -64,13 +68,21 @@ def entry(lib: str, name: str, n_ptrs: int, n_ints: int, stream: bool = True):
     return fn
 
 
-def launch(what, fn, x, *args):
+def count_launch(counter):
+    """Adds one to `counter.launches`, under the lock."""
+    with _count_lock:
+        counter.launches += 1
+
+
+def launch(counter, what, fn, x, *args):
     """Calls the C entry point fn with args and the current stream of x's
-    device; raises if it reports an error."""
+    device; raises if it reports an error, else counts the launch on
+    `counter` (the wrapper)."""
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: error {err}")
+    count_launch(counter)
 
 
 def twin_function(name, run, twin):

@@ -11,8 +11,8 @@ value as the per-sample demodulated weight. Weights are OIHW.
 import math
 
 import torch
-import torch.nn.functional as F
 
+from . import batch_invariant as bi
 from .upfirdn2d import blur as fir_blur
 
 
@@ -37,7 +37,7 @@ def demod_scale(weight_scaled: torch.Tensor,
     weight_scaled: (Cout, Cin, kh, kw), he scale applied; style_scale:
     (N, Cin). Returns (N, Cout)."""
     w2 = torch.sum(weight_scaled.float() ** 2, dim=(2, 3))      # (Cout, Cin)
-    return torch.rsqrt(style_scale.float() ** 2 @ w2.t() + 1e-8)
+    return torch.rsqrt(bi.matmul(style_scale.float() ** 2, w2.t()) + 1e-8)
 
 
 def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
@@ -59,13 +59,13 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
         n, _, h, wd = xm.shape
         xz = xm.new_zeros(n, cin, factor * h - 1, factor * wd - 1)
         xz[:, :, ::factor, ::factor] = xm
-        y = F.conv2d(xz, w.flip(2, 3), padding=(kh - 1, kw - 1))
+        y = bi.conv2d(xz, w.flip(2, 3), padding=(kh - 1, kw - 1))
         p = (blur_kernel.shape[0] - factor) - (kh - 1)
         pad0 = (p + 1) // 2 + factor - 1
         pad1 = p // 2 + 1
         y = fir_blur(y, blur_kernel, pad=(pad0, pad1), upsample_factor=factor)
     else:
-        y = F.conv2d(xm, w, padding=kh // 2)
+        y = bi.conv2d(xm, w, padding=kh // 2)
     if d is not None:
         y = y * d[:, :, None, None]
     return y

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from . import batch_invariant as bi
 from .cuda_call import DTYPES, dispatch, entry, expect, launch, on_card, twin_function
 from .polyphase import conv_packed
 
@@ -66,7 +67,8 @@ def packed_stage_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
     bias b3 ((12,) or (B, 12)) and the packed skip upsample k4 (3, 3, 3, 12).
     Returns (rgb (B, H, W, 12), z2 (B, H, W, C4))."""
     z2 = packed_pair_reference(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2)
-    rgb = torch.einsum("bhwc,bco->bhwo", z2, k3sr.to(z2.dtype))
+    rgb = bi.per_sample(lambda z, k: torch.einsum("bhwc,bco->bhwo", z, k),
+                        z2, k3sr.to(z2.dtype))
     rgb = rgb + _per_sample(b3.to(rgb.dtype), x.shape[0])
     rgb = rgb + conv_packed(skip, k4)
     return rgb, z2
@@ -89,10 +91,10 @@ def _conv3x3_act_run(x, noise4, k, s_in, d_out, bias):
     co = k.shape[-1]
     s_in, d_out, bias = _vec(s_in, b, ci), _vec(d_out, b, co), _vec(bias, b, co)
     out = x.new_empty((b, h, w, co))
-    launch("packed conv3x3", entry("packed_stage", "ogi_packed_conv3x3_act", 7, 6), x,
+    launch(fused_conv3x3_act, "packed conv3x3",
+           entry("packed_stage", "ogi_packed_conv3x3_act", 7, 6), x,
            *(t.data_ptr() for t in (x, noise4, k, s_in, d_out, bias, out)),
            b, h, w, ci, co, DTYPES[x.dtype])
-    fused_conv3x3_act.launches += 1
     return out
 
 
@@ -145,9 +147,8 @@ def _stage_run(*args):
     z = x.new_empty((b, h, w, c4))
     part = x.new_empty((b, n_cblocks, h, w, 12), dtype=torch.float32)
     ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2, z, part)
-    launch("packed stage", entry("packed_stage", "ogi_packed_stage", 19, 6), x,
+    launch(fused_packed_stage, "packed stage", entry("packed_stage", "ogi_packed_stage", 19, 6), x,
            *(t.data_ptr() for t in ptrs), b, h, w, c1, c4, DTYPES[x.dtype])
-    fused_packed_stage.launches += 1
     return rgb, z2
 
 

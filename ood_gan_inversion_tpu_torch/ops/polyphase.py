@@ -15,7 +15,8 @@ same-resolution conv.
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from . import batch_invariant as bi
 
 
 def pack_space_to_depth(x: torch.Tensor) -> torch.Tensor:
@@ -125,8 +126,8 @@ def skip_up_packed_kernel(blur_kernel, channels: int, dtype=torch.float32,
 
 def conv_packed(x: torch.Tensor, kernel: torch.Tensor, padding: int = 1) -> torch.Tensor:
     """NHWC coarse conv with an HWIO packed kernel; returns NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(x.dtype).permute(3, 2, 0, 1),
-                 padding=padding)
+    y = bi.conv2d(x.permute(0, 3, 1, 2), kernel.to(x.dtype).permute(3, 2, 0, 1),
+                  padding=padding)
     return y.permute(0, 2, 3, 1)
 
 

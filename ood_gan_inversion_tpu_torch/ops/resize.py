@@ -7,6 +7,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import batch_invariant as bi
+
 
 def _cubic_weight(t: np.ndarray, a: float = -0.75) -> np.ndarray:
     """Keys cubic convolution kernel (torch's bicubic, A=-0.75)."""
@@ -60,7 +62,7 @@ def _apply_separable(x: torch.Tensor, size, method: str,
     (h, w), (oh, ow) = x.shape[-2:], size
     mh = _matrix(h, oh, method, align_corners, x.dtype, x.device)
     mw = _matrix(w, ow, method, align_corners, x.dtype, x.device)
-    return torch.matmul(torch.matmul(mh, x), mw.t())
+    return bi.per_sample(lambda v: torch.matmul(torch.matmul(mh, v), mw.t()), x)
 
 
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:

@@ -16,8 +16,8 @@ differentiates the plain version, as JAX's custom_vjp does.
 import math
 
 import torch
-import torch.nn.functional as F
 
+from . import batch_invariant as bi
 from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function
 
 SQRT2 = math.sqrt(2.0)
@@ -31,7 +31,7 @@ def conv3x3_act_reference(x, k, alpha, act: str = "prelu"):
     """The plain version: x (B, Ci, H, W), k (Co, Ci, 3, 3), alpha (Co,)
     PReLU slopes (read only for act="prelu"). Returns (B, Co, H, W) in
     x.dtype."""
-    y = F.conv2d(x, k.to(x.dtype), padding=1)
+    y = bi.conv2d(x, k.to(x.dtype), padding=1)
     if act == "prelu":
         return torch.where(y >= 0, y, alpha.to(y.dtype)[:, None, None] * y)
     if act == "lrelu":
@@ -55,10 +55,9 @@ def _run(x, k, alpha, act):
     b, ci, h, w = x.shape
     co = k.shape[0]
     out = x.new_empty((b, co, h, w))
-    launch("conv3x3_act", entry("samm_conv", "ogi_conv3x3_act", 4, 7), x,
+    launch(conv3x3_act, "conv3x3_act", entry("samm_conv", "ogi_conv3x3_act", 4, 7), x,
            x.data_ptr(), k.data_ptr(), alpha.data_ptr() if act == "prelu" else None,
            out.data_ptr(), b, h, w, ci, co, ACTS[act], activation(x, "conv3x3_act"))
-    conv3x3_act.launches += 1
     return out
 
 

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import batch_invariant as bi
+
 
 def make_kernel(k) -> np.ndarray:
     """Normalized 2-D FIR kernel from a 1-D or 2-D spec (a 1-D kernel becomes
@@ -40,7 +42,7 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     k = np.asarray(kernel, dtype=np.float32)
     k = _flipped_kernel(k.tobytes(), k.shape, x.dtype, x.device)
     k = k[None, None].expand(c, 1, *k.shape)
-    x = F.conv2d(x, k, groups=c)
+    x = bi.conv2d(x, k, groups=c)
     if down > 1:
         x = x[:, :, ::down, ::down]
     return x

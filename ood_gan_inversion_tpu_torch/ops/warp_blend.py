@@ -50,10 +50,9 @@ def _run(target, grid, alpha):
     if target.device.type != "cuda":
         raise ValueError(f"warp_blend runs on cuda or cpu, not {target.device}")
     out = torch.empty_like(target)
-    launch("warp_blend", entry("warp_blend", "ogi_warp_blend", 4, 5), target,
+    launch(warp_blend, "warp_blend", entry("warp_blend", "ogi_warp_blend", 4, 5), target,
            target.data_ptr(), grid.data_ptr(), alpha.data_ptr(), out.data_ptr(),
            *target.shape, DTYPES[target.dtype])
-    warp_blend.launches += 1
     return out
 
 

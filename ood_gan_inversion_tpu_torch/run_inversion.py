@@ -3,12 +3,16 @@
 python -m ood_gan_inversion_tpu_torch.run_inversion \
     --opt options/test/E4E_Face_test.yml [--weights state_dict.pt] \
     [--out results/inversion] [--direction smile --intensity 1.5] \
-    [--device cuda]
+    [--device cuda] [--dtype bfloat16] [--packed-tail] \
+    [--tail-kernel none|pair|stage] [--samm-body0 algebraic|fused|literal] \
+    [--samm-conv-kernel]
 
 Inverts every image of each dataset's `dataroot_gt`, writes the inversion
 and the per-scale masks as PNG files and prints the seconds per image.
-Without --weights the weights are drawn from a seed. Reads YAML and image
-files with PyYAML and OpenCV, imported here only.
+Without --weights the weights are drawn from a seed. --dtype overrides the
+option file's `network_g: dtype`; the other flags are InversionEngine's
+options of the same names. Reads YAML and image files with PyYAML and
+OpenCV, imported here only.
 """
 
 import argparse
@@ -31,7 +35,7 @@ def list_images(folder):
     return sorted(files)
 
 
-def run_inversion(opt, out_dir, params=None, device="cuda"):
+def run_inversion(opt, out_dir, params=None, device="cuda", **engine_options):
     import cv2
 
     def imwrite(img, path):
@@ -39,7 +43,7 @@ def run_inversion(opt, out_dir, params=None, device="cuda"):
         if not cv2.imwrite(path, img):
             raise IOError(f"failed to write image: {path}")
 
-    engine = InversionEngine(opt, params=params, device=device)
+    engine = InversionEngine(opt, params=params, device=device, **engine_options)
     editing = opt.get("editing") or {}
     if editing.get("direction"):
         engine.apply_direction(load_editing_direction(
@@ -54,12 +58,12 @@ def run_inversion(opt, out_dir, params=None, device="cuda"):
             img = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
             t0 = time.time()
             out = engine.invert(img, seed=0)
-            inv = tensor2img(out["image"].cpu().numpy())   # waits for the card
+            inv = tensor2img(out["image"].float().cpu().numpy())   # waits for the card
             times.append(time.time() - t0)
             base = osp.splitext(osp.basename(path))[0]
             imwrite(inv, osp.join(out_dir, "inversion", f"{base}.png"))
             for k, align in out["aligns"].items():
-                m = (align[0, ..., 2].clamp(0, 1) * 255).to(torch.uint8)
+                m = (align[0, ..., 2].float().clamp(0, 1) * 255).to(torch.uint8)
                 imwrite(m.cpu().numpy(), osp.join(out_dir, "masks", f"{base}_{k}.png"))
     report = {"images": len(times),
               "sec_per_img": float(np.mean(times[1:] if len(times) > 1 else times))
@@ -68,7 +72,7 @@ def run_inversion(opt, out_dir, params=None, device="cuda"):
     return report
 
 
-def main():
+def main(argv=None):
     import yaml
 
     ap = argparse.ArgumentParser()
@@ -80,16 +84,26 @@ def main():
     ap.add_argument("--dir_path", default="directions")
     ap.add_argument("--intensity", type=float, default=1.0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"))
+    ap.add_argument("--packed-tail", action="store_true")
+    ap.add_argument("--tail-kernel", default="none", choices=("none", "pair", "stage"))
+    ap.add_argument("--samm-body0", default="algebraic",
+                    choices=("algebraic", "fused", "literal"))
+    ap.add_argument("--samm-conv-kernel", action="store_true")
+    args = ap.parse_args(argv)
     with open(args.opt) as f:
         opt = yaml.safe_load(f)
+    if args.dtype:
+        opt["network_g"]["dtype"] = args.dtype
     if args.direction:
         opt["editing"] = {"direction": args.direction, "dir_path": args.dir_path,
                           "intensity": args.intensity}
     params = (torch.load(args.weights, map_location="cpu", weights_only=True)
               if args.weights else None)
     run_inversion(opt, args.out or osp.join("results", opt.get("name", "inversion")),
-                  params=params, device=args.device)
+                  params=params, device=args.device, packed_tail=args.packed_tail,
+                  tail_kernel=args.tail_kernel, samm_body0=args.samm_body0,
+                  samm_conv_kernel=args.samm_conv_kernel)
 
 
 if __name__ == "__main__":

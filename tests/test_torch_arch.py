@@ -95,6 +95,12 @@ def test_engine_per_seed_determinism_across_batch_slots():
     rs = np.random.RandomState(2)
     imgs = [rs.rand(80, 80, 3).astype(np.float32) for _ in range(3)]
     alone = eng.invert(imgs[0], seed=7)
+    # decoded one by one: bit-identical to the lone request
+    split = eng.invert_batch_perkey_split([imgs[1], imgs[2], imgs[0]], [8, 9, 7])
+    assert split["image"].shape == (3, 64, 64, 3)
+    assert split["aligns"][2].shape == (3, 64, 64, 3)
+    np.testing.assert_array_equal(split["image"][2].numpy(), alone["image"][0].numpy())
+    np.testing.assert_array_equal(split["mask"][2].numpy(), alone["mask"][0].numpy())
     batch = eng.invert_batch_perkey([imgs[1], imgs[2], imgs[0]], [8, 9, 7])
     assert batch["image"].shape == (3, 64, 64, 3)
     assert batch["aligns"][2].shape == (3, 64, 64, 3)

@@ -576,3 +576,19 @@ def test_kernel_grad_of_grad_on_card(cuda, name):
         assert (a is None) == (r is None), i
         if r is not None:
             assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max()), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batched_forward_has_no_batch_dependent_op_on_card(cuda, dtype):
+    """Every op of a batched per-seed forward on the card gives each sample
+    the bits of that sample computed alone (tests/torch_slots.py): cuDNN,
+    cuBLAS and PyTorch's reductions pick their summation order by shape,
+    batch size included, so the engine runs those ops sample by sample."""
+    from torch_slots import batch_dependent_ops
+
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    opt = {"network_g": {"type": "ood_faceGAN_e4e", "out_size": 256, "channel_multiplier": 1,
+                         "narrow": 0.25, "encoder_num_layers": 4, "cycle_align": 2,
+                         "warp_scale": 0.08, "ModSize": 128, "dtype": dtype}}
+    assert batch_dependent_ops(InversionEngine(opt, device="cuda")) == {}
