@@ -34,8 +34,17 @@
    autograd Function with inputs that require grad: its output must come
    from the Function and equal the kernel's, its gradients those of the
    plain version.
+   Before the inversion paths, drives this slice's main path: the
+   options/train/E4E_Face.yml training step at full width (1024px, b = 2,
+   float32, seeded weights and batch) through OODFaceGANModel.train_step,
+   step 0 (R1 and the path regularizer, B1 differentiated twice through its
+   twin) and four fused steps at ModSize 256, with B1's launches per step
+   checked, frozen parameters held bit for bit, the step times and peak
+   memory printed; then the same step at 256px on the card against the
+   CPU.
 4. Prints the card's name and power limit, one JSON line describing the
-   kernels, and as the last line {"ok": true, "device": {...}}.
+   kernels (B1's `launches` are the train steps'), and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs CUDA and refuses to run on the CPU.
@@ -1381,6 +1390,251 @@ def phase_small_reference():
         alignnet.FUSED_MIN_CHANNELS, samm_conv.CONV_ACT_MIN_CHANNELS = floors
 
 
+def e4e_train_opt(**g):
+    """options/train/E4E_Face.yml's model and train sections, as a dict
+    (tests/test_torch_train.py holds it to the file); `g` overrides
+    network_g."""
+    opt = {
+        "is_mimo": True,
+        "network_g": {"type": "ood_faceGAN_e4e", "out_size": 1024, "style_dim": 512,
+                      "encoder": "E4E", "enable_modulation": True, "modulation_type": "NOISE",
+                      "warp_scale": 0.08, "cycle_align": 2, "blend_with_gen": True,
+                      "ModSize": None, "progressiveModSize": [32, 64, 128, 256],
+                      "stage": "Inference", "progressiveStart": 2000, "progressiveStep": 4000,
+                      "progressiveStageSteps": None},
+        "network_d": {"type": "StyleGAN2Discriminator_mod", "out_size": 1024,
+                      "channel_multiplier": 2, "resample_kernel": [1, 3, 3, 1]},
+        "network_d2": {"type": "LatentDiscrinimator", "chn": 18, "dim": 512, "n_mlp": 8,
+                       "hidden_chn": 4},
+        "train": {
+            "optim_g": {"type": "Adam", "lr": 2e-05, "generator_lr_decay": 1.0},
+            "optim_d": {"type": "Adam", "lr": 2e-05},
+            "optim_d2": {"type": "Adam", "lr": 2e-06},
+            "scheduler": {"type": "MultiStepLR", "milestones": 15000, "gamma": 0.75},
+            "total_iter": 1800000, "warmup_iter": -1, "startup_iter": 1800000,
+            "fix_and_grad": {"fix": ["generator", "avg_latent", "encoder"], "grad": []},
+            "skip_latent_g": True, "skip_gen_g": False, "which_gt": "gt",
+            "grad_clip_norm": 999.0,
+            "gan_opt": {"type": "GANLoss", "gan_type": "wgan_softplus", "loss_weight": 0.5},
+            "r1_reg_weight": 10, "path_batch_shrink": 2, "path_reg_weight": 2,
+            "net_g_reg_every": 99999999, "net_d_reg_every": 99999999,
+            "mixing_prob": 0.9, "net_d_iters": 1, "net_d_init_iters": 0,
+            "pix_opt": {"type": "MSELoss", "loss_weight": 1.0},
+            "id_opt": {"type": "IDLoss", "loss_weight": 0.1, "ref_loss_weight": 0.0,
+                       "ckpt": "checkpoints/converted/ir_se50"},
+            "perceptual_opt": {"type": "PerceptualLoss",
+                               "layer_weights": {"conv1_2": 0.1, "conv2_2": 0.1, "conv3_4": 1,
+                                                 "conv4_4": 1, "conv5_4": 1},
+                               "vgg_type": "vgg19", "use_input_norm": True,
+                               "perceptual_weight": 1.0, "style_weight": 50,
+                               "range_norm": True, "criterion": "l1"},
+            "mask_opt": {"type": "MaskLoss", "loss_weight": 5.0,
+                         "loss_func": {"binary": [32, 64, 128, 256, 1024],
+                                       "area": {"32": 0.3, "64": 0.3, "128": 0.2,
+                                                "256": 0.2, "1024": 0.2},
+                                       "target": 1, "binary_weight": 0.04}}}}
+    opt["network_g"].update(g)
+    return opt
+
+
+# a step past the last milestone of E4E_Face.yml's curriculum: ModSize 256
+FUSED_STEP = 16001
+STEP0_KEYS = {"l_d", "real_score", "fake_score", "l_d_r1", "l_g_path", "path_length", "l_g",
+              "l_id_target", "l_pix", "l_percep", "l_style", "l_bin", "l_area", "l_total"}
+FUSED_KEYS = STEP0_KEYS - {"l_d_r1", "l_g_path", "path_length"}
+# B1 launches per train step: one SAMM block per ModSize octave from 32px,
+# cycle_align 2 each, per G forward. Step 0 (ModSize 32): the D phase's
+# forward and the G phase's decode, 2 + 2; a fused step at ModSize 256: one
+# forward, 4 x 2. The backward runs B1's twin, which launches nothing.
+TRAIN_B1 = {0: 4, FUSED_STEP: 8}
+# the card's train step against the CPU's on the same state and draws, at
+# a small width, float32 without TF32: every logged loss within 1e-3
+# relative; every gradient within 1e-2 of max(its leaf's max|ref|, 1e-3 of
+# the net's largest gradient). R1's and the path regularizer's
+# second-order gradients sum large terms that cancel: on the CPU the port
+# and JAX differ by up to 5e-4 of a leaf's max there, and cuDNN sums in
+# yet another order. A leaf whose exact gradient is 0 (a bias ahead of an
+# instance norm: feats_conv.3.bias) holds float32 noise, ~9e-7 of the
+# largest gradient of the 256px step 0 on an H100, held to 1e-5 of it.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_NOISE_FLOOR = 1e-3, 1e-2, 1e-3
+
+
+def train_batch(model, size, seed):
+    """A seeded (2, 1, size, size, 3) batch in [-1, 1] with its lq_size
+    scores, on the model's device; the noise strengths set to 0.1 (seeded
+    weights leave them 0), so that the noise matters."""
+    from ood_gan_inversion_tpu_torch.nn.stylegan2 import NoiseInjection
+    for m in model.net_g.modules():
+        if isinstance(m, NoiseInjection):
+            m.weight.data.fill_(0.1)
+    rs = np.random.RandomState(seed)
+    return {"gt": torch.from_numpy(rs.uniform(-1, 1, (2, 1, size, size, 3)).astype(np.float32)
+                                   ).to(model.device),
+            "lq_size": torch.from_numpy(rs.rand(2, 1).astype(np.float32)).to(model.device)}
+
+
+def check_train_logs(what, logs, keys):
+    if set(logs) != keys:
+        raise AssertionError(f"{what}: logged {sorted(logs)}, expected {sorted(keys)}")
+    bad = [k for k, v in logs.items() if not bool(torch.isfinite(v))]
+    if bad:
+        raise AssertionError(f"{what}: non-finite {bad}")
+
+
+def phase_training():
+    """The E4E_Face.yml train step at full width (1024px, IR-SE-50 E4E,
+    the 1024px discriminator, VGG19 and IR-SE-50 ArcFace losses, b = 2,
+    float32, seeded weights and batch) through OODFaceGANModel.train_step:
+    step 0 (the split phases: R1, and the path regularizer's double
+    backward through B1's twin), then four fused steps at ModSize 256,
+    each with the counts set to 0 just before and read just after. Checks
+    the logged losses, that frozen parameters stay bit for bit while the
+    trainable G, D and EMA ones move, and B1's launches per step. Then
+    times step 0 and the fused step (CUDA events, median of 5 after a
+    warm-up) with their peak memory. Returns B1's launches."""
+    from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
+    t_phase = t0 = time.time()
+    model = OODFaceGANModel(e4e_train_opt(), device="cuda", seed=SEED)
+    batch = train_batch(model, 1024, SEED + 2)
+    n_frozen = sum(p.numel() for p in model.net_g.parameters()) - sum(
+        p.numel() for p in model.train_g.values())
+    log(f"[train] E4E_Face.yml model: 1024px, b = 2, {sum(p.numel() for p in model.train_g.values())}"
+        f" trainable G parameters in {len(model.train_g)} tensors (feats_conv, SAMM), "
+        f"{n_frozen} frozen, D {sum(p.numel() for p in model.net_d.parameters())}, built in "
+        f"{time.time() - t0:.1f} s")
+    frozen = {k: p.detach().clone() for k, p in model.net_g.named_parameters()
+              if k not in model.train_g}
+    train0 = {k: p.detach().clone() for k, p in model.train_g.items()}
+    d0 = [p.detach().clone() for p in model.net_d.parameters()]
+    ema0 = {k: v.clone() for k, v in model.ema.items()}
+    launches = 0
+    for step in (0,) + (FUSED_STEP,) * 4:
+        reset_counts()
+        logs = model.train_step(batch, step)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expected_counts(warp_blend=TRAIN_B1[step])
+        if counts != want:
+            raise AssertionError(f"train step {step}: launched {counts}, expected {want}")
+        launches += counts["warp_blend"]
+        check_train_logs(f"train step {step}", logs, STEP0_KEYS if step == 0 else FUSED_KEYS)
+        log(f"[train] step {step} (ModSize {model.schedule_at(step)[1]}): B1 launched "
+            f"{counts['warp_blend']}; " + ", ".join(f"{k} {float(v):.5g}" for k, v in logs.items()))
+    moved = [k for k, p in model.net_g.named_parameters()
+             if k in frozen and not torch.equal(p, frozen[k])]
+    if moved:
+        raise AssertionError(f"train: frozen parameters moved: {moved[:5]}")
+    if all(torch.equal(p, train0[k]) for k, p in model.train_g.items()):
+        raise AssertionError("train: no trainable G parameter moved")
+    if all(torch.equal(p, q) for p, q in zip(model.net_d.parameters(), d0)):
+        raise AssertionError("train: no D parameter moved")
+    if all(torch.equal(v, ema0[k]) for k, v in model.ema.items()):
+        raise AssertionError("train: the EMA did not move")
+    log(f"[train] frozen G parameters bit for bit ({len(frozen)} tensors); trainable G, D and "
+        f"the EMA moved; B1 {launches} launches in 5 steps ({TRAIN_B1[0]} at step 0, "
+        f"{TRAIN_B1[FUSED_STEP]} per fused step)")
+    for step, what in ((0, "step 0 (split, R1 + path reg)"), (FUSED_STEP, "fused step")):
+        model.train_step(batch, step)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(5):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            model.train_step(batch, step)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[train] {what}: median {float(np.median(times)):.2f} ms/step, all "
+            f"{[round(t, 2) for t in times]} (CUDA events, b = 2, 1024px, float32, TF32 off); "
+            f"peak memory {peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} GiB held before it)")
+    log(f"[train] phase took {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def copy_train_state(src, dst):
+    """src's weights, EMA and path mean into dst (another device)."""
+    for a, b in ((src.net_g, dst.net_g), (src.net_d, dst.net_d), (src.net_d2, dst.net_d2),
+                 (src.cri_perceptual, dst.cri_perceptual), (src.cri_id, dst.cri_id)):
+        b.load_state_dict(a.state_dict(), strict=True)
+    with torch.no_grad():
+        for k, v in src.ema.items():
+            dst.ema[k].copy_(v)
+        dst.mean_path_length.copy_(src.mean_path_length)
+
+
+def recorded_grads(model):
+    """Makes `model` keep every gradient it computes, by parameter name."""
+    names = {id(p): n for net in ("net_g", "net_d", "net_d2")
+             for n, p in getattr(model, net).named_parameters(prefix=net)}
+    grads, inner = {}, model._grads
+
+    def record(loss, params):
+        out = inner(loss, params)
+        grads.update({names[id(p)]: g.detach().cpu() for p, g in zip(params, out)})
+        return out
+
+    model._grads = record
+    return grads
+
+
+def phase_train_small_reference():
+    """The train step on the card against the same step on the CPU (the
+    port's CPU path, which the tests hold against JAX), at 256px (all four
+    SAMM scales) with narrow widths: step 0 and a fused step at ModSize
+    256, each with the CPU model's state copied to the card first and the
+    same noise, path cotangent and z. Every logged loss and every gradient
+    within TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL; B1 launched as the derived
+    counts say."""
+    from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
+    t0 = time.time()
+    opt = e4e_train_opt(out_size=256, channel_multiplier=1, narrow=0.125,
+                        encoder_num_layers=4, n_mlp=2)
+    opt["network_d"].update(out_size=256, channel_multiplier=1, narrow=0.125)
+    opt["network_d2"].update(chn=14, n_mlp=2)
+    cpu = OODFaceGANModel(opt, device="cpu", seed=SEED + 3)
+    gpu = OODFaceGANModel(opt, device="cuda", seed=SEED + 3)
+    batch = train_batch(cpu, 256, SEED + 4)
+    grads = [recorded_grads(m) for m in (cpu, gpu)]
+    for step in (0, FUSED_STEP):
+        copy_train_state(cpu, gpu)
+        for d in grads:
+            d.clear()
+        g = torch.Generator().manual_seed(SEED + 5)
+        noise = cpu.net_g.generator.make_noise(2, g, torch.device("cpu"))
+        cot = torch.randn(2, 256, 256, 3, generator=g) / 256.0
+        z = torch.randn(2, 512, generator=g)
+        ref = cpu.train_step(batch, step, noise=noise, path_cot=cot, z=z)
+        reset_counts()
+        got = gpu.train_step({k: v.cuda() for k, v in batch.items()}, step,
+                             noise=[n.cuda() for n in noise], path_cot=cot.cuda(), z=z.cuda())
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expected_counts(warp_blend=TRAIN_B1[step]):
+            raise AssertionError(f"small train step {step}: launched {counts}")
+        loss_err = max(abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-6)
+                       for k, v in ref.items())
+        if set(got) != set(ref) or not loss_err <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"small train step {step}: losses card vs CPU rel err {loss_err}")
+        top = max(float(v.abs().max()) for v in grads[0].values())
+        worst, worst_k = 0.0, None
+        for k, r in grads[0].items():
+            scale = max(float(r.abs().max()), TRAIN_NOISE_FLOOR * top)
+            err = float((grads[1][k] - r).abs().max()) / scale if scale > 0 else 0.0
+            if err > worst:
+                worst, worst_k = err, k
+        if set(grads[0]) != set(grads[1]) or not worst <= TRAIN_GRAD_RTOL:
+            raise AssertionError(f"small train step {step}: gradient {worst_k} card vs CPU "
+                                 f"{worst} of its scale")
+        log(f"[check] small train step {step} (256px, narrow, float32, TF32 off): card vs CPU "
+            f"losses within {loss_err:.2e} relative (<= {TRAIN_LOSS_RTOL}), {len(grads[0])} "
+            f"gradients within {worst:.2e} of their scale (<= {TRAIN_GRAD_RTOL}, largest at "
+            f"{worst_k}); B1 launched {counts['warp_blend']}")
+    log(f"[check] small train steps took {time.time() - t0:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1399,14 +1653,20 @@ def main():
     phase_build()
     entries = [phase_kernels(), *phase_packed_kernels(), *phase_samm_kernels()]
     phase_gradients()
+    train_launches = phase_training()
+    phase_train_small_reference()
     _, engine, imgs, replies = phase_main_path()
     launches, tails = phase_packed_tail(engine, imgs, replies)
     body0_launches, body0s = phase_samm_body0(engine, imgs, replies)
     launches.update(body0_launches)
     bf16s = phase_bf16(engine, imgs, replies)
     phase_batched({"float32": engine, "bfloat16": bf16s["bf16 default"]}, imgs)
-    # B1's launches: this slice's main path, the bfloat16 engine served
-    entries[0]["launches"] = phase_serving(bf16s["bf16 default"], imgs)
+    serving_launches = phase_serving(bf16s["bf16 default"], imgs)
+    log(f"[serve] B1 launches behind the server: {serving_launches}")
+    # B1's launches: this slice's main path, the E4E_Face.yml train steps
+    entries[0]["launches"] = train_launches
+    entries[0]["train_launches_per_step"] = {"step0": TRAIN_B1[0],
+                                             "fused": TRAIN_B1[FUSED_STEP]}
     phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s,
                       **bf16s}, imgs)
     for e in entries[1:]:
@@ -1420,8 +1680,9 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cc_bound_ms")
     for e in entries:
         e.setdefault("cc_bound_ms", e["bound_ms"])
-    log(json.dumps({"kernels": [{k: e[k] for k in keys + (("bf16_ms",) if "bf16_ms" in e
-                                                         else ())} for e in entries]}))
+    extra = ("bf16_ms", "train_launches_per_step")
+    log(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(x for x in extra if x in e)}
+                                for e in entries]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

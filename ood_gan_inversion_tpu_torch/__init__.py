@@ -4,8 +4,9 @@ The JAX package beside this one is the reference: every module here keeps
 its counterpart's path and names, and `tests/test_torch_*.py` hold each one
 against it on the CPU. This package imports neither JAX nor the JAX package.
 
-Layout. The public entry points (`archs.ood_e4e.OODFaceGANE4E.forward` and
-`infer.InversionEngine`) take and return NHWC tensors, like the JAX package.
+Layout. The public entry points (`archs.ood_e4e.OODFaceGANE4E.forward`,
+`infer.InversionEngine` and the trainer `models.OODFaceGANModel`) take and
+return NHWC tensors, like the JAX package.
 Inside, activations are NCHW (PyTorch's convolution layout) and weights are
 OIHW; the SAMM warp-blend kernel reads and writes NHWC, so `nn/samm.py`
 permutes its feature around that one call, while the AlignNet body0

@@ -45,7 +45,7 @@ def conditioned_decode(arch, lats, feats_c, mod_size: int, noise):
         if i in cond_layers:
             ind = cond_layers.index(i) + 1
             out_c = conv_a.conv(out, lats[:, i])
-            aligned, align = arch.modulation[4 - ind](
+            aligned, align = arch.modulation[str(4 - ind)](
                 feats_c[4 - ind], out_c, aligned_coarse=prev_align)
             out = conv_a.activate(conv_a.noise(aligned, noise[1 + 2 * idx]))
             aligns[ind] = prev_align = align

@@ -21,7 +21,7 @@ import math
 import torch
 from torch import nn
 
-from ..nn.encoders.e4e import Encoder4Editing
+from ..nn.encoders.e4e import PROGRESSIVE_INFERENCE, Encoder4Editing
 from ..nn.layers import Conv2dTorch
 from ..nn.samm import StyledScaleNShiftBlock, check_samm_options
 from ..nn.stylegan2 import STYLEGAN2_CHANNELS, Generator
@@ -33,6 +33,15 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+def nhwc_outputs(out):
+    """decode_samm's output dict with its images, mask and aligns as NHWC
+    views."""
+    return {"image": _nhwc(out["image"]), "lats": out["lats"],
+            "aligns": {k: _nhwc(v) for k, v in out["aligns"].items()},
+            "mask": None if out["mask"] is None else _nhwc(out["mask"]),
+            "gen_image": _nhwc(out["gen_image"])}
+
+
 class OODFaceGANE4E(nn.Module):
     """Constructor keys mirror the `network_g` schema of the YAML configs;
     packed_tail and tail_kernel choose how the generator computes its
@@ -40,11 +49,12 @@ class OODFaceGANE4E(nn.Module):
     the SAMM blocks compute AlignNet's body0 (nn/samm.py); none of them adds
     a parameter."""
 
-    def __init__(self, out_size=1024, style_dim=512, channel_multiplier=2,
+    def __init__(self, out_size=1024, style_dim=512, n_mlp=8, channel_multiplier=2,
                  narrow=1.0, encoder="E4E", encoder_num_layers=50,
                  enable_modulation=True, modulation_type="NOISE",
                  warp_scale=0.02, cycle_align=1, mod_btn=None, diff_fAndg=True,
-                 blend_with_gen=True, blend_cnt=1, dtype=torch.float32,
+                 blend_with_gen=True, blend_cnt=1, optim_delta_latent=False,
+                 dtype=torch.float32,
                  packed_tail=False, tail_kernel="none", samm_body0="algebraic",
                  samm_conv_kernel=False):
         super().__init__()
@@ -56,6 +66,7 @@ class OODFaceGANE4E(nn.Module):
             raise NotImplementedError(f"ported dtypes: float32, bfloat16; got {dtype}")
         self.dtype = dtype
         self.out_size, self.enable_modulation = out_size, enable_modulation
+        self.style_dim, self.optim_delta_latent = style_dim, optim_delta_latent
         self.blend_with_gen, self.blend_cnt = blend_with_gen, blend_cnt
         self.style_cnt = int(math.log2(out_size)) * 2 - 2
         channels = STYLEGAN2_CHANNELS(channel_multiplier, narrow)
@@ -65,27 +76,47 @@ class OODFaceGANE4E(nn.Module):
             self.feats_conv = nn.ModuleList(
                 Conv2dTorch(enc_ch[i], channels[sizes[i]], 1, 1, 0)
                 for i in range(4))
-            # SAMM blocks, coarse->fine order [256, 128, 64, 32] px
-            self.modulation = nn.ModuleList(
-                StyledScaleNShiftBlock(channels[s], warp_scale=warp_scale,
-                                       cycle_align=cycle_align,
-                                       diff_f_and_g=diff_fAndg,
-                                       samm_body0=samm_body0,
-                                       samm_conv_kernel=samm_conv_kernel)
-                for s in sizes)
+            # SAMM blocks, coarse->fine index 0..3 = [256, 128, 64, 32] px,
+            # each where the generator has that resolution (the blocks whose
+            # parameters JAX's tree holds)
+            self.modulation = nn.ModuleDict({
+                str(i): StyledScaleNShiftBlock(channels[s], warp_scale=warp_scale,
+                                               cycle_align=cycle_align,
+                                               diff_f_and_g=diff_fAndg,
+                                               samm_body0=samm_body0,
+                                               samm_conv_kernel=samm_conv_kernel)
+                for i, s in enumerate(sizes) if s <= out_size})
         self.generator = Generator(out_size, style_dim, channel_multiplier, narrow,
-                                   packed_tail=packed_tail, tail_kernel=tail_kernel)
+                                   packed_tail=packed_tail, tail_kernel=tail_kernel,
+                                   n_mlp=n_mlp)
         self.avg_latent = nn.Parameter(torch.empty(1, style_dim))
         self.delta_latent = nn.Parameter(torch.empty(1, self.style_cnt, style_dim))
 
     @torch.no_grad()
     def init_params(self, g):
+        """avg_latent 0; delta_latent N(0, 1) * 0.1 when it is trained
+        (optim_delta_latent), else 0."""
         self.avg_latent.zero_()
-        self.delta_latent.zero_()
+        if self.optim_delta_latent:
+            self.delta_latent.copy_(torch.randn(self.delta_latent.shape, generator=g,
+                                                device=self.delta_latent.device) * 0.1)
+        else:
+            self.delta_latent.zero_()
 
-    def encode(self, x, truncation: float = 1.0):
-        """x (B, 3, S, S) in [-1, 1] -> (W+ latents, adapted SAMM features)."""
-        lats, feats = self.encoder(resize_bilinear(x.to(self.dtype), (256, 256)))
+    def random_latents(self, z):
+        """z (B, style_dim) -> W through the style MLP, repeated to W+."""
+        w = self.generator.style_mlp(z)
+        return w[:, None, :].repeat(1, self.style_cnt, 1)
+
+    def encode(self, x, truncation: float = 1.0, stage: int = PROGRESSIVE_INFERENCE,
+               freeze_encoder: bool = True):
+        """x (B, 3, S, S) in [-1, 1] -> (W+ latents, adapted SAMM features).
+        freeze_encoder: the encoder's latents and features carry no
+        gradient (the reference runs the encoder under no_grad); the W+
+        offsets and the adapters after it still do."""
+        lats, feats = self.encoder(resize_bilinear(x.to(self.dtype), (256, 256)), stage)
+        if freeze_encoder:
+            lats, feats = lats.detach(), [f.detach() for f in feats]
         avg = self.avg_latent[None].to(lats.dtype)
         lats = lats + avg + self.delta_latent.to(lats.dtype)
         if truncation < 1.0:
@@ -105,7 +136,8 @@ class OODFaceGANE4E(nn.Module):
         return blend_and_pack(self, x, gen_image, lats, aligns)
 
     def forward(self, x, mod_size: int = 256, truncation: float = 1.0,
-                noise=None, generator=None):
+                noise=None, generator=None, stage: int = PROGRESSIVE_INFERENCE,
+                freeze_encoder: bool = True):
         """x: (B, S, S, 3) NHWC in [-1, 1]. noise: per-layer list of
         (B, 1, H, W) tensors (Generator.noise_shapes), cast to the
         activations' dtype where they are added; drawn from `generator`
@@ -116,9 +148,5 @@ class OODFaceGANE4E(nn.Module):
         x = x.permute(0, 3, 1, 2)
         if noise is None:
             noise = self.generator.make_noise(x.shape[0], generator, x.device)
-        lats, feats_c = self.encode(x, truncation)
-        out = self.decode_samm(lats, feats_c, x, mod_size, noise)
-        return {"image": _nhwc(out["image"]), "lats": out["lats"],
-                "aligns": {k: _nhwc(v) for k, v in out["aligns"].items()},
-                "mask": None if out["mask"] is None else _nhwc(out["mask"]),
-                "gen_image": _nhwc(out["gen_image"])}
+        lats, feats_c = self.encode(x, truncation, stage, freeze_encoder)
+        return nhwc_outputs(self.decode_samm(lats, feats_c, x, mod_size, noise))

@@ -1,10 +1,15 @@
 """JAX -> port weights bridge.
 
-`from_jax_params` maps the flattened flax parameter tree of the JAX
-`OODFaceGANE4E` (keys 'a/b/c' as `flax.traverse_util.flatten_dict` joins
-them) onto the port's `state_dict` names:
+`from_jax_params` maps the flattened flax parameter tree of one JAX net
+(keys 'a/b/c' as `flax.traverse_util.flatten_dict` joins them) onto the
+port's `state_dict` names: the `OODFaceGANE4E` arch ("g"), the image
+discriminator ("d"), the latent discriminator ("d2"), the perceptual
+loss's VGG19 ("vgg") and the identity loss's ArcFace net ("id").
+`load_jax_train_state` loads all of a JAX `TrainState` into a port
+`OODFaceGANModel`. Name and layout rules:
 
-  * list members: 'style_3' -> 'style.3', 'convs_0' -> 'convs.0', ...;
+  * list members: 'style_3' -> 'style.3', 'convs_0' -> 'convs.0',
+    'res_10' -> 'res.10', VGG's 'conv3_4' -> 'conv3.4', ...;
   * the IR-SE trunk's BatchNorm wrapper level 'norm1/norm/scale' ->
     'norm1.weight', running statistics 'mean'/'var' -> 'running_mean' /
     'running_var'; InstanceNorm 'scale' -> 'weight';
@@ -13,6 +18,7 @@ them) onto the port's `state_dict` names:
 """
 
 import re
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -41,25 +47,82 @@ def port_value(jax_key: str, value) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-# The JAX subtrees the port has modules for. Anything else (e.g. the
-# generator's style MLP, which the inversion path never runs) is left over.
-_PORTED = re.compile(
-    r"^(avg_latent|delta_latent)$"
-    r"|^encoder/(trunk|style_\d+|latlayer[12])/"
-    r"|^feats_conv_\d+/"
-    r"|^modulation_\d+/alignment/body/"
-    r"|^generator/(input$|conv1/|to_rgb1/|convs_\d+/|to_rgbs_\d+/)")
+# The JAX subtrees the port has modules for, per net. Anything else is
+# left over.
+_PORTED = {
+    "g": re.compile(
+        r"^(avg_latent|delta_latent)$"
+        r"|^encoder/(trunk|style_\d+|latlayer[12])/"
+        r"|^feats_conv_\d+/"
+        r"|^modulation_\d+/alignment/body/"
+        r"|^generator/(input$|conv1/|to_rgb1/|convs_\d+/|to_rgbs_\d+/|style_\d+/)"),
+    "d": re.compile(r"^d/(conv0|res_\d+|final_conv|final_linear[01])/"),
+    "d2": re.compile(r"^(first_linear|layer_\d+|final_linear)/"),
+    "vgg": re.compile(r"^conv\d_\d/"),
+    "id": re.compile(r"^(trunk|out_norm|out_norm1d)/|^linear_(weight|bias)$"),
+}
 
 
-def from_jax_params(flat: dict):
+def from_jax_params(flat: dict, net: str = "g"):
     """Returns (state_dict, leftovers): the port's tensors for every JAX
-    leaf of a ported subtree, and the JAX keys outside them. Load the
-    state_dict with `load_state_dict(..., strict=True)`, which also catches
-    a port tensor that no JAX leaf filled."""
+    leaf of a ported subtree of `net` ("g", "d", "d2", "vgg" or "id"), and
+    the JAX keys outside them. Load the state_dict with
+    `load_state_dict(..., strict=True)`, which also catches a port tensor
+    that no JAX leaf filled."""
     state, leftovers = {}, []
     for jk, v in flat.items():
-        if _PORTED.match(jk):
+        if _PORTED[net].match(jk):
             state[port_key(jk)] = port_value(jk, v)
         else:
             leftovers.append(jk)
     return state, leftovers
+
+
+def flatten_tree(tree, prefix=""):
+    """{'a/b/c': leaf} of a nested mapping (a flax parameter tree)."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(flatten_tree(v, key + "/"))
+        else:
+            flat[key] = v
+    return flat
+
+
+def load_jax_train_state(model, state):
+    """Loads a JAX `TrainState` (anything with its fields) into the port
+    `OODFaceGANModel` `model`: the generator's trainable and frozen trees
+    into net_g, params_d into net_d, params_d2 into net_d2, the loss nets'
+    'vgg' and 'id' trees into the perceptual and identity losses, each
+    with strict=True, raising if a JAX leaf is left over; then the EMA
+    of the trainable leaves and the path regularizer's running mean."""
+    loss_nets = state.loss_net_params
+    trees = [("g", {**flatten_tree(state.params_g_frozen),
+                    **flatten_tree(state.params_g_train)}, model.net_g),
+             ("d", flatten_tree(state.params_d), model.net_d),
+             ("d2", flatten_tree(state.params_d2), model.net_d2)]
+    if "vgg" in loss_nets:
+        trees.append(("vgg", flatten_tree(loss_nets["vgg"]["params"]),
+                      model.cri_perceptual.vgg))
+    if "id" in loss_nets:
+        trees.append(("id", flatten_tree(loss_nets["id"]["params"]), model.cri_id.facenet))
+    for net, flat, module in trees:
+        if module is None:
+            if flat:
+                raise ValueError(f"the JAX state has a {net} tree; the model has no such net")
+            continue
+        params, leftovers = from_jax_params(flat, net)
+        if leftovers:
+            raise ValueError(f"JAX {net} leaves the port has no module for: {leftovers}")
+        module.load_state_dict(params, strict=True)
+    # JAX keeps BatchNorm statistics as parameters, so an unfixed encoder
+    # puts them in its EMA; the port keeps them as (never trained) buffers
+    buffers = dict(model.net_g.named_buffers())
+    ema = {port_key(jk): port_value(jk, v) for jk, v in flatten_tree(state.ema_train).items()}
+    if set(ema) - set(buffers) != set(model.ema):
+        raise ValueError("the JAX EMA's leaves are not the model's trainable parameters")
+    with torch.no_grad():
+        for k, p in model.ema.items():
+            p.copy_(ema[k])
+        model.mean_path_length.fill_(float(np.asarray(state.mean_path_length)))

@@ -33,14 +33,11 @@ import os.path as osp
 import numpy as np
 import torch
 
-from .archs import build_network
+from .archs import arch_options, build_network
 from .device import resolve_device
 from .nn.layers import init_weights
 from .utils.img_util import img2input
 
-# network_g keys that configure training or checkpoint loading, not the arch
-_NON_ARCH_KEYS = ("stage", "progressiveModSize", "progressiveStart",
-                  "progressiveStep", "progressiveStageSteps", "ModSize")
 
 
 def load_editing_direction(path, name, intensity=1.0):
@@ -78,9 +75,7 @@ class InversionEngine:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         torch.backends.cudnn.benchmark = False
         torch.backends.cudnn.deterministic = True
-        g_opt = {k: v for k, v in opt["network_g"].items()
-                 if not (k.endswith("_pth") or k.endswith("_pth_key")
-                         or k in _NON_ARCH_KEYS)}
+        g_opt = arch_options(opt["network_g"])
         g_opt.update(packed_tail=packed_tail, tail_kernel=tail_kernel,
                      samm_body0=samm_body0, samm_conv_kernel=samm_conv_kernel)
         self.out_size = opt["network_g"].get("out_size", 1024)

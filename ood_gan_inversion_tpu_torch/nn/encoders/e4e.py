@@ -14,6 +14,10 @@ from ..irse import IRSETrunk, trunk_taps
 from ..layers import Conv2dTorch, EqualLinear
 from ...ops.resize import resize_bicubic_ac
 
+# the progressive stage at which every W delta is active
+# (ProgressiveStage.Inference)
+PROGRESSIVE_INFERENCE = 18
+
 
 def _upsample_add(x, y):
     """Bicubic align_corners=True FPN merge."""
@@ -52,7 +56,13 @@ class Encoder4Editing(nn.Module):
         self.latlayer1 = Conv2dTorch(256, 512, 1, 1, 0)
         self.latlayer2 = Conv2dTorch(128, 512, 1, 1, 0)
 
-    def forward(self, x):
+    def forward(self, x, stage: int = PROGRESSIVE_INFERENCE):
+        """stage: the progressive stage; the first stage + 1 style heads
+        are active. Only stages that activate every head are ported."""
+        if min(stage + 1, self.style_count) < self.style_count:
+            raise NotImplementedError(
+                f"progressive encoder stage {stage} (< {self.style_count - 1}) "
+                "is not ported (ROADMAP A7); use stage: Inference")
         _, feats = self.trunk(x, taps=trunk_taps(self.num_layers))
         c1, c2, c3 = feats[2], feats[3], feats[4]
         w0 = self.style[0](c3)

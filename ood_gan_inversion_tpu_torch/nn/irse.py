@@ -1,12 +1,14 @@
-"""IR-SE ResNet blocks and trunk (counterpart of nn/irse.py), NCHW.
-BatchNorm is eval-mode only: every IR-SE trunk is a frozen pretrained net."""
+"""IR-SE ResNet blocks, trunk and the ArcFace identity net (counterpart of
+nn/irse.py), NCHW. BatchNorm is eval-mode only: every IR-SE trunk is a
+frozen pretrained net."""
 
 from collections import namedtuple
 
 import torch
 from torch import nn
 
-from .layers import BatchNorm2dEval, Conv2dTorch, PReLU, SEModule
+from ..ops import batch_invariant as bi
+from .layers import BatchNorm1dEval, BatchNorm2dEval, Conv2dTorch, PReLU, SEModule
 
 Bottleneck = namedtuple("Bottleneck", ["in_channel", "depth", "stride"])
 
@@ -93,3 +95,30 @@ class IRSETrunk(nn.Module):
             if idx in taps:
                 feats.append(y)
         return y, feats
+
+
+class ArcFaceBackbone(nn.Module):
+    """The IR-SE-50 identity embedding: trunk, out_norm, NCHW flatten, a
+    linear map to 512, out_norm1d, l2 normalization. forward(x (B, 3, 112,
+    112)) -> (B, 512). Dropout is eval-mode (identity)."""
+
+    def __init__(self, num_layers=50):
+        super().__init__()
+        self.trunk = IRSETrunk(num_layers, "ir_se")
+        self.out_norm = BatchNorm2dEval(512)
+        self.linear_weight = nn.Parameter(torch.empty(512, 512 * 7 * 7))
+        self.linear_bias = nn.Parameter(torch.empty(512))
+        self.out_norm1d = BatchNorm1dEval(512)
+
+    @torch.no_grad()
+    def init_params(self, g):
+        self.linear_weight.copy_(torch.randn(self.linear_weight.shape, generator=g,
+                                             device=self.linear_weight.device) * 0.01)
+        self.linear_bias.zero_()
+
+    def forward(self, x):
+        y, _ = self.trunk(x, taps=())
+        y = self.out_norm(y)
+        y = bi.matmul(y.reshape(y.shape[0], -1), self.linear_weight.t()) + self.linear_bias
+        y = self.out_norm1d(y)
+        return y / torch.clamp(torch.linalg.vector_norm(y, dim=1, keepdim=True), min=1e-12)

@@ -17,7 +17,8 @@ import torch
 from torch import nn
 
 from ..ops import batch_invariant as bi
-from ..ops.fused_act import fused_leaky_relu
+from ..ops.fused_act import _channel_view, fused_leaky_relu
+from ..ops.upfirdn2d import blur as fir_blur, make_kernel
 
 
 def _uniform(shape, bound, g, device):
@@ -53,6 +54,31 @@ class EqualLinear(nn.Module):
         if self.activation == "fused_lrelu":
             return fused_leaky_relu(y, b)
         return y if b is None else y + b.to(y.dtype)
+
+
+class EqualConv2d(nn.Module):
+    """conv(x, W / sqrt(fan_in)) + b; weight (out, in, k, k) init N(0, 1),
+    bias 0."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, padding=0,
+                 bias=True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    @torch.no_grad()
+    def init_params(self, g):
+        self.weight.copy_(_normal(self.weight.shape, 1.0, g, self.weight.device))
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x):
+        w = self.weight * (1.0 / math.sqrt(self.weight[0].numel()))
+        return bi.conv2d(x, w.to(x.dtype),
+                         None if self.bias is None else self.bias.to(x.dtype),
+                         stride=self.stride, padding=self.padding)
 
 
 class Conv2dTorch(nn.Module):
@@ -145,9 +171,13 @@ class BatchNorm2dEval(nn.Module):
 
     def forward(self, x):
         inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        y = ((x.float() - self.running_mean[:, None, None]) * inv[:, None, None]
-             + self.bias[:, None, None])
+        y = ((x.float() - _channel_view(self.running_mean, x.ndim))
+             * _channel_view(inv, x.ndim) + _channel_view(self.bias, x.ndim))
         return y.to(x.dtype)
+
+
+class BatchNorm1dEval(BatchNorm2dEval):
+    """BatchNorm2dEval over (N, C)."""
 
 
 class InstanceNorm2d(nn.Module):
@@ -194,6 +224,52 @@ class SEModule(nn.Module):
         s = bi.mean_hw(x, keepdim=True)
         s = self.fc2(torch.relu(self.fc1(s)))
         return x * torch.sigmoid(s)
+
+
+class ConvLayer(nn.Module):
+    """Optional FIR-blur + stride-2 downsample, EqualConv2d, then the fused
+    lrelu with a learned bias (activate and bias), the scaled lrelu
+    (activate, no bias) or nothing."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, downsample=False,
+                 blur_kernel=(1, 3, 3, 1), bias=True, activate=True):
+        super().__init__()
+        self.downsample = downsample
+        self.use_bias, self.activate = bias, activate
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            self.blur_pad = ((p + 1) // 2, p // 2)
+            self.blur_kernel = make_kernel(blur_kernel)
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        self.conv = EqualConv2d(in_ch, out_ch, kernel_size, stride, padding,
+                                bias=bias and not activate)
+        self.act = FusedLeakyReLU(out_ch) if activate and bias else None
+
+    def forward(self, x):
+        if self.downsample:
+            x = fir_blur(x, self.blur_kernel, pad=self.blur_pad)
+        x = self.conv(x)
+        if self.act is not None:
+            return self.act(x)
+        return fused_leaky_relu(x) if self.activate else x
+
+
+class ResBlock(nn.Module):
+    """conv1 (3x3) -> conv2 (3x3, downsample), plus a 1x1 downsampled skip
+    without bias or activation; (out + skip) / sqrt(2)."""
+
+    def __init__(self, in_ch, out_ch, blur_kernel=(1, 3, 3, 1)):
+        super().__init__()
+        self.conv1 = ConvLayer(in_ch, in_ch, 3)
+        self.conv2 = ConvLayer(in_ch, out_ch, 3, downsample=True,
+                               blur_kernel=blur_kernel)
+        self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True,
+                              blur_kernel=blur_kernel, bias=False, activate=False)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:

@@ -7,8 +7,10 @@ algebra): the same linear algebra, with conv2's packed kernel dense (4x the
 MACs of the unpacked conv). `tail_kernel` picks how a packed stage is
 computed: "none" (plain PyTorch), "pair" (the fused packed conv kernel,
 twice) or "stage" (the whole-stage kernel). Off by default: on the H100 in
-float32 the unpacked tail does fewer MACs. The style MLP is not on the
-inversion path and is not ported yet.
+float32 the unpacked tail does fewer MACs. The style MLP (`style_mlp`, z ->
+W) is not on the inversion path; training draws the latent
+discriminator's real latents from it. `Discriminator` is the StyleGAN2
+image discriminator.
 
 Noise is explicit: `make_noise` draws the per-layer (B, 1, H, W) noise list
 from a `torch.Generator`, and the decode functions take that list.
@@ -20,14 +22,15 @@ import torch
 from torch import nn
 
 from ..ops.fused_act import fused_leaky_relu
-from ..ops.modulated import demod_scale, modulated_conv2d
+from ..ops.modulated import demod_scale, modulated_conv2d, pixel_norm
 from ..ops.packed_conv import fused_packed_pair, fused_packed_stage
 from ..ops.polyphase import (conv1x1_packed_kernel, conv3x3_packed_kernel,
                              conv_packed, pack_space_to_depth,
                              skip_up_packed_kernel, tile_phase_major,
                              unpack_depth_to_space, upconv_blur_packed_kernel)
+from ..ops.stats import minibatch_stddev
 from ..ops.upfirdn2d import make_kernel, upsample2x
-from .layers import EqualLinear, FusedLeakyReLU
+from .layers import ConvLayer, EqualLinear, FusedLeakyReLU, ResBlock
 
 # stages whose output is at least this many pixels wide run packed
 _PACKED_MIN_RES = 512
@@ -126,11 +129,12 @@ class Generator(nn.Module):
     """StyleGAN2 synthesis: forward(latent) decodes W+ (B, n_latent,
     style_dim) to (B, 3, size, size). packed_tail / tail_kernel: see the
     module docstring (the JAX flags OGI_PACKED_TAIL and OGI_PALLAS /
-    OGI_PALLAS_STAGE)."""
+    OGI_PALLAS_STAGE). n_mlp: the style MLP's depth (its layers' learning
+    rate multiplier is 0.01)."""
 
     def __init__(self, size=1024, style_dim=512, channel_multiplier=2,
                  narrow=1.0, blur_kernel=(1, 3, 3, 1), packed_tail=False,
-                 tail_kernel="none"):
+                 tail_kernel="none", n_mlp=8):
         super().__init__()
         if tail_kernel not in TAIL_KERNELS:
             raise ValueError(f"tail_kernel {tail_kernel!r} not in {TAIL_KERNELS}")
@@ -156,11 +160,23 @@ class Generator(nn.Module):
                                          blur_kernel=blur_kernel))
             self.to_rgbs.append(ToRGB(out_ch, style_dim))
             in_ch = out_ch
+        # registered last, so that init_weights draws the synthesis weights
+        # as it did before the style MLP was ported
+        self.style = nn.ModuleList(
+            EqualLinear(style_dim, style_dim, lr_mul=0.01, activation="fused_lrelu")
+            for _ in range(n_mlp))
 
     @torch.no_grad()
     def init_params(self, g):
         self.input.copy_(torch.randn(self.input.shape, generator=g,
                                      device=self.input.device))
+
+    def style_mlp(self, z):
+        """W = MLP(pixel_norm(z)), z (B, style_dim)."""
+        w = pixel_norm(z)
+        for layer in self.style:
+            w = layer(w)
+        return w
 
     def noise_shapes(self, batch):
         """(B, 1, H, W) shape of each layer's noise: conv1 at 4px, then two
@@ -275,3 +291,37 @@ class Generator(nn.Module):
                 skip = to_rgb(out, latent[:, i + 2], skip)
             i += 2
         return skip
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator. forward(x NHWC) returns (score (B, 1),
+    [body feature, final feature]), the features NHWC views of the NCHW
+    activations. The final feature flattens in NCHW order (c, h, w) into
+    final_linear0, as the JAX module does for converted torch weights."""
+
+    def __init__(self, size=1024, channel_multiplier=2, blur_kernel=(1, 3, 3, 1),
+                 stddev_group=4, stddev_feat=1, narrow=1.0):
+        super().__init__()
+        channels = STYLEGAN2_CHANNELS(channel_multiplier, narrow)
+        self.stddev_group, self.stddev_feat = stddev_group, stddev_feat
+        log_size = int(math.log2(size))
+        self.conv0 = ConvLayer(3, channels[size], 1)
+        self.res = nn.ModuleDict()
+        in_ch = channels[size]
+        for i in range(log_size, 2, -1):
+            self.res[str(i)] = ResBlock(in_ch, channels[2 ** (i - 1)], blur_kernel)
+            in_ch = channels[2 ** (i - 1)]
+        self.final_conv = ConvLayer(in_ch + stddev_feat, channels[4], 3)
+        self.final_linear0 = EqualLinear(channels[4] * 16, channels[4],
+                                         activation="fused_lrelu")
+        self.final_linear1 = EqualLinear(channels[4], 1)
+
+    def forward(self, x):
+        out = self.conv0(x.permute(0, 3, 1, 2))
+        for block in self.res.values():
+            out = block(out)
+        body = out
+        out = minibatch_stddev(out, self.stddev_group, self.stddev_feat)
+        out = self.final_conv(out)
+        score = self.final_linear1(self.final_linear0(out.reshape(out.shape[0], -1)))
+        return score, [body.permute(0, 2, 3, 1), out.permute(0, 2, 3, 1)]

@@ -11,7 +11,8 @@ are batch-invariant as they stand.
 """
 
 import torch
-import torch.nn.functional as F
+
+from . import conv_gradfix
 
 
 def per_sample(fn, *xs):
@@ -25,8 +26,8 @@ def per_sample(fn, *xs):
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, groups=1):
-    """F.conv2d, sample by sample."""
-    return per_sample(lambda v: F.conv2d(v, weight, bias, stride, padding, 1, groups), x)
+    """F.conv2d, sample by sample (its gradients through conv_gradfix)."""
+    return per_sample(lambda v: conv_gradfix.conv2d(v, weight, bias, stride, padding, groups), x)
 
 
 def mean_hw(x, keepdim=False):

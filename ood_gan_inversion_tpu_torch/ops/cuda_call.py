@@ -92,8 +92,8 @@ def twin_function(name, run, twin):
     Arguments that are not tensors (an activation's name, an absent
     operand) pass through and get no gradient; a cotangent that is None
     (an output the loss does not use) adds nothing. Under create_graph the
-    gradients are the twin's own, so they differentiate again, through the
-    twin. `.run` is `run`."""
+    gradients are the twin's own partial derivatives, so they differentiate
+    again, through the twin. `.run` is `run`."""
 
     def forward(ctx, *args):
         ctx.set_materialize_grads(False)
@@ -104,14 +104,20 @@ def twin_function(name, run, twin):
 
     def backward(ctx, *cotangents):
         # grad mode is on here only under create_graph: then the twin runs on
-        # the saved inputs themselves, so its gradients are differentiable in
-        # turn (a gradient of a gradient, as JAX's custom_vjp rules allow)
+        # a view of each saved input, so its gradients are differentiable in
+        # turn w.r.t. the inputs (a gradient of a gradient, as JAX's
+        # custom_vjp rules allow). The views keep autograd.grad to the
+        # partial derivatives: on the inputs themselves it would also follow
+        # paths from one input to another through the graph that made them
+        # (SAMM computes alpha and the grid from the target), and the outer
+        # backward would count those paths twice.
         create = torch.is_grad_enabled()
         args = list(ctx.args)
         wrt = [i for i in ctx.tensor_at if ctx.needs_input_grad[i]]
         with torch.enable_grad():
             for i, t in zip(ctx.tensor_at, ctx.saved_tensors):
-                args[i] = t if create else t.detach().requires_grad_(ctx.needs_input_grad[i])
+                args[i] = (t.view_as(t) if create
+                           else t.detach().requires_grad_(ctx.needs_input_grad[i]))
             outs = twin(*args)
             outs = outs if isinstance(outs, tuple) else (outs,)
             pairs = [(o, g) for o, g in zip(outs, cotangents)

@@ -26,8 +26,15 @@ def interp_matrix(in_size: int, out_size: int, method: str = "bilinear",
     """(out_size, in_size) row-stochastic resampling matrix, float32 numpy.
     'bilinear' is torch's half-pixel mapping with the negative coordinate
     clamped to 0; 'bicubic' torch's 4-tap Keys kernel with border-clamped
-    taps."""
+    taps; 'adaptive_avg' torch's AdaptiveAvgPool1d bins
+    [floor(o * in / out), ceil((o + 1) * in / out))."""
     m = np.zeros((out_size, in_size), dtype=np.float64)
+    if method == "adaptive_avg":
+        for o in range(out_size):
+            lo = (o * in_size) // out_size
+            hi = -((-(o + 1) * in_size) // out_size)
+            m[o, lo:hi] = 1.0 / (hi - lo)
+        return m.astype(np.float32)
     if align_corners:
         scale = (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
         src = np.arange(out_size) * scale
@@ -77,3 +84,10 @@ def resize_bicubic_ac(x: torch.Tensor, size) -> torch.Tensor:
     if tuple(x.shape[-2:]) == tuple(size):
         return x
     return _apply_separable(x, size, "bicubic", True)
+
+
+def adaptive_avg_pool(x: torch.Tensor, size) -> torch.Tensor:
+    """F.adaptive_avg_pool2d on NCHW."""
+    if tuple(x.shape[-2:]) == tuple(size):
+        return x
+    return _apply_separable(x, size, "adaptive_avg", False)

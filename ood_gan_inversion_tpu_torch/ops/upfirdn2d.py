@@ -55,9 +55,9 @@ def _flipped_kernel(data: bytes, shape, dtype, device) -> torch.Tensor:
     return torch.tensor(k.copy(), dtype=dtype, device=device)
 
 
-def _resample_pads(k_len: int, factor: int):
+def _resample_pads(k_len: int, factor: int, up: bool = True):
     p = k_len - factor
-    return (p + 1) // 2 + factor - 1, p // 2
+    return ((p + 1) // 2 + factor - 1 if up else (p + 1) // 2), p // 2
 
 
 def upsample2x(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:
@@ -66,6 +66,13 @@ def upsample2x(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:
     pad0, pad1 = _resample_pads(np.asarray(kernel).shape[0], factor)
     return upfirdn2d(x, np.asarray(kernel) * (factor ** 2), up=factor,
                      pad=(pad0, pad1))
+
+
+def downsample2x(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:
+    """FIR downsample: blur with the normalized 2-D kernel, keep every
+    factor-th sample."""
+    pad0, pad1 = _resample_pads(np.asarray(kernel).shape[0], factor, up=False)
+    return upfirdn2d(x, kernel, down=factor, pad=(pad0, pad1))
 
 
 def blur(x: torch.Tensor, kernel, pad, upsample_factor: int = 1) -> torch.Tensor:

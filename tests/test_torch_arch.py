@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import fill_params, init_shapes, jax_tree, load_port, max_rel_err
+from torch_parity import (fill_params, init_shapes, jax_tree, load_port, max_rel_err,
+                          with_style_mlp)
 
 from ood_gan_inversion_tpu.archs.ood_e4e import OODFaceGANE4E as JArch
 from ood_gan_inversion_tpu_torch.archs.ood_e4e import OODFaceGANE4E
@@ -34,7 +35,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 @pytest.fixture(scope="module")
 def jax_flat():
     x = jnp.zeros((1, 512, 512, 3), jnp.float32)
-    flat = fill_params(init_shapes(JArch(**CFG), x, mod_size=256), seed=0)
+    flat = with_style_mlp(fill_params(init_shapes(JArch(**CFG), x, mod_size=256), seed=0),
+                          JArch(**CFG), 512, seed=1)
     assert np.abs(flat["delta_latent"]).max() > 0
     return flat
 
@@ -73,8 +75,8 @@ def test_bridge_consumes_every_leaf_and_loads_strictly(jax_flat):
         jax_flat["encoder/trunk/input_conv/weight"].transpose(3, 2, 0, 1))
     # a subtree the port has no module for is reported, not dropped silently
     _, left = from_jax_params({**jax_flat,
-                               "generator/style_0/weight": np.zeros((2, 2))})
-    assert left == ["generator/style_0/weight"]
+                               "generator/unported_0/weight": np.zeros((2, 2))})
+    assert left == ["generator/unported_0/weight"]
     assert port_key("encoder/trunk/body_1/norm1/norm/var") == \
         "encoder.trunk.body.1.norm1.running_var"
 
@@ -133,7 +135,8 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "ood_gan_inversion_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "prof_torch_inversion.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "prof_torch_inversion.py",
+              ROOT / "tools" / "prof_torch_train.py"]
     assert len(files) > 20
     for f in files:
         for name in _imports(f):

@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import fill_params, init_shapes, jax_tree, load_port, max_rel_err, nhwc
+from torch_parity import (fill_params, init_shapes, jax_tree, load_port, max_rel_err, nhwc,
+                          with_style_mlp)
 
 from ood_gan_inversion_tpu.archs.ood_e4e import OODFaceGANE4E as JArch
 from ood_gan_inversion_tpu.nn.encoders.e4e import Encoder4Editing as JEncoder
@@ -204,8 +205,8 @@ def test_bf16_slice_matches_jax_bf16():
     """The whole arch in bfloat16 against JAX's bfloat16 arch (SAMM in the
     arch dtype, JAX's inference default), the same weights and noise."""
     x = np.random.RandomState(1).uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32)
-    flat = fill_params(init_shapes(JArch(**CFG), jnp.zeros((1, 256, 256, 3)),
-                                   mod_size=256), seed=0)
+    flat = with_style_mlp(fill_params(init_shapes(JArch(**CFG), jnp.zeros((1, 256, 256, 3)),
+                                              mod_size=256), seed=0), JArch(**CFG), 512, seed=1)
     arch = load_port(OODFaceGANE4E(**CFG, dtype=BF16), flat)
     noise = [rand(*s, seed=20 + i) for i, s in enumerate(arch.generator.noise_shapes(2))]
     jarch = JArch(**CFG, dtype=jnp.bfloat16)

@@ -319,6 +319,75 @@ def test_warp_blend_grad_of_grad_matches_jax():
     assert_grads_close(got, ref, WARP_TOL)
 
 
+def test_warp_blend_gradients_with_dependent_inputs_match_jax():
+    """SAMM computes the grid and alpha from the target it warps. With all
+    three functions of one leaf u, the gradient of sum(out * ct) w.r.t. u
+    (with and without create_graph) and the gradient of sum(grad * v)
+    match jax.grad of the same composition through warp_blend_reference;
+    a Function that returned total instead of partial derivatives under
+    create_graph would count the target -> alpha path twice. 1e-5 of
+    max|ref|."""
+    arrays = warp_inputs(2, 16, 8, 0.08, seed=25)
+    rs = np.random.RandomState(26)
+    ct = rs.randn(*arrays[0].shape).astype(np.float32)
+    v = rs.randn(*arrays[0].shape).astype(np.float32)
+    base = arrays[1]
+
+    def port(u):
+        target = 1.5 * u
+        alpha = torch.sigmoid(target.mean(-1, keepdim=True)).contiguous()
+        grid = (T(base) + 0.05 * torch.tanh(target[..., :2])).contiguous()
+        return warp_blend.warp_blend(target, grid, alpha)
+
+    def ref_loss(u):
+        target = 1.5 * u
+        alpha = jax.nn.sigmoid(target.mean(-1, keepdims=True))
+        out = j_warp.warp_blend_reference(target, base + 0.05 * jnp.tanh(target[..., :2]), alpha)
+        return jnp.sum(out * ct)
+
+    ref_g = jax.grad(ref_loss)(jnp.asarray(arrays[0]))
+    ref_gg = jax.grad(lambda u: jnp.sum(jax.grad(ref_loss)(u) * v))(jnp.asarray(arrays[0]))
+    for create in (False, True):
+        (u,) = leaves(arrays[:1])
+        (g,) = torch.autograd.grad(port(u), u, T(ct), create_graph=create)
+        assert max_rel_err(g.detach().numpy(), ref_g) < WARP_TOL, create
+    (gg,) = torch.autograd.grad((g * T(v)).sum(), u)
+    assert max_rel_err(gg.numpy(), ref_gg) < WARP_TOL
+
+
+@pytest.mark.parametrize("stride,padding,groups,k", [(1, 1, 1, 3), (2, 0, 1, 3), (1, 2, 4, 4),
+                                                     (2, 0, 1, 1)])
+def test_conv_gradfix_matches_native_autograd(stride, padding, groups, k):
+    """ops/conv_gradfix.conv2d at first and second order (an R1-style
+    loss on the input gradient plus a weight-gradient term, differentiated
+    w.r.t. input, weight and bias) against F.conv2d's own autograd, within
+    1e-5 of max|ref|; the forward bit for bit."""
+    from ood_gan_inversion_tpu_torch.ops import conv_gradfix
+    rs = np.random.RandomState(30 + k + stride)
+    arrays = [rs.randn(2, 4, 9, 9), rs.randn(6 if groups == 1 else 4, 4 // groups, k, k),
+              rs.randn(6 if groups == 1 else 4)]
+    ct = None
+    outs = []
+    for conv in (torch.nn.functional.conv2d,
+                 lambda x, w, b, s, p, d, g: conv_gradfix.conv2d(x, w, b, s, p, g)):
+        x, w, b = leaves(arrays)
+        y = conv(x, w, b, stride, padding, 1, groups)
+        if ct is None:
+            ct = T(rs.randn(*y.shape).astype(np.float32))
+            v = T(rs.randn(*w.shape).astype(np.float32))
+        gx, gw = torch.autograd.grad((y * ct).sum(), [x, w], create_graph=True)
+        second = torch.autograd.grad(gx.square().sum() + (gw * v).sum(), [x, w, b],
+                                     allow_unused=True)
+        outs.append((y, gx, gw, second))
+    (y0, gx0, gw0, s0), (y1, gx1, gw1, s1) = outs
+    assert torch.equal(y0, y1)
+    for got, ref in [(gx1, gx0), (gw1, gw0)] + list(zip(s1, s0)):
+        if ref is None:
+            assert got is None or not got.any()
+        else:
+            assert max_rel_err(got.detach().numpy(), ref.detach().numpy()) < 1e-5
+
+
 def refuse_apply(monkeypatch):
     """Makes every torch.autograd.Function's apply raise."""
     def refuse(cls, *args):

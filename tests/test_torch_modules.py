@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import fill_params, init_shapes, jax_tree, load_port, max_rel_err, nchw, nhwc
+from torch_parity import (fill_params, init_shapes, jax_tree, load_port, max_rel_err, nchw,
+                          nhwc, with_style_mlp)
 
 from ood_gan_inversion_tpu.nn.encoders.e4e import Encoder4Editing as JEncoder
 from ood_gan_inversion_tpu.nn.samm import StyledScaleNShiftBlock as JSAMM
@@ -86,7 +87,8 @@ def test_generator_512_unpacked_vs_jax_packed_tail():
     phase-packed path at the 512px stage. Same weights, same noise."""
     jgen = JGenerator(size=512, channel_multiplier=1, narrow=0.125)
     lat = rand(2, 16, 512, seed=5)
-    flat = fill_params(init_shapes(jgen, jnp.asarray(lat)), seed=6)
+    flat = with_style_mlp(fill_params(init_shapes(jgen, jnp.asarray(lat)), seed=6), jgen, 512,
+                          seed=7)
     gen = load_port(Generator(512, 512, 1, 0.125), flat, "generator/")
     noise = [rand(*s, seed=10 + i) for i, s in enumerate(gen.noise_shapes(2))]
     ref = jax.jit(lambda p, l, n: jgen.apply({"params": p}, l, noise=n))(

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import fill_params, init_shapes, jax_tree, load_port, max_rel_err
+from torch_parity import (fill_params, init_shapes, jax_tree, load_port, max_rel_err,
+                          with_style_mlp)
 
 j_poly, j_pk, j_sg2, j_fir = (
     importlib.import_module(f"ood_gan_inversion_tpu.{m}") for m in
@@ -182,8 +183,9 @@ def gen_flat():
     """A small JAX generator's parameters filled from a numpy seed, with
     non-zero noise weights and biases."""
     lats = jnp.zeros((2, 10, 64), jnp.float32)
-    return fill_params(init_shapes(j_sg2.Generator(n_mlp=2, **GEN_CFG), lats,
-                                   packed=False), seed=3)
+    jgen = j_sg2.Generator(n_mlp=2, **GEN_CFG)
+    return with_style_mlp(fill_params(init_shapes(jgen, lats, packed=False), seed=3), jgen, 64,
+                          seed=4)
 
 
 def gen_inputs(seed=4):
@@ -195,7 +197,7 @@ def gen_inputs(seed=4):
 
 
 def port_generator(gen_flat, **tail):
-    return load_port(sg2.Generator(**GEN_CFG, **tail), gen_flat, prefix="generator/")
+    return load_port(sg2.Generator(**GEN_CFG, n_mlp=2, **tail), gen_flat, prefix="generator/")
 
 
 @pytest.mark.parametrize("tail_kernel", ["none", "pair", "stage"])
@@ -278,7 +280,8 @@ def slice_case():
     """JAX's 512px slice with its packed tail through the pair kernel
     (OGI_PALLAS=1, interpret mode), and the inputs it ran on."""
     x0 = jnp.zeros((1, 512, 512, 3), jnp.float32)
-    flat = fill_params(init_shapes(JArch(**SLICE_CFG), x0, mod_size=256), seed=0)
+    flat = with_style_mlp(fill_params(init_shapes(JArch(**SLICE_CFG), x0, mod_size=256), seed=0),
+                          JArch(**SLICE_CFG), 512, seed=1)
     rs = np.random.RandomState(1)
     x = rs.uniform(-1, 1, (2, 512, 512, 3)).astype(np.float32)
     noise = [rs.randn(*s).astype(np.float32)

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import fill_params, init_shapes, jax_tree, load_port, max_rel_err, nchw, nhwc
+from torch_parity import (fill_params, init_shapes, jax_tree, load_port, max_rel_err, nchw,
+                          nhwc, with_style_mlp)
 
 from ood_gan_inversion_tpu.archs.ood_e4e import OODFaceGANE4E as JArch
 from ood_gan_inversion_tpu.nn.samm import AlignNet as JAlignNet
@@ -248,7 +249,8 @@ SLICE_CFG = dict(out_size=512, channel_multiplier=1, narrow=0.125,
 @pytest.fixture(scope="module")
 def slice_inputs():
     x0 = jnp.zeros((1, 512, 512, 3), jnp.float32)
-    flat = fill_params(init_shapes(JArch(**SLICE_CFG), x0, mod_size=256), seed=0)
+    flat = with_style_mlp(fill_params(init_shapes(JArch(**SLICE_CFG), x0, mod_size=256), seed=0),
+                          JArch(**SLICE_CFG), 512, seed=1)
     rs = np.random.RandomState(1)
     x = rs.uniform(-1, 1, (1, 512, 512, 3)).astype(np.float32)
     noise = [rs.randn(*s).astype(np.float32)
@@ -322,10 +324,10 @@ def test_engine_samm_options():
     opt = {"network_g": {"type": "ood_faceGAN_e4e", "out_size": 64,
                          "channel_multiplier": 1, "narrow": 0.125,
                          "encoder_num_layers": 4, "cycle_align": 2}}
-    body = InversionEngine(opt, device="cpu").net.modulation[0].alignment.body
+    body = InversionEngine(opt, device="cpu").net.modulation["3"].alignment.body
     assert (body.samm_body0, body.body0.conv_kernel) == ("algebraic", False)
     body = InversionEngine(opt, device="cpu", samm_body0="literal",
-                           samm_conv_kernel=True).net.modulation[0].alignment.body
+                           samm_conv_kernel=True).net.modulation["3"].alignment.body
     assert (body.samm_body0, body.body0.conv_kernel, body.body1.conv_kernel) == \
         ("literal", True, True)
     with pytest.raises(ValueError, match="needs samm_body0='literal'"):

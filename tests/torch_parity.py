@@ -58,6 +58,19 @@ def init_shapes(module, *args, **kwargs):
         {"params": rng, "noise": rng}, *args)["params"]
 
 
+def with_style_mlp(flat, jmodule, style_dim, seed):
+    """flat plus the style MLP's leaves of the JAX Generator or arch
+    `jmodule`, filled from `seed` (flat's own leaves kept as they are). A flax module creates a parameter where
+    it is first used, so a tree traced through the decode alone has no
+    style MLP; the port's Generator holds it from construction, as the
+    tree of JAX's training model does (its init runs random_latents)."""
+    method = getattr(type(jmodule), "random_latents", None) or type(jmodule).style_mlp
+    z = jnp.zeros((1, style_dim), jnp.float32)
+    shapes = jax.eval_shape(lambda r: jmodule.init(r, z, method=method),
+                            jax.random.PRNGKey(0))["params"]
+    return {**fill_params(shapes, seed), **flat}
+
+
 def load_port(module, flat, prefix=""):
     """Loads a JAX flat tree into a port module through the bridge;
     asserts that no JAX leaf is left over and that the load is strict.
