@@ -34,16 +34,26 @@
    autograd Function with inputs that require grad: its output must come
    from the Function and equal the kernel's, its gradients those of the
    plain version.
-   Before the inversion paths, drives this slice's main path: the
+   Before the inversion paths, drives the
    options/train/E4E_Face.yml training step at full width (1024px, b = 2,
    float32, seeded weights and batch) through OODFaceGANModel.train_step,
    step 0 (R1 and the path regularizer, B1 differentiated twice through its
    twin) and four fused steps at ModSize 256, with B1's launches per step
    checked, frozen parameters held bit for bit, the step times and peak
    memory printed; then the same step at 256px on the card against the
-   CPU.
-4. Prints the card's name and power limit, one JSON line describing the
-   kernels (B1's `launches` are the train steps'), and as the last line
+   CPU. Then drives this slice's main path, the training entry point:
+   `train.train_pipeline` (what `python -m
+   ood_gan_inversion_tpu_torch.run_train` runs) on
+   options/train/E4E_Face.yml at full width over synthetic 1024px PNGs,
+   4 iterations with validation (PSNR, SSIM, LPIPS) and a checkpoint,
+   --auto_resume to 6, and 8 iterations at ModSize 256; checks the losses,
+   B1's launches against the curriculum, the validation metrics against
+   direct calls, the checkpoints, the resumed iteration and the frozen
+   parameters, and prints ms per iteration, data_time, validation ms per
+   image and checkpoint seconds.
+4. Prints the card's name and power limit, which of cv2, PIL and yaml are
+   installed, one JSON line describing the kernels (B1's `launches` are
+   the train steps' and the pipeline's), and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no last
@@ -1635,6 +1645,229 @@ def phase_train_small_reference():
     log(f"[check] small train steps took {time.time() - t0:.1f} s")
 
 
+# --- the training entry point: train_pipeline on options/train/E4E_Face.yml -----------------
+PIPELINE_TRAIN, PIPELINE_VAL = 8, 2          # synthetic 1024px PNGs
+PIPELINE_TIMED_ITERS = 8                     # the ModSize 256 run's length
+# the validation metrics recomputed from the final model: within 1e-6
+# relative (the same forward on the same weights and noise)
+PIPELINE_METRIC_RTOL = 1e-6
+
+
+def write_face_pngs(folder, n, seed):
+    """n seeded 1024px PNGs: smooth colour fields (a 16x16 field resized
+    bilinearly) with a little noise, so that they compress and decode as
+    photographs do."""
+    import os
+    from ood_gan_inversion_tpu_torch.utils.img_util import imwrite, resize_linear
+    os.makedirs(folder)
+    rs = np.random.RandomState(seed)
+    for i in range(n):
+        img = resize_linear(rs.rand(16, 16, 3).astype(np.float32), 1024)
+        img = np.clip(img * 255 + rs.randn(1024, 1024, 3) * 4, 0, 255).astype(np.uint8)
+        imwrite(img, f"{folder}/{i}.png")
+
+
+class StepRecorder:
+    """Wraps OODFaceGANModel.train_step while installed: records each call's
+    step, its logs, and CUDA events before and after it (the iteration's
+    period is start to next start, its step start to end); snapshots the
+    frozen generator parameters at the first call."""
+
+    def __init__(self):
+        from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
+        self.cls, self.orig = OODFaceGANModel, OODFaceGANModel.train_step
+        self.calls, self.frozen = [], None
+        rec = self
+
+        def train_step(model, batch, step, **kw):
+            if rec.frozen is None:
+                rec.frozen = {k: p.detach().clone() for k, p in model.net_g.named_parameters()
+                              if k not in model.train_g}
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            logs = rec.orig(model, batch, step, **kw)
+            b.record()
+            rec.calls.append((step, logs, a, b))
+            return logs
+
+        self.wrapped = train_step
+
+    def __enter__(self):
+        self.cls.train_step = self.wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.orig
+
+    def steps(self):
+        return [c[0] for c in self.calls]
+
+    def times_ms(self, skip=2):
+        """(median period, median step) in ms over the calls after `skip`."""
+        torch.cuda.synchronize()
+        c = self.calls[skip:]
+        periods = [x[2].elapsed_time(y[2]) for x, y in zip(c, c[1:])]
+        steps = [x[2].elapsed_time(x[3]) for x in c]
+        return float(np.median(periods)), float(np.median(steps)), periods
+
+
+def pipeline_b1(model, steps, val_iters, n_val):
+    """B1 launches of a run: per G forward, one per SAMM block (ModSize 32:
+    one; each octave up to 256: one more) per align cycle (2), at the
+    ModSize of the step; a train step at reg_every 99999999 is one fused
+    G forward; a validation one forward per image."""
+    def per_forward(step):
+        return 2 * (int(math.log2(model.schedule_at(step)[1] // 32)) + 1)
+    return sum(per_forward(s) for s in steps) + n_val * sum(per_forward(s) for s in val_iters)
+
+
+def check_pipeline_run(what, run, rec, first, n_val, b1, val_iters):
+    """The run's losses are finite, its B1 launches what its curriculum
+    gives, its steps consecutive from `first`."""
+    got = list(range(first, run.current_iter + 1))
+    if rec.steps() != got:
+        raise AssertionError(f"{what}: train_step saw steps {rec.steps()}, expected {got}")
+    bad = [(s, k) for s, logs, _, _ in rec.calls for k, v in logs.items()
+           if not bool(torch.isfinite(v))]
+    if bad:
+        raise AssertionError(f"{what}: non-finite losses {bad[:5]}")
+    want = expected_counts(warp_blend=pipeline_b1(run.model, got, val_iters, n_val))
+    if b1 != want:
+        raise AssertionError(f"{what}: launched {b1}, expected {want}")
+
+
+def check_validation(run, val_dir, vis_dir, n_val):
+    """The final validation's metrics against direct calculate_* calls on
+    the images it scored, recomputed from the final model (the state it
+    validated) with validation's noise; its dumps are those images, byte
+    for byte as the same encoder writes them."""
+    import os
+    from ood_gan_inversion_tpu_torch.metrics import (calculate_lpips, calculate_psnr,
+                                                     calculate_ssim)
+    from ood_gan_inversion_tpu_torch.utils.img_util import imread, imwrite, tensor2img
+    model, it = run.model, run.current_iter
+    fns = {"psnr": calculate_psnr, "ssim": calculate_ssim, "lpips": calculate_lpips}
+    sums = dict.fromkeys(fns, 0.0)
+    for i in range(n_val):
+        gt = (imread(f"{val_dir}/{i}.png") - 0.5) / 0.5
+        x = torch.from_numpy(gt[None]).cuda()
+        noise = model.make_noise(1, torch.Generator("cuda").manual_seed(0))
+        sr = tensor2img(model.infer(x, step=it, noise=noise)["image"][0].cpu().numpy())
+        gt_img = tensor2img(gt)
+        for k, fn in fns.items():
+            sums[k] += fn(sr, gt_img, crop_border=2, test_y_channel=True, device="cuda")
+        # the dumps are the scored images, through the same JPEG encoder
+        for img, f in ((sr, f"{i}_{it}.jpg"), (gt_img, f"{i}_gt.jpg")):
+            imwrite(img, f"{vis_dir}/check.jpg")
+            with open(f"{vis_dir}/check.jpg", "rb") as a, open(f"{vis_dir}/{i}/{f}", "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"validation dump {i}/{f} is not the scored image")
+        if not os.path.isfile(f"{vis_dir}/{i}/{i}_{it}_masks.jpg"):
+            raise AssertionError(f"validation dump {i}/{i}_{it}_masks.jpg missing")
+    errs = {}
+    for k in fns:
+        direct, got = sums[k] / n_val, run.val_results[k]
+        errs[k] = abs(got - direct) / max(abs(direct), 1e-12)
+        if not errs[k] <= PIPELINE_METRIC_RTOL:
+            raise AssertionError(f"validation {k}: {got} against a direct call's {direct}")
+    return errs
+
+
+def phase_train_pipeline():
+    """This slice's main path: `train.train_pipeline`, the entry point of
+    `python -m ood_gan_inversion_tpu_torch.run_train`, on
+    options/train/E4E_Face.yml at full width (1024px, b = 2, float32, TF32
+    off, seeded weights) over 8 train and 2 val synthetic 1024px PNGs. The
+    only overrides: the dataroots, no pretrained G or D (absent files),
+    the experiment root, total_iter / val_freq / print_freq /
+    save_checkpoint_freq. Run 1: 4 iterations, validation and a save at 4
+    (and the final save and validation at 4, as JAX); run 2:
+    --auto_resume to 6; run 3: ModSize 256 (every SAMM scale), 8
+    iterations, for the fused step's time at full width. Each run with the
+    counts set to 0 just before it and read just after. Returns B1's
+    launches."""
+    import os
+    import shutil
+    import tempfile
+    from ood_gan_inversion_tpu_torch.train import train_pipeline
+    from ood_gan_inversion_tpu_torch.utils.checkpoint import find_resume_state
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="ogi_pipeline_")
+    try:
+        write_face_pngs(f"{root}/train", PIPELINE_TRAIN, SEED + 20)
+        write_face_pngs(f"{root}/val", PIPELINE_VAL, SEED + 21)
+        log(f"[pipeline] wrote {PIPELINE_TRAIN} + {PIPELINE_VAL} 1024px PNGs in "
+            f"{time.time() - t_phase:.1f} s")
+
+        def args(exp, total, val_freq, save_freq, print_freq, *extra):
+            return ["--opt", "options/train/E4E_Face.yml", "--device", "cuda", "--force_yml",
+                    f"datasets:train:dataroot_gt_list=[{root}/train]",
+                    f"datasets:val:dataroot_gt={root}/val",
+                    "path:pretrain_network_g=~", "path:pretrain_network_d=~",
+                    f"path:experiments_root={exp}", f"train:total_iter={total}",
+                    f"val:val_freq={val_freq}", f"logger:print_freq={print_freq}",
+                    f"logger:save_checkpoint_freq={save_freq}", *extra]
+
+        launches, frozen0, start2 = 0, None, None
+        for name, argv, first, val_iters in (
+                ("run 1 (4 iterations)", args(f"{root}/exp", 4, 4, 4, 2), 1, (4, 4)),
+                ("run 2 (--auto_resume to 6)",
+                 ["--auto_resume"] + args(f"{root}/exp", 6, 4, 4, 2), 5, (6,)),
+                ("run 3 (ModSize 256)",
+                 args(f"{root}/exp256", PIPELINE_TIMED_ITERS, 1000, 1000, 4,
+                      "network_g:ModSize=256"), 1, (PIPELINE_TIMED_ITERS,))):
+            with StepRecorder() as rec:
+                rec.frozen = frozen0         # run 2 holds its G to run 1's start
+                reset_counts()
+                t0 = time.time()
+                run = train_pipeline(".", args=argv)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                counts = read_counts()
+            check_pipeline_run(name, run, rec, first, PIPELINE_VAL, counts, val_iters)
+            launches += counts["warp_blend"]
+            frozen0 = rec.frozen
+            skip = 2 if len(rec.calls) > 3 else 0
+            period, step, periods = rec.times_ms(skip)
+            log(f"[pipeline] {name}: iterations {run.start_iter + 1}..{run.current_iter}, "
+                f"B1 launched {counts['warp_blend']} (training + {len(val_iters)} validations "
+                f"of {PIPELINE_VAL} images), {wall:.1f} s in all; ms/iteration (CUDA events, "
+                f"start to next start, after {skip} warm-up) median {period:.2f}, all "
+                f"{[round(p, 2) for p in periods]}; train_step median {step:.2f} ms; "
+                f"host clock {1e3 * run.iter_time:.2f} ms/iteration, data_time "
+                f"{1e3 * run.data_time:.3f} ms; checkpoint saves "
+                f"{[round(s, 2) for s in run.save_seconds]} s; validation "
+                f"{[round(1e3 * s / PIPELINE_VAL, 1) for s in run.val_seconds]} ms/image; "
+                f"metrics {run.val_results}")
+            if name.startswith("run 2"):
+                start2 = run.start_iter
+                moved = [k for k, p in run.model.net_g.named_parameters()
+                         if k in rec.frozen and not torch.equal(p, rec.frozen[k])]
+                if moved:
+                    raise AssertionError(f"pipeline: frozen G parameters moved: {moved[:5]}")
+                log(f"[pipeline] frozen G parameters bit for bit after 6 iterations "
+                    f"({len(rec.frozen)} tensors)")
+                errs = check_validation(run, f"{root}/val", f"{root}/exp/visualization",
+                                        PIPELINE_VAL)
+                log(f"[pipeline] final validation against direct calculate_* calls: relative "
+                    f"{errs} (<= {PIPELINE_METRIC_RTOL}); its JPEG dumps are the scored images")
+                frozen0 = None
+            del run, rec
+        for f in ("models/net_4.pth", "training_states/state_4.pth", "models/net_6.pth",
+                  "training_states/state_6.pth"):
+            if not os.path.isfile(f"{root}/exp/{f}"):
+                raise AssertionError(f"pipeline: checkpoint {f} missing")
+        if start2 != 4 or find_resume_state(f"{root}/exp/training_states")[1] != 6:
+            raise AssertionError(f"pipeline: resumed at {start2}")
+        size = os.path.getsize(f"{root}/exp/training_states/state_4.pth")
+        log(f"[pipeline] checkpoints written; a training state is {size / 2 ** 30:.2f} GiB; the "
+            f"resumed run started at iteration {start2 + 1}")
+        log(f"[pipeline] phase took {time.time() - t_phase:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1646,6 +1879,12 @@ def main():
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; every time below "
         f"is on this card: {smi}")
+    import importlib
+    import importlib.util
+    installed = "[env] installed: " + ", ".join(
+        f"{m} {importlib.import_module(m).__version__ if importlib.util.find_spec(m) else 'no'}"
+        for m in ("cv2", "PIL", "yaml", "tensorboard")) + f" ({smi})"
+    log(installed)
     # plain versions and yardsticks in full float32 (cuDNN defaults to
     # TF32), as InversionEngine sets it for the main path
     torch.backends.cudnn.allow_tf32 = False
@@ -1655,6 +1894,7 @@ def main():
     phase_gradients()
     train_launches = phase_training()
     phase_train_small_reference()
+    pipeline_launches = phase_train_pipeline()
     _, engine, imgs, replies = phase_main_path()
     launches, tails = phase_packed_tail(engine, imgs, replies)
     body0_launches, body0s = phase_samm_body0(engine, imgs, replies)
@@ -1663,8 +1903,12 @@ def main():
     phase_batched({"float32": engine, "bfloat16": bf16s["bf16 default"]}, imgs)
     serving_launches = phase_serving(bf16s["bf16 default"], imgs)
     log(f"[serve] B1 launches behind the server: {serving_launches}")
-    # B1's launches: this slice's main path, the E4E_Face.yml train steps
-    entries[0]["launches"] = train_launches
+    # B1's launches: this slice's main path, the train_pipeline runs; the
+    # E4E_Face.yml train steps of the training phase under their own key.
+    # Each path is counted from 0 just before it
+    entries[0]["launches"] = pipeline_launches
+    entries[0]["train_launches"] = train_launches
+    entries[0]["pipeline_launches"] = pipeline_launches
     entries[0]["train_launches_per_step"] = {"step0": TRAIN_B1[0],
                                              "fused": TRAIN_B1[FUSED_STEP]}
     phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s,
@@ -1673,6 +1917,7 @@ def main():
         e["launches"] = launches[e["name"]]
     phase_small_reference()
     entries.append(phase_probe())
+    log(installed)
     log(smi)
     # bound_ms is the tensor-core bound of a conv kernel; cc_bound_ms the
     # CUDA-core one (for B1 and the probe, which use no tensor cores, the same)
@@ -1680,7 +1925,7 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cc_bound_ms")
     for e in entries:
         e.setdefault("cc_bound_ms", e["bound_ms"])
-    extra = ("bf16_ms", "train_launches_per_step")
+    extra = ("bf16_ms", "train_launches", "pipeline_launches", "train_launches_per_step")
     log(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(x for x in extra if x in e)}
                                 for e in entries]}))
     log(json.dumps({"ok": True, "device": {

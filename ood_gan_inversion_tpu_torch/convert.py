@@ -4,7 +4,8 @@
 (keys 'a/b/c' as `flax.traverse_util.flatten_dict` joins them) onto the
 port's `state_dict` names: the `OODFaceGANE4E` arch ("g"), the image
 discriminator ("d"), the latent discriminator ("d2"), the perceptual
-loss's VGG19 ("vgg") and the identity loss's ArcFace net ("id").
+loss's VGG19 ("vgg"), the identity loss's ArcFace net ("id") and the
+LPIPS metric's AlexNet-LPIPS ("lpips").
 `load_jax_train_state` loads all of a JAX `TrainState` into a port
 `OODFaceGANModel`. Name and layout rules:
 
@@ -60,13 +61,14 @@ _PORTED = {
     "d2": re.compile(r"^(first_linear|layer_\d+|final_linear)/"),
     "vgg": re.compile(r"^conv\d_\d/"),
     "id": re.compile(r"^(trunk|out_norm|out_norm1d)/|^linear_(weight|bias)$"),
+    "lpips": re.compile(r"^net/conv\d/|^lin\d$"),
 }
 
 
 def from_jax_params(flat: dict, net: str = "g"):
     """Returns (state_dict, leftovers): the port's tensors for every JAX
-    leaf of a ported subtree of `net` ("g", "d", "d2", "vgg" or "id"), and
-    the JAX keys outside them. Load the state_dict with
+    leaf of a ported subtree of `net` ("g", "d", "d2", "vgg", "id" or
+    "lpips"), and the JAX keys outside them. Load the state_dict with
     `load_state_dict(..., strict=True)`, which also catches a port tensor
     that no JAX leaf filled."""
     state, leftovers = {}, []

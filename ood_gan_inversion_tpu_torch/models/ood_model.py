@@ -499,6 +499,57 @@ class OODFaceGANModel:
         return {k: v.detach() for k, v in logs.items()}
 
     # ------------------------------------------------------------------
+    @property
+    def batch_keys(self):
+        """The batch entries `train_step` reads."""
+        return (self.which_gt, "lq_size")
+
+    def make_noise(self, batch: int, generator: torch.Generator):
+        """The per-layer noise of one G forward at `batch`, drawn from
+        `generator` (e.g. validation's own)."""
+        return self.net_g.generator.make_noise(batch, generator, self.device)
+
+    def _nets(self):
+        return {"net_g": self.net_g, "net_d": self.net_d, "net_d2": self.net_d2,
+                "cri_perceptual": self.cri_perceptual, "cri_id": self.cri_id}
+
+    def _optimizers(self):
+        opts = {f"opt_g.{g}": o for g, (_, o) in self.opt_g.items()}
+        return {**opts, "opt_d": self.opt_d, "opt_d2": self.opt_d2}
+
+    def state_dict(self):
+        """The whole training state, device tensors by reference: every
+        net's state_dict (the frozen loss nets too), the EMA, each
+        optimizer's moments and update count, the path regularizer's
+        running mean and the state of the model's generator `rng`."""
+        return {"nets": {k: m.state_dict() for k, m in self._nets().items() if m is not None},
+                "ema": dict(self.ema),
+                "optimizers": {k: o.state_dict() for k, o in self._optimizers().items()
+                               if o is not None},
+                "mean_path_length": self.mean_path_length,
+                "rng": self.rng.get_state()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Restores `state_dict()`'s output (from any device) in place;
+        every net strictly, and every entry must be there."""
+        nets = {k: m for k, m in self._nets().items() if m is not None}
+        opts = {k: o for k, o in self._optimizers().items() if o is not None}
+        if set(state["nets"]) != set(nets) or set(state["optimizers"]) != set(opts):
+            raise ValueError(f"the state holds nets {sorted(state['nets'])} and optimizers "
+                             f"{sorted(state['optimizers'])}; the model has {sorted(nets)} "
+                             f"and {sorted(opts)}")
+        if set(state["ema"]) != set(self.ema):
+            raise ValueError("the state's EMA is not over the model's trainable parameters")
+        for k, m in nets.items():
+            m.load_state_dict(state["nets"][k], strict=True)
+        for k, v in state["ema"].items():
+            self.ema[k].copy_(v)
+        for k, o in opts.items():
+            o.load_state_dict(state["optimizers"][k])
+        self.mean_path_length = state["mean_path_length"].to(self.device).clone()
+        self.rng.set_state(state["rng"].cpu())
+
     def eval_params(self, ema: bool = False):
         """net_g's state_dict, the trainable entries from the EMA when
         `ema`."""

@@ -56,6 +56,14 @@ def clip_by_global_norm(grads, max_norm: float):
                               torch.where(keep, one, one * max_norm))
 
 
+def _load_moments(what, dst, src):
+    """Copies a saved list of per-parameter tensors into dst, in place."""
+    if len(dst) != len(src) or any(d.shape != t.shape for d, t in zip(dst, src)):
+        raise ValueError(f"{what}: the saved state does not fit the parameters")
+    for d, t in zip(dst, src):
+        d.copy_(t)
+
+
 class Adam:
     """Adam over a list of parameters, updated in place by `step(grads)`."""
 
@@ -67,6 +75,17 @@ class Adam:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self):
+        """The moments and the update count (the parameters are the
+        model's)."""
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        _load_moments("Adam", self.mu, state["mu"])
+        _load_moments("Adam", self.nu, state["nu"])
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self, grads):
@@ -101,6 +120,18 @@ class SGD:
         self.momentum = momentum
         self.count = 0
         self.trace = [torch.zeros_like(p) for p in self.params] if momentum else None
+
+    def state_dict(self):
+        return {"count": self.count,
+                "trace": None if self.trace is None else list(self.trace)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        if (state["trace"] is None) != (self.trace is None):
+            raise ValueError("SGD: the state's momentum does not match the optimizer's")
+        if self.trace is not None:
+            _load_moments("SGD", self.trace, state["trace"])
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self, grads):

@@ -11,13 +11,13 @@ Inverts every image of each dataset's `dataroot_gt`, writes the inversion
 and the per-scale masks as PNG files and prints the seconds per image.
 Without --weights the weights are drawn from a seed. --dtype overrides the
 option file's `network_g: dtype`; the other flags are InversionEngine's
-options of the same names. Reads YAML and image files with PyYAML and
-OpenCV, imported here only.
+options of the same names. Reads the option file with
+`utils/options.load_yaml` and images with `utils/img_util` (the port's
+codec).
 """
 
 import argparse
 import glob
-import os
 import os.path as osp
 import time
 
@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from .infer import InversionEngine, load_editing_direction
-from .utils.img_util import tensor2img
+from .utils.img_util import imread, imwrite, tensor2img
+from .utils.options import load_yaml
 
 
 def list_images(folder):
@@ -36,13 +37,6 @@ def list_images(folder):
 
 
 def run_inversion(opt, out_dir, params=None, device="cuda", **engine_options):
-    import cv2
-
-    def imwrite(img, path):
-        os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
-        if not cv2.imwrite(path, img):
-            raise IOError(f"failed to write image: {path}")
-
     engine = InversionEngine(opt, params=params, device=device, **engine_options)
     editing = opt.get("editing") or {}
     if editing.get("direction"):
@@ -52,10 +46,7 @@ def run_inversion(opt, out_dir, params=None, device="cuda", **engine_options):
     times = []
     for ds in (opt.get("datasets") or {}).values():
         for path in list_images(ds.get("dataroot_gt")):
-            bgr = cv2.imread(path, cv2.IMREAD_COLOR)
-            if bgr is None:
-                raise IOError(f"failed to read image: {path}")
-            img = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0
+            img = imread(path)
             t0 = time.time()
             out = engine.invert(img, seed=0)
             inv = tensor2img(out["image"].float().cpu().numpy())   # waits for the card
@@ -73,8 +64,6 @@ def run_inversion(opt, out_dir, params=None, device="cuda", **engine_options):
 
 
 def main(argv=None):
-    import yaml
-
     ap = argparse.ArgumentParser()
     ap.add_argument("--opt", required=True)
     ap.add_argument("--weights", default=None,
@@ -92,7 +81,7 @@ def main(argv=None):
     ap.add_argument("--samm-conv-kernel", action="store_true")
     args = ap.parse_args(argv)
     with open(args.opt) as f:
-        opt = yaml.safe_load(f)
+        opt = load_yaml(f)
     if args.dtype:
         opt["network_g"]["dtype"] = args.dtype
     if args.direction:

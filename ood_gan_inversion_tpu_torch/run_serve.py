@@ -19,6 +19,7 @@ import torch
 
 from .infer import InversionEngine
 from .serve import BatchingServer
+from .utils.options import load_yaml
 
 # Below this group size a coalesced group is decoded request by request
 # rather than as one padded batch (BatchingServer's split_below). From the
@@ -30,8 +31,6 @@ SPLIT_BELOW = 0
 
 
 def main(argv=None):
-    import yaml
-
     ap = argparse.ArgumentParser()
     ap.add_argument("--opt", required=True)
     ap.add_argument("--weights", default=None,
@@ -53,7 +52,7 @@ def main(argv=None):
                     help="run every batch shape once before taking traffic")
     args = ap.parse_args(argv)
     with open(args.opt) as f:
-        opt = yaml.safe_load(f)
+        opt = load_yaml(f)
     params = (torch.load(args.weights, map_location="cpu", weights_only=True)
               if args.weights else None)
     engine = InversionEngine(opt, params=params, device=args.device)
