@@ -50,10 +50,21 @@
    B1's launches against the curriculum, the validation metrics against
    direct calls, the checkpoints, the resumed iteration and the frozen
    parameters, and prints ms per iteration, data_time, validation ms per
-   image and checkpoint seconds.
+   image and checkpoint seconds. Then drives this slice's main path, the
+   evaluation entry point: `test.test_pipeline` (what `python -m
+   ood_gan_inversion_tpu_torch.run_test` runs) on each shipped
+   options/test/*.yml -- E4E, ReStyle (enc_cycle 5) and FeatureStyle
+   (cycle_align 3) at 1024px over synthetic PNGs, with PSNR, SSIM, LPIPS
+   and identity; checks B1's launches (8, 8 and 12 per image), the
+   metrics against direct calls and the dumps, prints ms per image of the
+   forward and of each metric, and holds InceptionV3FID's features of the
+   outputs and inputs on the card against the CPU, with their FID. Later,
+   beside the small E4E slice, holds the ReStyle and FeatureStyle
+   forwards on the card against the CPU at a small width.
 4. Prints the card's name and power limit, which of cv2, PIL and yaml are
    installed, one JSON line describing the kernels (B1's `launches` are
-   the train steps' and the pipeline's), and as the last line
+   the test runs', with the train steps' and the training pipeline's
+   under their own keys), and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no last
@@ -1868,6 +1879,252 @@ def phase_train_pipeline():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- the evaluation entry point: test_pipeline on every options/test/*.yml ----------------
+# (family, B1 launches per image: one per SAMM block (4 at ModSize 256) per align cycle)
+TEST_FAMILIES = (("E4E", 8), ("ReStyle", 8), ("FeatureStyle", 12))
+TEST_IMAGES = 2                              # synthetic 1024px PNGs
+# the test metrics recomputed from the model: within 1e-6 relative (the
+# same forward on the same weights and noise)
+TEST_METRIC_RTOL = 1e-6
+# the Inception features on the card against the CPU's: float32, ~95 convs
+FID_FEATURE_RTOL = 1e-4
+
+
+class ValidationRecorder:
+    """Wraps test.py's run_validation while installed: records the model,
+    the loader's options and the results of each call."""
+
+    def __init__(self):
+        from ood_gan_inversion_tpu_torch import test as test_mod
+        self.mod, self.orig, self.calls = test_mod, test_mod.run_validation, []
+
+    def __enter__(self):
+        def run_validation(model, loader, opt, **kw):
+            results = self.orig(model, loader, opt, **kw)
+            self.calls.append((model, opt, results))
+            return results
+        self.mod.run_validation = run_validation
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run_validation = self.orig
+
+
+def recheck_test_run(what, model, opt, results, data_dir):
+    """The run's metrics against direct calculate_* calls on the images it
+    scored, recomputed from its model with validation's noise (seed
+    manual_seed, step 0); its JPEG dumps are those images, byte for byte as
+    the same encoder writes them. Returns (the outputs in [0, 1] RGB, ms of
+    each forward, {metric: ms per image})."""
+    from ood_gan_inversion_tpu_torch.metrics import calculate_metric
+    from ood_gan_inversion_tpu_torch.utils.img_util import imread, imwrite, tensor2img
+    vis = opt["path"]["visualization"]
+    metrics = opt["val"]["metrics"]
+    sums, metric_s, fwd_ms, outs = dict.fromkeys(metrics, 0.0), dict.fromkeys(metrics, 0.0), [], []
+    for i in range(TEST_IMAGES):
+        gt = (imread(f"{data_dir}/{i}.png") - 0.5) / 0.5
+        x = torch.from_numpy(gt[None]).cuda()
+        noise = model.make_noise(1, torch.Generator("cuda").manual_seed(opt["manual_seed"]))
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = model.infer(x, step=0, noise=noise)["image"]
+        b.record()
+        b.synchronize()
+        fwd_ms.append(a.elapsed_time(b))
+        out = out[0].float().cpu().numpy()
+        if not np.isfinite(out).all():
+            raise AssertionError(f"{what}: non-finite inversion")
+        outs.append((out + 1.0) / 2.0)
+        sr, gt_img = tensor2img(out), tensor2img(gt)
+        for name, m_opt in metrics.items():
+            t0 = time.time()
+            sums[name] += calculate_metric({"img": sr, "img2": gt_img, "device": model.device},
+                                           m_opt)
+            metric_s[name] += time.time() - t0
+        imwrite(sr, f"{vis}/check.jpg")
+        with open(f"{vis}/check.jpg", "rb") as f1, open(f"{vis}/{i}/{i}_0.jpg", "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{what}: dump {i}/{i}_0.jpg is not the scored image")
+    got = results
+    for name in metrics:
+        direct = sums[name] / TEST_IMAGES
+        err = abs(got[name] - direct) / max(abs(direct), 1e-12)
+        if not (np.isfinite(got[name]) and err <= TEST_METRIC_RTOL):
+            raise AssertionError(f"{what} {name}: {got[name]} against a direct call's {direct}")
+    return outs, fwd_ms, {k: 1e3 * v / TEST_IMAGES for k, v in metric_s.items()}
+
+
+def time_restyle_avg_image(net, batches=(1, 4), iters=5):
+    """ReStyle's average-image decode (the 1024px generator decode of
+    avg_latent, pooled to 256px) at each batch, ms by CUDA events, median
+    of `iters` after one warm-up: the port decodes it per sample, where
+    JAX decodes it once at batch 1 and tiles it."""
+    from ood_gan_inversion_tpu_torch.ops.resize import adaptive_avg_pool
+    ms = {}
+    with torch.no_grad():
+        for b in batches:
+            lats = net.avg_latent[None].expand(b, -1, -1)
+            noise = net.generator.make_noise(b, torch.Generator("cuda").manual_seed(0),
+                                             torch.device("cuda"))
+            times = []
+            for _ in range(iters + 1):
+                a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                adaptive_avg_pool(net.generator(lats, noise), (256, 256))
+                e.record()
+                e.synchronize()
+                times.append(a.elapsed_time(e))
+            ms[b] = float(np.median(times[1:]))
+    return ms
+
+
+def phase_test_pipeline():
+    """This slice's main path: `test.test_pipeline`, the entry point of
+    `python -m ood_gan_inversion_tpu_torch.run_test`, on each shipped
+    options/test/*.yml (E4E, ReStyle at enc_cycle 5, FeatureStyle at
+    cycle_align 3; 1024px, float32, TF32 off, seeded weights) over
+    TEST_IMAGES synthetic 1024px PNGs. The only overrides: the dataroot,
+    the absent pretrained G and identity model_path, the results root.
+    Each run with the counts set to 0 just before it and read just after.
+    Checks B1's launches, finite metrics equal to direct calculate_* calls,
+    the dumps; prints ms per image of the forward and of each metric; then
+    InceptionV3FID features of the outputs and inputs on the card against
+    the CPU, and their FID. Returns B1's launches."""
+    import shutil
+    import tempfile
+    from ood_gan_inversion_tpu_torch import test as test_mod
+    from ood_gan_inversion_tpu_torch.metrics import calculate_fid
+    from ood_gan_inversion_tpu_torch.nn.inception import BasicConv2d, InceptionV3FID
+    from ood_gan_inversion_tpu_torch.nn.layers import init_weights
+    from ood_gan_inversion_tpu_torch.utils.img_util import imread
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="ogi_test_")
+    try:
+        write_face_pngs(f"{root}/data", TEST_IMAGES, SEED + 30)
+        launches, outputs = 0, []
+        for family, b1 in TEST_FAMILIES:
+            args = ["--opt", f"options/test/{family}_Face_test.yml", "--device", "cuda",
+                    "--force_yml", f"datasets:test_1:dataroot_gt={root}/data",
+                    "path:pretrain_network_g=~", f"path:results_root={root}/{family}",
+                    f"val:metrics:identity:model_path={root}/absent/model_ir_se50.pth"]
+            with ValidationRecorder() as rec:
+                reset_counts()
+                t0 = time.time()
+                results = test_mod.test_pipeline(".", args=args)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                counts = read_counts()
+            want = expected_counts(warp_blend=b1 * TEST_IMAGES)
+            if counts != want:
+                raise AssertionError(f"test {family}: launched {counts}, expected {want}")
+            launches += counts["warp_blend"]
+            (model, opt, res), = rec.calls
+            if set(results) != {"CelebAHQ"} or set(res) != {"psnr", "ssim", "lpips", "identity"}:
+                raise AssertionError(f"test {family}: results {results}")
+            net = model.net_g
+            shape = {"ModSize": opt["network_g"]["ModSize"], "out_size": net.out_size,
+                     "cycle_align": next(iter(net.modulation.values())).alignment.cycle_align,
+                     "enc_cycle": getattr(net, "enc_cycle", None)}
+            outs, fwd_ms, metric_ms = recheck_test_run(f"test {family}", model, opt, res,
+                                                       f"{root}/data")
+            outputs += outs
+            log(f"[test] {family}_Face_test.yml ({type(net).__name__}, {shape}, "
+                f"{sum(p.numel() for p in net.parameters())} parameters): {results['CelebAHQ']}; "
+                f"B1 launched {counts['warp_blend']} ({b1}/image); test_pipeline {wall:.1f} s "
+                f"for {TEST_IMAGES} images, model build included; metrics equal direct calls "
+                f"(<= {TEST_METRIC_RTOL} relative), dumps are the scored images")
+            log(f"[test] {family} ms/img (CUDA events, float32, TF32 off): forward "
+                f"{[round(v, 2) for v in fwd_ms]}; metrics (host clock, ms/img): "
+                f"{ {k: round(v, 1) for k, v in metric_ms.items()} }")
+            if family == "ReStyle":
+                avg_ms = time_restyle_avg_image(net)
+                log(f"[test] ReStyle average-image decode ({net.out_size}px, float32, CUDA "
+                    f"events, median "
+                    f"of 5): {avg_ms} ms by batch; a per-seed batch of b pays b of them, "
+                    f"JAX's tiled batch-1 decode one")
+            del model, rec, net
+            torch.cuda.empty_cache()
+        inputs = [imread(f"{root}/data/{i}.png") for i in range(TEST_IMAGES)]
+        # InceptionV3FID on the card against the CPU, on the outputs and inputs,
+        # seeded with He-scaled kernels (JAX's N(0, 0.02) init shrinks the
+        # activations towards 0 through ~95 ReLU convs) the same on both
+        cpu_net = init_weights(InceptionV3FID(), SEED + 31).eval()
+        g = torch.Generator().manual_seed(SEED + 32)
+        with torch.no_grad():
+            for m in cpu_net.modules():
+                if isinstance(m, BasicConv2d):
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                                   * math.sqrt(2.0 / m.weight[0].numel()))
+        with torch.device("cuda"):
+            gpu_net = InceptionV3FID().eval()
+        gpu_net.load_state_dict(cpu_net.state_dict())
+        x = torch.from_numpy(np.stack(outputs + inputs).astype(np.float32))
+        feats = {}
+        with torch.no_grad():
+            gpu_net(x[:1].cuda())
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            feats["cuda"] = gpu_net(x.cuda())
+            b.record()
+            b.synchronize()
+            inc_ms = a.elapsed_time(b) / len(x)
+            feats["cuda"] = feats["cuda"].cpu().numpy().astype(np.float64)
+            feats["cpu"] = cpu_net(x).numpy().astype(np.float64)
+        err = float(np.abs(feats["cuda"] - feats["cpu"]).max() / np.abs(feats["cpu"]).max())
+        if not err <= FID_FEATURE_RTOL:
+            raise AssertionError(f"Inception features: card vs CPU rel err {err}")
+        t0 = time.time()
+        fid = calculate_fid(feats1=feats["cuda"][:len(outputs)], feats2=feats["cuda"][len(outputs):])
+        if not np.isfinite(fid):
+            raise AssertionError(f"FID {fid}")
+        log(f"[test] InceptionV3FID (seeded) on {len(outputs)} outputs and {len(inputs)} inputs: "
+            f"card vs CPU features max rel err {err:.2e} (<= {FID_FEATURE_RTOL}); "
+            f"{inc_ms:.2f} ms/img on the card (1024px resized to 299 inside); FID(outputs, "
+            f"inputs) {fid!r} ({time.time() - t0:.1f} s on the host, scipy sqrtm)")
+        log(f"[test] phase took {time.time() - t_phase:.1f} s")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_family_small_reference():
+    """Each new family's forward at a small width on the card (kernels)
+    against the same weights on the CPU (plain versions), as
+    phase_small_reference holds E4E: ReStyle (enc_cycle 2, a 4-layer
+    trunk) and FeatureStyle (iresnet50, cycle_align 3), 512px,
+    channel_multiplier 1, narrow 0.25, noise 0.1."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    cases = [("ReStyle", e4e_opt(type="ood_faceGAN_restyle", encoder="ReStyle", enc_cycle=2,
+                                 out_size=512, channel_multiplier=1, narrow=0.25,
+                                 encoder_num_layers=4), 8),
+             ("FeatureStyle", e4e_opt(type="ood_faceGAN_FeatureStyle", encoder="FeatureStyle",
+                                      cycle_align=3, out_size=512, channel_multiplier=1,
+                                      narrow=0.25), 12)]
+    img = np.random.RandomState(SEED + 2).rand(512, 512, 3).astype(np.float32)
+    x = torch.from_numpy(img[None] * 2.0 - 1.0)
+    for what, opt, b1 in cases:
+        params = noisy(InversionEngine(opt, seed=SEED + 3, device="cuda")).net.state_dict()
+        gpu = InversionEngine(opt, params=params, device="cuda")
+        cpu = InversionEngine(opt, params=params, device="cpu")
+        noise = cpu.net.make_noise(1, torch.Generator().manual_seed(4), torch.device("cpu"))
+        with torch.inference_mode():
+            ref = cpu.net(x, mod_size=256, noise=noise)
+            reset_counts()
+            out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
+            torch.cuda.synchronize()
+            counts = read_counts()
+        if counts != expected_counts(warp_blend=b1):
+            raise AssertionError(f"small {what}: launched {counts}, expected B1 {b1}")
+        errs = {}
+        for k in ("image", "mask", "gen_image", "lats"):
+            r = ref[k].numpy()
+            errs[k] = float(np.abs(out[k].cpu().numpy() - r).max() / np.abs(r).max())
+            if not errs[k] <= 1e-3:
+                raise AssertionError(f"small {what} {k}: card vs CPU rel err {errs[k]}")
+        log(f"[check] small {what} (512px, narrow 0.25, {len(noise)} noise tensors): card vs "
+            f"CPU max rel err {errs} (<= 1e-3); B1 launched {b1}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1895,6 +2152,7 @@ def main():
     train_launches = phase_training()
     phase_train_small_reference()
     pipeline_launches = phase_train_pipeline()
+    test_launches = phase_test_pipeline()
     _, engine, imgs, replies = phase_main_path()
     launches, tails = phase_packed_tail(engine, imgs, replies)
     body0_launches, body0s = phase_samm_body0(engine, imgs, replies)
@@ -1903,10 +2161,11 @@ def main():
     phase_batched({"float32": engine, "bfloat16": bf16s["bf16 default"]}, imgs)
     serving_launches = phase_serving(bf16s["bf16 default"], imgs)
     log(f"[serve] B1 launches behind the server: {serving_launches}")
-    # B1's launches: this slice's main path, the train_pipeline runs; the
-    # E4E_Face.yml train steps of the training phase under their own key.
-    # Each path is counted from 0 just before it
-    entries[0]["launches"] = pipeline_launches
+    # B1's launches: this slice's main path, the test_pipeline runs; the
+    # E4E_Face.yml train steps and the train_pipeline runs under their own
+    # keys. Each path is counted from 0 just before it
+    entries[0]["launches"] = test_launches
+    entries[0]["test_launches"] = test_launches
     entries[0]["train_launches"] = train_launches
     entries[0]["pipeline_launches"] = pipeline_launches
     entries[0]["train_launches_per_step"] = {"step0": TRAIN_B1[0],
@@ -1916,6 +2175,7 @@ def main():
     for e in entries[1:]:
         e["launches"] = launches[e["name"]]
     phase_small_reference()
+    phase_family_small_reference()
     entries.append(phase_probe())
     log(installed)
     log(smi)
@@ -1925,7 +2185,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cc_bound_ms")
     for e in entries:
         e.setdefault("cc_bound_ms", e["bound_ms"])
-    extra = ("bf16_ms", "train_launches", "pipeline_launches", "train_launches_per_step")
+    extra = ("bf16_ms", "test_launches", "train_launches", "pipeline_launches",
+             "train_launches_per_step")
     log(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(x for x in extra if x in e)}
                                 for e in entries]}))
     log(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@ import torch
 
 from .discriminators import LatentDiscriminator, StyleGAN2DiscriminatorMod
 from .ood_e4e import OODFaceGANE4E
+from .ood_featurestyle import OODFaceGANFeatureStyle
+from .ood_restyle import OODFaceGANReStyle
 
 # network_g keys of the curriculum and of checkpoint loading, not the arch's
 _NON_ARCH_KEYS = (
@@ -20,6 +22,8 @@ def arch_options(network_g: dict) -> dict:
 
 
 _ARCHS = {"ood_faceGAN_e4e": OODFaceGANE4E,
+          "ood_faceGAN_restyle": OODFaceGANReStyle,
+          "ood_faceGAN_FeatureStyle": OODFaceGANFeatureStyle,
           "StyleGAN2Discriminator_mod": StyleGAN2DiscriminatorMod,
           "LatentDiscrinimator": LatentDiscriminator}     # sic, the reference's name
 
@@ -36,6 +40,6 @@ def build_network(opt: dict):
             raise ValueError(f"unknown dtype {opt['dtype']!r}")
         opt["dtype"] = dt
     if net_type not in _ARCHS:
-        raise NotImplementedError(f"arch {net_type!r} is not ported "
-                                  f"(ported: {sorted(_ARCHS)})")
+        raise NotImplementedError(f"arch {net_type!r} is not ported (ported: {sorted(_ARCHS)}; "
+                                  "the other families are ROADMAP A9)")
     return _ARCHS[net_type](**opt)

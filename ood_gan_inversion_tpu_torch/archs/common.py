@@ -1,9 +1,11 @@
 """SAMM-conditioned decode loop and mask compositing (counterpart of
-archs/common.py), NCHW. Only the NOISE modulation path is ported: at a
-conditioned layer the aligned encoder feature replaces the generator's
-conv output before the noise injection (aligned + w * noise). Stages that
-are not conditioned run phase-packed where the generator packs them
-(`Generator.stage_is_packable`)."""
+archs/common.py), NCHW, shared by the three encoder families. Only the
+NOISE modulation path is ported: at a conditioned layer the aligned
+encoder feature replaces the generator's conv output before the noise
+injection (aligned + w * noise). FeatureStyle's content injection mixes a
+feature into the generator's activation at the layers `features_in`
+names. Stages that are neither conditioned nor injected run phase-packed
+where the generator packs them (`Generator.stage_is_packable`)."""
 
 import math
 
@@ -22,19 +24,33 @@ def cond_layers_for(mod_size: int, n_feats: int = 4):
     return [(2 * (k + 2)) + 1 for k in range(cond_len)]
 
 
-def conditioned_decode(arch, lats, feats_c, mod_size: int, noise):
+def conditioned_decode(arch, lats, feats_c, mod_size: int, noise, features_in=None,
+                       feature_scale: float = 1.0):
     """feats_c: the 4 adapted encoder features [256, 128, 64, 32]px;
     noise: the generator's per-layer noise list (Generator.make_noise).
-    Returns (image (B, 3, S, S), {scale index 1..4 (1 = 32px): align})."""
+    features_in: optional {layer index: (B, C, H, W) feature}; the
+    activation entering layer i becomes (1 - feature_scale) * out +
+    feature_scale * feature (i odd: before the pair's first conv; even:
+    between its two convs). Returns (image (B, 3, S, S), {scale index 1..4
+    (1 = 32px): align})."""
     gen = arch.generator
     cond_layers = cond_layers_for(mod_size)
+    features_in = features_in or {}
+
+    def inject(out, layer):
+        f = features_in.get(layer)
+        if f is None:
+            return out
+        return (1.0 - feature_scale) * out + feature_scale * f.to(out.dtype)
+
     out = gen.conv1(gen.const_input(lats.shape[0], lats.dtype), lats[:, 0],
                     noise[0])
     skip = gen.to_rgb1(out, lats[:, 1])
     aligns, prev_align = {}, None
     i = 1
     for idx, to_rgb in enumerate(gen.to_rgbs):
-        if i not in cond_layers and gen.stage_is_packable(idx):
+        if (i not in cond_layers and i not in features_in and i + 1 not in features_in
+                and gen.stage_is_packable(idx)):
             out, skip = gen.packed_stage(
                 idx, out, skip, lats[:, i], lats[:, i + 1], lats[:, i + 2],
                 noise[1 + 2 * idx], noise[2 + 2 * idx],
@@ -42,6 +58,7 @@ def conditioned_decode(arch, lats, feats_c, mod_size: int, noise):
             i += 2
             continue
         conv_a, conv_b = gen.convs[2 * idx], gen.convs[2 * idx + 1]
+        out = inject(out, i)
         if i in cond_layers:
             ind = cond_layers.index(i) + 1
             out_c = conv_a.conv(out, lats[:, i])
@@ -51,7 +68,7 @@ def conditioned_decode(arch, lats, feats_c, mod_size: int, noise):
             aligns[ind] = prev_align = align
         else:
             out = conv_a(out, lats[:, i], noise[1 + 2 * idx])
-        out = conv_b(out, lats[:, i + 1], noise[2 + 2 * idx])
+        out = conv_b(inject(out, i + 1), lats[:, i + 1], noise[2 + 2 * idx])
         skip = to_rgb(out, lats[:, i + 2], skip)
         i += 2
     return skip, aligns

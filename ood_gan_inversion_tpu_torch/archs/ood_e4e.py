@@ -3,9 +3,10 @@ archs/ood_e4e.py): encode -> W+ latent math -> SAMM-conditioned StyleGAN2
 decode -> mask composite -> OOD blend.
 
 `forward` takes and returns NHWC like the JAX arch; the work inside is
-NCHW. Ported configuration: the E4E encoder, NOISE modulation without the
-SAMM feature bottleneck -- the options of the shipped inference config;
-other values raise.
+NCHW. Ported configuration: NOISE modulation without the SAMM feature
+bottleneck -- the options of the shipped configs; other values raise. The
+ReStyle and FeatureStyle families (archs/ood_restyle.py,
+archs/ood_featurestyle.py) are this class with another encoder.
 
 dtype: the activation dtype, float32 or bfloat16 (JAX's serving config,
 `bench.py`). The parameters stay float32 and each module casts them to its
@@ -47,7 +48,9 @@ class OODFaceGANE4E(nn.Module):
     packed_tail and tail_kernel choose how the generator computes its
     >=512px stages (nn/stylegan2.py), samm_body0 and samm_conv_kernel how
     the SAMM blocks compute AlignNet's body0 (nn/samm.py); none of them adds
-    a parameter."""
+    a parameter. A family subclass sets `ENCODER` and builds its encoder in
+    `build_encoder`."""
+    ENCODER = "E4E"
 
     def __init__(self, out_size=1024, style_dim=512, n_mlp=8, channel_multiplier=2,
                  narrow=1.0, encoder="E4E", encoder_num_layers=50,
@@ -59,9 +62,12 @@ class OODFaceGANE4E(nn.Module):
                  samm_conv_kernel=False):
         super().__init__()
         check_samm_options(samm_body0, samm_conv_kernel)
-        if encoder != "E4E" or modulation_type != "NOISE" or mod_btn is not None:
+        if encoder != self.ENCODER or modulation_type != "NOISE" or mod_btn is not None:
             raise NotImplementedError(
-                "ported: encoder='E4E', modulation_type='NOISE', mod_btn=None")
+                f"ported: encoder={self.ENCODER!r} for {type(self).__name__} (E4E, ReStyle "
+                "and FeatureStyle each have their arch), modulation_type='NOISE', "
+                f"mod_btn=None; got encoder={encoder!r}, modulation_type={modulation_type!r}, "
+                f"mod_btn={mod_btn!r} (ROADMAP A9)")
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"ported dtypes: float32, bfloat16; got {dtype}")
         self.dtype = dtype
@@ -70,7 +76,7 @@ class OODFaceGANE4E(nn.Module):
         self.blend_with_gen, self.blend_cnt = blend_with_gen, blend_cnt
         self.style_cnt = int(math.log2(out_size)) * 2 - 2
         channels = STYLEGAN2_CHANNELS(channel_multiplier, narrow)
-        self.encoder = Encoder4Editing(encoder_num_layers, "ir_se", out_size)
+        self.encoder = self.build_encoder(encoder_num_layers)
         if enable_modulation:
             sizes, enc_ch = [256, 128, 64, 32], [64, 64, 128, 256]
             self.feats_conv = nn.ModuleList(
@@ -89,8 +95,15 @@ class OODFaceGANE4E(nn.Module):
         self.generator = Generator(out_size, style_dim, channel_multiplier, narrow,
                                    packed_tail=packed_tail, tail_kernel=tail_kernel,
                                    n_mlp=n_mlp)
-        self.avg_latent = nn.Parameter(torch.empty(1, style_dim))
+        self.avg_latent = nn.Parameter(torch.empty(*self.avg_latent_shape()))
         self.delta_latent = nn.Parameter(torch.empty(1, self.style_cnt, style_dim))
+
+    def build_encoder(self, num_layers):
+        return Encoder4Editing(num_layers, "ir_se", self.out_size)
+
+    def avg_latent_shape(self):
+        """One W for every layer (the other families keep one per layer)."""
+        return (1, self.style_dim)
 
     @torch.no_grad()
     def init_params(self, g):
@@ -102,6 +115,11 @@ class OODFaceGANE4E(nn.Module):
                                                 device=self.delta_latent.device) * 0.1)
         else:
             self.delta_latent.zero_()
+
+    def make_noise(self, batch, generator=None, device=None):
+        """The noise of one forward: the generator's per-layer list
+        (Generator.make_noise), drawn in layer order."""
+        return self.generator.make_noise(batch, generator, device)
 
     def random_latents(self, z):
         """z (B, style_dim) -> W through the style MLP, repeated to W+."""
@@ -117,10 +135,16 @@ class OODFaceGANE4E(nn.Module):
         lats, feats = self.encoder(resize_bilinear(x.to(self.dtype), (256, 256)), stage)
         if freeze_encoder:
             lats, feats = lats.detach(), [f.detach() for f in feats]
-        avg = self.avg_latent[None].to(lats.dtype)
-        lats = lats + avg + self.delta_latent.to(lats.dtype)
+        return self.offset_and_adapt(lats + self.avg_latent[None].to(lats.dtype), feats,
+                                     truncation)
+
+    def offset_and_adapt(self, lats, feats, truncation):
+        """The encoder's W+ with avg_latent added -> (W+ + delta_latent,
+        truncated toward avg_latent when truncation < 1; the SAMM features
+        through their 1x1 adapters)."""
+        lats = lats + self.delta_latent.to(lats.dtype)
         if truncation < 1.0:
-            lats = avg * (1.0 - truncation) + lats * truncation
+            lats = self.avg_latent[None].to(lats.dtype) * (1.0 - truncation) + lats * truncation
         feats_c = ([conv(f) for conv, f in zip(self.feats_conv, feats)]
                    if self.enable_modulation else None)
         return lats, feats_c
@@ -141,12 +165,12 @@ class OODFaceGANE4E(nn.Module):
         """x: (B, S, S, 3) NHWC in [-1, 1]. noise: per-layer list of
         (B, 1, H, W) tensors (Generator.noise_shapes), cast to the
         activations' dtype where they are added; drawn from `generator`
-        when None. Returns dict(image, lats, aligns, mask, gen_image) in the
+        when None (`make_noise`). Returns dict(image, lats, aligns, mask, gen_image) in the
         arch dtype with NHWC images; aligns maps the SAMM index (1 = 32px
         .. 4 = 256px) to (B, h, w, 3) [dx, dy, alpha] and out_size to the
         composited 3-channel mask."""
         x = x.permute(0, 3, 1, 2)
         if noise is None:
-            noise = self.generator.make_noise(x.shape[0], generator, x.device)
+            noise = self.make_noise(x.shape[0], generator, x.device)
         lats, feats_c = self.encode(x, truncation, stage, freeze_encoder)
         return nhwc_outputs(self.decode_samm(lats, feats_c, x, mod_size, noise))

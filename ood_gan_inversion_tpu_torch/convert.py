@@ -2,10 +2,14 @@
 
 `from_jax_params` maps the flattened flax parameter tree of one JAX net
 (keys 'a/b/c' as `flax.traverse_util.flatten_dict` joins them) onto the
-port's `state_dict` names: the `OODFaceGANE4E` arch ("g"), the image
+port's `state_dict` names: the inversion arch ("g"), the image
 discriminator ("d"), the latent discriminator ("d2"), the perceptual
-loss's VGG19 ("vgg"), the identity loss's ArcFace net ("id") and the
-LPIPS metric's AlexNet-LPIPS ("lpips").
+loss's VGG19 ("vgg"), the identity loss's ArcFace net ("id"), the
+LPIPS metric's AlexNet-LPIPS ("lpips") and FID's InceptionV3
+("inception"). The arch "g" is any of the three families: E4E, ReStyle
+and FeatureStyle.
+`from_reference_irse50` reads the reference's own torch `model_ir_se50.pth`
+into the ArcFace net.
 `load_jax_train_state` loads all of a JAX `TrainState` into a port
 `OODFaceGANModel`. Name and layout rules:
 
@@ -15,7 +19,9 @@ LPIPS metric's AlexNet-LPIPS ("lpips").
     'norm1.weight', running statistics 'mean'/'var' -> 'running_mean' /
     'running_var'; InstanceNorm 'scale' -> 'weight';
   * layouts: conv kernels HWIO -> OIHW, linear weights (in, out) ->
-    (out, in), the generator's constant input NHWC -> NCHW.
+    (out, in), the generator's constant input NHWC -> NCHW;
+  * the Inception net keeps torchvision's names ('branch5x5_1'), so its
+    keys take only the BatchNorm renames.
 """
 
 import re
@@ -27,10 +33,11 @@ import torch
 _LIST_MEMBER = re.compile(r"_(\d+)(?=/|$)")
 
 
-def port_key(jax_key: str) -> str:
+def port_key(jax_key: str, list_members: bool = True) -> str:
     """The port state_dict name of one flattened JAX parameter path."""
     k = re.sub(r"/norm/(scale|bias|mean|var)$", r"/\1", jax_key)
-    k = _LIST_MEMBER.sub(r"/\1", k)
+    if list_members:
+        k = _LIST_MEMBER.sub(r"/\1", k)
     k = re.sub(r"/scale$", "/weight", k)
     k = re.sub(r"/mean$", "/running_mean", k)
     k = re.sub(r"/var$", "/running_var", k)
@@ -54,6 +61,8 @@ _PORTED = {
     "g": re.compile(
         r"^(avg_latent|delta_latent)$"
         r"|^encoder/(trunk|style_\d+|latlayer[12])/"
+        r"|^encoder/(input_conv|input_bn|input_prelu|layer[1-4]|content_\w+)/"
+        r"|^encoder/style_\d+_(weight|bias)$"
         r"|^feats_conv_\d+/"
         r"|^modulation_\d+/alignment/body/"
         r"|^generator/(input$|conv1/|to_rgb1/|convs_\d+/|to_rgbs_\d+/|style_\d+/)"),
@@ -62,22 +71,65 @@ _PORTED = {
     "vgg": re.compile(r"^conv\d_\d/"),
     "id": re.compile(r"^(trunk|out_norm|out_norm1d)/|^linear_(weight|bias)$"),
     "lpips": re.compile(r"^net/conv\d/|^lin\d$"),
+    "inception": re.compile(r"^(Conv2d_\d[ab]_\dx\d|Mixed_\d[a-e])/"),
 }
 
 
 def from_jax_params(flat: dict, net: str = "g"):
     """Returns (state_dict, leftovers): the port's tensors for every JAX
-    leaf of a ported subtree of `net` ("g", "d", "d2", "vgg", "id" or
-    "lpips"), and the JAX keys outside them. Load the state_dict with
-    `load_state_dict(..., strict=True)`, which also catches a port tensor
-    that no JAX leaf filled."""
+    leaf of a ported subtree of `net` ("g", "d", "d2", "vgg", "id",
+    "lpips" or "inception"), and the JAX keys outside them. Load the
+    state_dict with `load_state_dict(..., strict=True)`, which also catches
+    a port tensor that no JAX leaf filled."""
     state, leftovers = {}, []
     for jk, v in flat.items():
         if _PORTED[net].match(jk):
-            state[port_key(jk)] = port_value(jk, v)
+            state[port_key(jk, net != "inception")] = port_value(jk, v)
         else:
             leftovers.append(jk)
     return state, leftovers
+
+
+def from_reference_irse50(sd):
+    """The ArcFace net's state_dict (`nn/irse.py:ArcFaceBackbone`) from the
+    reference's torch `model_ir_se50.pth` state_dict (`input_layer`, `body.
+    {i}.shortcut_layer` / `res_layer`, `output_layer`). Every tensor must
+    map (BatchNorm step counters aside), or it raises; an output BatchNorm1d
+    without affine parameters gets weight 1, bias 0. Torch layouts are the
+    port's, so values are copied as they are."""
+    renames = [
+        (r"^input_layer\.0\.", "trunk.input_conv."),
+        (r"^input_layer\.1\.", "trunk.input_norm."),
+        (r"^input_layer\.2\.", "trunk.input_prelu."),
+        (r"^body\.(\d+)\.shortcut_layer\.0\.", r"trunk.body.\1.shortcut_conv."),
+        (r"^body\.(\d+)\.shortcut_layer\.1\.", r"trunk.body.\1.shortcut_norm."),
+        (r"^body\.(\d+)\.res_layer\.0\.", r"trunk.body.\1.norm1."),
+        (r"^body\.(\d+)\.res_layer\.1\.", r"trunk.body.\1.conv1."),
+        (r"^body\.(\d+)\.res_layer\.2\.", r"trunk.body.\1.prelu."),
+        (r"^body\.(\d+)\.res_layer\.3\.", r"trunk.body.\1.conv2."),
+        (r"^body\.(\d+)\.res_layer\.4\.", r"trunk.body.\1.norm2."),
+        (r"^body\.(\d+)\.res_layer\.5\.", r"trunk.body.\1.se."),
+        (r"^output_layer\.0\.", "out_norm."),
+        (r"^output_layer\.3\.weight$", "linear_weight"),
+        (r"^output_layer\.3\.bias$", "linear_bias"),
+        (r"^output_layer\.4\.", "out_norm1d."),
+    ]
+    state, leftovers = {}, []
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        for pat, rep in renames:
+            if re.match(pat, k):
+                state[re.sub(pat, rep, k)] = torch.as_tensor(v, dtype=torch.float32).clone()
+                break
+        else:
+            leftovers.append(k)
+    if leftovers:
+        raise ValueError(f"ir_se50 tensors with no ArcFace counterpart: {sorted(leftovers)[:5]}")
+    if "out_norm1d.weight" not in state:
+        n = state["out_norm1d.running_mean"].shape[0]
+        state["out_norm1d.weight"], state["out_norm1d.bias"] = torch.ones(n), torch.zeros(n)
+    return state
 
 
 def flatten_tree(tree, prefix=""):

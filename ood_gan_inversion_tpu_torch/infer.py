@@ -1,5 +1,6 @@
 """Inversion engine (counterpart of infer.py): builds the arch from a
-`network_g` option dict, loads or seeds its weights, and inverts images.
+`network_g` option dict (any of the E4E, ReStyle and FeatureStyle
+families), loads or seeds its weights, and inverts images.
 
 Numerics: the arch's dtype, `network_g["dtype"]` (float32 by default, or
 bfloat16, the serving config). The engine turns TF32 off for both cuDNN
@@ -13,7 +14,11 @@ same order on every call: a reply is then bit-identical across calls.
 Noise: every request carries an integer seed. Its noise is drawn from its
 own `torch.Generator(seed)` on the engine's device at batch 1, which is what
 a lone request draws; a batch of requests concatenates the draws along the
-batch axis and runs one forward (`invert_batch_perkey`). A reply's noise
+batch axis and runs one forward (`invert_batch_perkey`). The draw is the
+arch's `make_noise`: one decode's per-layer list for E4E and FeatureStyle,
+and for ReStyle the lists of all its decodes (the average image, the
+refinements, the final decode), so its internal decodes follow the seed
+too. A reply's noise
 therefore depends only on its seed, never on its slot or the batch size.
 So does the rest of the reply: every op whose sums cuDNN, cuBLAS, oneDNN
 or PyTorch order by the whole shape (convolutions, matrix products, the
@@ -98,7 +103,7 @@ class InversionEngine:
     def _noise(self, seeds):
         """The per-layer noise of a batch with one seed per sample: each
         seed's draw at batch 1, concatenated along the batch axis."""
-        draws = [self.net.generator.make_noise(
+        draws = [self.net.make_noise(
             1, torch.Generator(device=self.device).manual_seed(int(s)), self.device)
             for s in seeds]
         return [torch.cat(layer) for layer in zip(*draws)]
@@ -127,7 +132,7 @@ class InversionEngine:
         one key): the noise is drawn at the batch's size from one
         generator, so a reply depends on its slot."""
         g = torch.Generator(device=self.device).manual_seed(int(seed))
-        noise = self.net.generator.make_noise(len(imgs01), g, self.device)
+        noise = self.net.make_noise(len(imgs01), g, self.device)
         return self._run(self.input_batch(imgs01), noise)
 
     def invert_batch_perkey(self, imgs01, seeds, outputs=None):

@@ -1,15 +1,15 @@
 """Metric layer of the port (counterpart of metrics/): `calculate_metric`
-dispatches a `val.metrics` entry by its `type`. PSNR, SSIM and LPIPS are
-ported; the JAX package's identity, FID and NIQE metrics are not yet
-(ROADMAP A8) and raise naming themselves."""
+dispatches a `val.metrics` entry by its `type`: PSNR, SSIM, LPIPS,
+identity, NIQE and FID, as the JAX package registers them."""
 
 from copy import deepcopy
 
 from ..utils.registry import METRIC_REGISTRY
+from .fid import calculate_fid, extract_features, feature_stats, frechet_distance
+from .identity import IdentityModel, calculate_identity
 from .lpips import LPIPSModel, calculate_lpips
+from .niqe import calculate_niqe, default_gaussian_window, niqe_score
 from .psnr_ssim import calculate_psnr, calculate_ssim
-
-NOT_PORTED = ("calculate_identity", "calculate_fid", "calculate_niqe")
 
 
 def calculate_metric(data, opt):
@@ -18,7 +18,4 @@ def calculate_metric(data, opt):
     opt = deepcopy(opt)
     metric_type = opt.pop("type")
     opt.pop("better", None)
-    if metric_type in NOT_PORTED:
-        raise NotImplementedError(f"metric {metric_type} is not ported yet (ROADMAP A8)")
     return METRIC_REGISTRY.get(metric_type)(**data, **opt)
-

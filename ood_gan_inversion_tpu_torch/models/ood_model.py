@@ -121,7 +121,8 @@ def _group(name: str) -> str:
 class OODFaceGANModel:
     def __init__(self, opt: dict, device="cuda", seed: int = 0):
         """opt: the experiment option dict (network_g, network_d,
-        network_d2, train). The weights are drawn from `seed` (JAX's
+        network_d2, train; `is_train` False for a test run, which holds no
+        trainable parameter). The weights are drawn from `seed` (JAX's
         initializers, nn/layers.py); load trained ones with
         `convert.load_jax_train_state`."""
         self.device = resolve_device(device)
@@ -213,16 +214,22 @@ class OODFaceGANModel:
         for net in (self.cri_perceptual, self.cri_id):
             if net is not None:
                 net.eval().requires_grad_(False)
+        # a test run (is_train False, as parse_options sets it) trains nothing:
+        # no trainable parameter, so no EMA and no optimizer state
+        is_train = opt.get("is_train", True)
         self.train_g = {}
         for name, p in self.net_g.named_parameters():
-            trainable = not _match(name, fix) or _match(name, grad)
+            trainable = is_train and (not _match(name, fix) or _match(name, grad))
             p.requires_grad_(trainable)
             if trainable:
                 self.train_g[name] = p
         self.ema = {k: p.detach().clone() for k, p in self.train_g.items()}
         self.mean_path_length = torch.zeros((), device=self.device)
         self.rng = torch.Generator(device=self.device).manual_seed(seed)
-        self._build_optimizers(train_opt)
+        if is_train:
+            self._build_optimizers(train_opt)
+        else:
+            self.opt_g, self.opt_d, self.opt_d2 = {}, None, None
 
     # ------------------------------------------------------------------
     def _build_optimizers(self, train_opt):
@@ -299,7 +306,7 @@ class OODFaceGANModel:
     def _noise(self, noise, batch):
         if noise is not None:
             return noise
-        return self.net_g.generator.make_noise(batch, self.rng, self.device)
+        return self.net_g.make_noise(batch, self.rng, self.device)
 
     def _forward(self, x, mod_size, stage, noise):
         """The arch on NHWC x; NHWC outputs."""
@@ -462,7 +469,13 @@ class OODFaceGANModel:
         arrays. noise: the per-layer (B*K, 1, h, w) noise list of every G
         forward of the step; path_cot: (B*K, H, W, 3); z: (B*K, style_dim).
         Each is drawn from the model's generator when None. Returns the
-        logged losses, 0-d tensors on the device (no host sync)."""
+        logged losses, 0-d tensors on the device (no host sync). Only the
+        E4E arch trains here; the ReStyle and FeatureStyle archs infer and
+        validate, and raise."""
+        if self.net_g.ENCODER != "E4E":
+            raise NotImplementedError(
+                f"train_step of the {self.net_g.ENCODER} arch is not ported yet (ROADMAP A9); "
+                "it infers and validates")
         batch = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                     device=self.device)
                  for k, v in batch.items() if k in (self.which_gt, "lq_size")}
@@ -505,9 +518,9 @@ class OODFaceGANModel:
         return (self.which_gt, "lq_size")
 
     def make_noise(self, batch: int, generator: torch.Generator):
-        """The per-layer noise of one G forward at `batch`, drawn from
-        `generator` (e.g. validation's own)."""
-        return self.net_g.generator.make_noise(batch, generator, self.device)
+        """The noise of one G forward at `batch` (the arch's `make_noise`),
+        drawn from `generator` (e.g. validation's own)."""
+        return self.net_g.make_noise(batch, generator, self.device)
 
     def _nets(self):
         return {"net_g": self.net_g, "net_d": self.net_d, "net_d2": self.net_d2,

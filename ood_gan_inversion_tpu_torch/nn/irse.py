@@ -76,11 +76,12 @@ class BottleneckIR(nn.Module):
 
 class IRSETrunk(nn.Module):
     """Input layer + body of the IR(-SE) nets. forward returns the body
-    output and [input-layer output] + the outputs of the tapped units."""
+    output and [input-layer output] + the outputs of the tapped units.
+    input_ch: the input's channels (3; 6 for ReStyle's [x || decode])."""
 
-    def __init__(self, num_layers=50, mode="ir_se"):
+    def __init__(self, num_layers=50, mode="ir_se", input_ch=3):
         super().__init__()
-        self.input_conv = Conv2dTorch(3, 64, 3, 1, 1, bias=False)
+        self.input_conv = Conv2dTorch(input_ch, 64, 3, 1, 1, bias=False)
         self.input_norm = BatchNorm2dEval(64)
         self.input_prelu = PReLU(64)
         self.body = nn.ModuleList(

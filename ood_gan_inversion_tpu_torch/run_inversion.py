@@ -8,8 +8,10 @@ python -m ood_gan_inversion_tpu_torch.run_inversion \
     [--samm-conv-kernel]
 
 Inverts every image of each dataset's `dataroot_gt`, writes the inversion
-and the per-scale masks as PNG files and prints the seconds per image.
-Without --weights the weights are drawn from a seed. --dtype overrides the
+and the per-scale masks as PNG files and reports each `val.metrics` entry
+(the inversion against the input at the model's size), averaged over the
+images, with the seconds per image. Without --weights the weights are
+drawn from a seed. --dtype overrides the
 option file's `network_g: dtype`; the other flags are InversionEngine's
 options of the same names. Reads the option file with
 `utils/options.load_yaml` and images with `utils/img_util` (the port's
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from .infer import InversionEngine, load_editing_direction
-from .utils.img_util import imread, imwrite, tensor2img
+from .metrics import calculate_metric
+from .utils.img_util import img2input, imread, imwrite, tensor2img
 from .utils.options import load_yaml
 
 
@@ -43,7 +46,8 @@ def run_inversion(opt, out_dir, params=None, device="cuda", **engine_options):
         engine.apply_direction(load_editing_direction(
             editing.get("dir_path", "directions"), editing["direction"],
             editing.get("intensity", 1.0)))
-    times = []
+    metrics_opt = (opt.get("val") or {}).get("metrics") or {}
+    sums, times = {}, []
     for ds in (opt.get("datasets") or {}).values():
         for path in list_images(ds.get("dataroot_gt")):
             img = imread(path)
@@ -56,9 +60,14 @@ def run_inversion(opt, out_dir, params=None, device="cuda", **engine_options):
             for k, align in out["aligns"].items():
                 m = (align[0, ..., 2].float().clamp(0, 1) * 255).to(torch.uint8)
                 imwrite(m.cpu().numpy(), osp.join(out_dir, "masks", f"{base}_{k}.png"))
-    report = {"images": len(times),
-              "sec_per_img": float(np.mean(times[1:] if len(times) > 1 else times))
-              if times else 0.0}
+            gt = tensor2img(img2input(img, engine.out_size))
+            for name, m_opt in metrics_opt.items():
+                sums[name] = sums.get(name, 0.0) + calculate_metric(
+                    {"img": inv, "img2": gt, "device": engine.device}, m_opt)
+    report = {name: v / len(times) for name, v in sums.items()}
+    report.update(images=len(times),
+                  sec_per_img=float(np.mean(times[1:] if len(times) > 1 else times))
+                  if times else 0.0)
     print(f"Inversion report: {report}")
     return report
 

@@ -1,6 +1,7 @@
 """The port's metrics (metrics/psnr_ssim.py, metrics/lpips.py with
-nn/lpips.py, metrics/__init__.py:calculate_metric) against the JAX
-package on the CPU, on seeded uint8 images.
+nn/lpips.py, metrics/__init__.py:calculate_metric, and its dispatch of
+the identity, FID and NIQE metrics that tests/test_torch_eval.py holds)
+against the JAX package on the CPU, on seeded uint8 images.
 
 Tolerances: PSNR within 1e-10 relative (the same numpy arithmetic);
 SSIM within 1e-6 (OpenCV's filter2D in both). LPIPS, with JAX's
@@ -17,11 +18,13 @@ import torch
 from torch_parity import fill_params, jax_tree
 
 from ood_gan_inversion_tpu.metrics import calculate_metric as j_calculate_metric
+from ood_gan_inversion_tpu.metrics import identity as j_identity
 from ood_gan_inversion_tpu.metrics import lpips as j_lpips_metric
 from ood_gan_inversion_tpu.metrics import psnr_ssim as J
+from ood_gan_inversion_tpu.nn.irse import ArcFaceBackbone as JArcFace
 from ood_gan_inversion_tpu.nn.lpips import LPIPS as JLPIPS
 from ood_gan_inversion_tpu_torch.convert import from_jax_params
-from ood_gan_inversion_tpu_torch.metrics import LPIPSModel, calculate_metric
+from ood_gan_inversion_tpu_torch.metrics import IdentityModel, LPIPSModel, calculate_metric
 from ood_gan_inversion_tpu_torch.metrics import psnr_ssim as P
 from ood_gan_inversion_tpu_torch.nn.layers import init_weights
 from ood_gan_inversion_tpu_torch.nn.lpips import ALEX_LAYOUT, LPIPS
@@ -153,10 +156,46 @@ def test_calculate_metric_dispatch_matches_jax(name, pair):
     assert m_opt["type"] == f"calculate_{name}"          # the caller's dict is left as it is
 
 
+@pytest.fixture
+def arcface_params():
+    """One seeded ArcFace parameter set in both identity-metric singletons
+    (reset afterwards)."""
+    shapes = jax.eval_shape(lambda r: JArcFace(50).init(r, jnp.zeros((1, 112, 112, 3))),
+                            jax.random.PRNGKey(0))["params"]
+    flat = fill_params(shapes, seed=6)
+    j_identity._IDModel._instance = j_identity._IDModel({"params": jax_tree(flat)})
+    IdentityModel.instance(params=from_jax_params(flat, "id")[0], device="cpu")
+    yield
+    j_identity._IDModel._instance = j_identity._IDModel._instance_path = None
+    IdentityModel._instance = IdentityModel._instance_path = None
+
+
 @pytest.mark.parametrize("name", ["calculate_identity", "calculate_fid", "calculate_niqe"])
-def test_unported_metrics_raise_naming_roadmap(name):
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP A8"):
-        calculate_metric({"img": None, "img2": None}, {"type": name, "crop_border": 0})
+def test_identity_fid_niqe_dispatch_matches_jax(name, request, tmp_path):
+    """calculate_metric of each metric against JAX's: identity within 1e-5
+    absolute (seeded ArcFace weights in both singletons), FID and NIQE
+    within 1e-8 relative (the same float64 numpy and scipy arithmetic)."""
+    rs = np.random.RandomState(3)
+    if name == "calculate_identity":
+        request.getfixturevalue("arcface_params")
+        a = rs.randint(0, 256, (64, 64, 3)).astype(np.uint8)
+        data = {"img": a, "img2": np.roll(a, 3, axis=0)}
+        m_opt = {"type": name, "crop_border": 2, "better": "higher",
+                 "model_path": "checkpoints/absent/model_ir_se50.pth"}
+    elif name == "calculate_fid":
+        data = {"feats1": rs.randn(40, 8), "feats2": rs.randn(30, 8) + 0.2}
+        m_opt = {"type": name, "better": "lower"}
+    else:
+        c = rs.randn(36, 36)
+        path = str(tmp_path / "pris.npz")
+        np.savez(path, mu_pris_param=rs.rand(1, 36), cov_pris_param=c @ c.T / 36 + np.eye(36))
+        data = {"img": rs.randint(0, 256, (200, 200, 3)).astype(np.uint8)}
+        m_opt = {"type": name, "crop_border": 0, "pris_params_path": path}
+    ref = j_calculate_metric(data, m_opt)
+    got = calculate_metric({**data, "device": "cpu"}, m_opt)
+    tol = 1e-5 if name == "calculate_identity" else 1e-8 * abs(ref)
+    assert np.isfinite(ref) and abs(got - ref) <= tol, (got, ref)
+    assert m_opt["type"] == name                       # the caller's dict is left as it is
     with pytest.raises(KeyError):
         calculate_metric({}, {"type": "calculate_nothing"})
 
