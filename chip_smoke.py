@@ -34,14 +34,16 @@
    autograd Function with inputs that require grad: its output must come
    from the Function and equal the kernel's, its gradients those of the
    plain version.
-   Before the inversion paths, drives the
-   options/train/E4E_Face.yml training step at full width (1024px, b = 2,
-   float32, seeded weights and batch) through OODFaceGANModel.train_step,
-   step 0 (R1 and the path regularizer, B1 differentiated twice through its
-   twin) and four fused steps at ModSize 256, with B1's launches per step
-   checked, frozen parameters held bit for bit, the step times and peak
-   memory printed; then the same step at 256px on the card against the
-   CPU. Then drives this slice's main path, the training entry point:
+   Before the inversion paths, drives the training step of every shipped
+   options/train/*.yml -- E4E, ReStyle (enc_cycle 5) and FeatureStyle
+   (cycle_align 3) -- at full width (1024px, b = 2, float32, seeded
+   weights and batch) through OODFaceGANModel.train_step, step 0 (R1 and
+   the path regularizer, B1 differentiated twice through its twin) and
+   three fused steps at ModSize 256, with B1's launches per step checked,
+   frozen parameters held bit for bit, the step times and peak memory
+   printed; then steps at 256px on the card against the CPU: E4E's, each
+   family's step 0, and an E4E step at stage WTraining with Ranger and the
+   cosine-restart schedule. Then drives the training entry point:
    `train.train_pipeline` (what `python -m
    ood_gan_inversion_tpu_torch.run_train` runs) on
    options/train/E4E_Face.yml at full width over synthetic 1024px PNGs,
@@ -50,7 +52,10 @@
    B1's launches against the curriculum, the validation metrics against
    direct calls, the checkpoints, the resumed iteration and the frozen
    parameters, and prints ms per iteration, data_time, validation ms per
-   image and checkpoint seconds. Then drives this slice's main path, the
+   image and checkpoint seconds; then `train.train_pipeline` on
+   options/train/ReStyle_Face.yml at ModSize 256 for 2 iterations, a
+   validation of 1 image and a save, its ms/iteration beside the bare
+   step's. Then drives this slice's main path, the
    evaluation entry point: `test.test_pipeline` (what `python -m
    ood_gan_inversion_tpu_torch.run_test` runs) on each shipped
    options/test/*.yml -- E4E, ReStyle (enc_cycle 5) and FeatureStyle
@@ -1458,16 +1463,41 @@ def e4e_train_opt(**g):
     return opt
 
 
-# a step past the last milestone of E4E_Face.yml's curriculum: ModSize 256
+def shipped_train_opt(yml):
+    """The model and train sections of options/train/<yml> (E4E_Face.yml,
+    ReStyle_Face.yml or FeatureStyle_Face.yml) as a dict
+    (tests/test_torch_train.py holds each to its file): E4E_Face.yml's,
+    with what the other two change."""
+    opt = e4e_train_opt()
+    g = opt["network_g"]
+    if yml == "ReStyle_Face.yml":
+        del g["stage"]
+        g.update(type="ood_faceGAN_restyle", encoder="ReStyle", enc_cycle=5)
+    elif yml == "FeatureStyle_Face.yml":
+        del g["stage"]
+        g.update(type="ood_faceGAN_FeatureStyle", encoder="FeatureStyle", cycle_align=3)
+        opt["train"].update(total_iter=700000, startup_iter=700000)
+    elif yml != "E4E_Face.yml":
+        raise ValueError(yml)
+    return opt
+
+
+# a step past the last milestone of the shipped curriculum: ModSize 256
 FUSED_STEP = 16001
 STEP0_KEYS = {"l_d", "real_score", "fake_score", "l_d_r1", "l_g_path", "path_length", "l_g",
               "l_id_target", "l_pix", "l_percep", "l_style", "l_bin", "l_area", "l_total"}
 FUSED_KEYS = STEP0_KEYS - {"l_d_r1", "l_g_path", "path_length"}
 # B1 launches per train step: one SAMM block per ModSize octave from 32px,
-# cycle_align 2 each, per G forward. Step 0 (ModSize 32): the D phase's
-# forward and the G phase's decode, 2 + 2; a fused step at ModSize 256: one
-# forward, 4 x 2. The backward runs B1's twin, which launches nothing.
-TRAIN_B1 = {0: 4, FUSED_STEP: 8}
+# cycle_align each, per G forward. Step 0 (ModSize 32): the D phase's
+# forward and the G phase's decode, 1 + 1 blocks; a fused step at ModSize
+# 256: one forward, 4 blocks. ReStyle's encoder decodes carry no SAMM.
+# The backward runs B1's twin, which launches nothing.
+TRAIN_FAMILIES = (("E4E_Face.yml", 2), ("ReStyle_Face.yml", 2), ("FeatureStyle_Face.yml", 3))
+
+
+def train_b1(cycle_align):
+    return {0: 2 * cycle_align, FUSED_STEP: 4 * cycle_align}
+
 # the card's train step against the CPU's on the same state and draws, at
 # a small width, float32 without TF32: every logged loss within 1e-3
 # relative; every gradient within 1e-2 of max(its leaf's max|ref|, 1e-3 of
@@ -1502,24 +1532,28 @@ def check_train_logs(what, logs, keys):
         raise AssertionError(f"{what}: non-finite {bad}")
 
 
-def phase_training():
-    """The E4E_Face.yml train step at full width (1024px, IR-SE-50 E4E,
-    the 1024px discriminator, VGG19 and IR-SE-50 ArcFace losses, b = 2,
-    float32, seeded weights and batch) through OODFaceGANModel.train_step:
-    step 0 (the split phases: R1, and the path regularizer's double
-    backward through B1's twin), then four fused steps at ModSize 256,
-    each with the counts set to 0 just before and read just after. Checks
-    the logged losses, that frozen parameters stay bit for bit while the
-    trainable G, D and EMA ones move, and B1's launches per step. Then
-    times step 0 and the fused step (CUDA events, median of 5 after a
-    warm-up) with their peak memory. Returns B1's launches."""
+def phase_training(yml, cycle_align, fused_steps=3, reps=3):
+    """options/train/<yml>'s train step at full width (1024px, the family's
+    encoder -- IR-SE-50 E4E, ReStyle's IR-SE-50 over enc_cycle 5 decodes,
+    FeatureStyle's iresnet50 --, the 1024px discriminator, VGG19 and
+    IR-SE-50 ArcFace losses, b = 2, float32, seeded weights and batch)
+    through OODFaceGANModel.train_step: step 0 (the split phases: R1, and
+    the path regularizer's double backward through B1's twin), then
+    `fused_steps` fused steps at ModSize 256, each with the counts set to 0
+    just before and read just after. Checks the logged losses, that frozen
+    parameters stay bit for bit while the trainable G, D and EMA ones move,
+    and B1's launches per step. Then times step 0 and the fused step (CUDA
+    events, median of `reps` after a warm-up) with their peak memory.
+    Returns (B1's launches, {step: median ms})."""
     from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
     t_phase = t0 = time.time()
-    model = OODFaceGANModel(e4e_train_opt(), device="cuda", seed=SEED)
+    what = yml.split("_")[0]
+    b1 = train_b1(cycle_align)
+    model = OODFaceGANModel(shipped_train_opt(yml), device="cuda", seed=SEED)
     batch = train_batch(model, 1024, SEED + 2)
     n_frozen = sum(p.numel() for p in model.net_g.parameters()) - sum(
         p.numel() for p in model.train_g.values())
-    log(f"[train] E4E_Face.yml model: 1024px, b = 2, {sum(p.numel() for p in model.train_g.values())}"
+    log(f"[train] {yml} model: 1024px, b = 2, {sum(p.numel() for p in model.train_g.values())}"
         f" trainable G parameters in {len(model.train_g)} tensors (feats_conv, SAMM), "
         f"{n_frozen} frozen, D {sum(p.numel() for p in model.net_d.parameters())}, built in "
         f"{time.time() - t0:.1f} s")
@@ -1529,38 +1563,40 @@ def phase_training():
     d0 = [p.detach().clone() for p in model.net_d.parameters()]
     ema0 = {k: v.clone() for k, v in model.ema.items()}
     launches = 0
-    for step in (0,) + (FUSED_STEP,) * 4:
+    for step in (0,) + (FUSED_STEP,) * fused_steps:
         reset_counts()
         logs = model.train_step(batch, step)
         torch.cuda.synchronize()
         counts = read_counts()
-        want = expected_counts(warp_blend=TRAIN_B1[step])
+        want = expected_counts(warp_blend=b1[step])
         if counts != want:
-            raise AssertionError(f"train step {step}: launched {counts}, expected {want}")
+            raise AssertionError(f"{what} train step {step}: launched {counts}, expected {want}")
         launches += counts["warp_blend"]
-        check_train_logs(f"train step {step}", logs, STEP0_KEYS if step == 0 else FUSED_KEYS)
-        log(f"[train] step {step} (ModSize {model.schedule_at(step)[1]}): B1 launched "
+        check_train_logs(f"{what} train step {step}", logs,
+                         STEP0_KEYS if step == 0 else FUSED_KEYS)
+        log(f"[train] {what} step {step} (ModSize {model.schedule_at(step)[1]}): B1 launched "
             f"{counts['warp_blend']}; " + ", ".join(f"{k} {float(v):.5g}" for k, v in logs.items()))
     moved = [k for k, p in model.net_g.named_parameters()
              if k in frozen and not torch.equal(p, frozen[k])]
     if moved:
-        raise AssertionError(f"train: frozen parameters moved: {moved[:5]}")
+        raise AssertionError(f"{what} train: frozen parameters moved: {moved[:5]}")
     if all(torch.equal(p, train0[k]) for k, p in model.train_g.items()):
-        raise AssertionError("train: no trainable G parameter moved")
+        raise AssertionError(f"{what} train: no trainable G parameter moved")
     if all(torch.equal(p, q) for p, q in zip(model.net_d.parameters(), d0)):
-        raise AssertionError("train: no D parameter moved")
+        raise AssertionError(f"{what} train: no D parameter moved")
     if all(torch.equal(v, ema0[k]) for k, v in model.ema.items()):
-        raise AssertionError("train: the EMA did not move")
-    log(f"[train] frozen G parameters bit for bit ({len(frozen)} tensors); trainable G, D and "
-        f"the EMA moved; B1 {launches} launches in 5 steps ({TRAIN_B1[0]} at step 0, "
-        f"{TRAIN_B1[FUSED_STEP]} per fused step)")
-    for step, what in ((0, "step 0 (split, R1 + path reg)"), (FUSED_STEP, "fused step")):
+        raise AssertionError(f"{what} train: the EMA did not move")
+    log(f"[train] {what}: frozen G parameters bit for bit ({len(frozen)} tensors); trainable "
+        f"G, D and the EMA moved; B1 {launches} launches in {1 + fused_steps} steps ({b1[0]} "
+        f"at step 0, {b1[FUSED_STEP]} per fused step)")
+    medians = {}
+    for step, kind in ((0, "step 0 (split, R1 + path reg)"), (FUSED_STEP, "fused step")):
         model.train_step(batch, step)                       # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         times = []
-        for _ in range(5):
+        for _ in range(reps):
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
             model.train_step(batch, step)
@@ -1568,11 +1604,14 @@ def phase_training():
             b.synchronize()
             times.append(a.elapsed_time(b))
         peak = torch.cuda.max_memory_allocated()
-        log(f"[train] {what}: median {float(np.median(times)):.2f} ms/step, all "
+        medians[step] = float(np.median(times))
+        log(f"[train] {what} {kind}: median {medians[step]:.2f} ms/step, all "
             f"{[round(t, 2) for t in times]} (CUDA events, b = 2, 1024px, float32, TF32 off); "
             f"peak memory {peak / 2 ** 30:.2f} GiB ({base / 2 ** 30:.2f} GiB held before it)")
-    log(f"[train] phase took {time.time() - t_phase:.1f} s")
-    return launches
+    del model
+    torch.cuda.empty_cache()
+    log(f"[train] {what} phase took {time.time() - t_phase:.1f} s")
+    return launches, medians
 
 
 def copy_train_state(src, dst):
@@ -1601,30 +1640,58 @@ def recorded_grads(model):
     return grads
 
 
-def phase_train_small_reference():
-    """The train step on the card against the same step on the CPU (the
-    port's CPU path, which the tests hold against JAX), at 256px (all four
-    SAMM scales) with narrow widths: step 0 and a fused step at ModSize
-    256, each with the CPU model's state copied to the card first and the
-    same noise, path cotangent and z. Every logged loss and every gradient
-    within TRAIN_LOSS_RTOL / TRAIN_GRAD_RTOL; B1 launched as the derived
-    counts say."""
-    from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
-    t0 = time.time()
-    opt = e4e_train_opt(out_size=256, channel_multiplier=1, narrow=0.125,
-                        encoder_num_layers=4, n_mlp=2)
+def small_train_opt(yml, **g):
+    """options/train/<yml> at 256px (all four SAMM scales) with narrow
+    widths and a 4-layer IR-SE trunk (FeatureStyle's iresnet50 keeps its
+    depth); `g` overrides network_g."""
+    opt = shipped_train_opt(yml)
+    opt["network_g"].update(out_size=256, channel_multiplier=1, narrow=0.125,
+                            encoder_num_layers=4, n_mlp=2, **g)
     opt["network_d"].update(out_size=256, channel_multiplier=1, narrow=0.125)
     opt["network_d2"].update(chn=14, n_mlp=2)
-    cpu = OODFaceGANModel(opt, device="cpu", seed=SEED + 3)
-    gpu = OODFaceGANModel(opt, device="cuda", seed=SEED + 3)
-    batch = train_batch(cpu, 256, SEED + 4)
-    grads = [recorded_grads(m) for m in (cpu, gpu)]
-    for step in (0, FUSED_STEP):
+    return opt
+
+
+# the small reference's steps: (what, options, step, B1 launches per step)
+RANGER_COSINE = {"optim_g": {"type": "Ranger", "lr": 2e-05},
+                 "optim_d": {"type": "Ranger", "lr": 2e-05},
+                 "scheduler": {"type": "CosineAnnealingRestartLR", "periods": [2, 4],
+                               "restart_weights": [1.0, 0.5], "eta_min": 1e-07},
+                 "warmup_iter": 3}
+
+
+def small_train_cases():
+    e4e, wtrain = small_train_opt("E4E_Face.yml"), small_train_opt("E4E_Face.yml",
+                                                                     stage="WTraining")
+    wtrain["train"].update(RANGER_COSINE)
+    return [("E4E", e4e, 0, train_b1(2)[0]), ("E4E", e4e, FUSED_STEP, train_b1(2)[FUSED_STEP]),
+            ("ReStyle (enc_cycle 2)", small_train_opt("ReStyle_Face.yml", enc_cycle=2), 0,
+             train_b1(2)[0]),
+            ("FeatureStyle", small_train_opt("FeatureStyle_Face.yml"), 0, train_b1(3)[0]),
+            ("E4E WTraining + Ranger + cosine restart", wtrain, FUSED_STEP,
+             train_b1(2)[FUSED_STEP])]
+
+
+def phase_train_small_reference():
+    """The train step on the card against the same step on the CPU (the
+    port's CPU path, which the tests hold against JAX), at 256px with
+    narrow widths (small_train_opt): E4E_Face.yml's step 0 and a fused step
+    at ModSize 256, ReStyle_Face.yml's and FeatureStyle_Face.yml's step 0,
+    and a fused step of E4E_Face.yml at stage WTraining (stage 4 by step
+    16001) with Ranger and the cosine restart; each with the CPU model's
+    state copied to the card first and the same noise, path cotangent and
+    z. Every logged loss and every gradient within TRAIN_LOSS_RTOL /
+    TRAIN_GRAD_RTOL; B1 launched as the derived counts say."""
+    from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
+    t0 = time.time()
+    for what, opt, step, b1 in small_train_cases():
+        cpu = OODFaceGANModel(opt, device="cpu", seed=SEED + 3)
+        gpu = OODFaceGANModel(opt, device="cuda", seed=SEED + 3)
+        batch = train_batch(cpu, 256, SEED + 4)
+        grads = [recorded_grads(m) for m in (cpu, gpu)]
         copy_train_state(cpu, gpu)
-        for d in grads:
-            d.clear()
         g = torch.Generator().manual_seed(SEED + 5)
-        noise = cpu.net_g.generator.make_noise(2, g, torch.device("cpu"))
+        noise = cpu.net_g.make_noise(2, g, torch.device("cpu"))
         cot = torch.randn(2, 256, 256, 3, generator=g) / 256.0
         z = torch.randn(2, 512, generator=g)
         ref = cpu.train_step(batch, step, noise=noise, path_cot=cot, z=z)
@@ -1633,12 +1700,13 @@ def phase_train_small_reference():
                              noise=[n.cuda() for n in noise], path_cot=cot.cuda(), z=z.cuda())
         torch.cuda.synchronize()
         counts = read_counts()
-        if counts != expected_counts(warp_blend=TRAIN_B1[step]):
-            raise AssertionError(f"small train step {step}: launched {counts}")
+        if counts != expected_counts(warp_blend=b1):
+            raise AssertionError(f"small {what} train step {step}: launched {counts}")
         loss_err = max(abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-6)
                        for k, v in ref.items())
         if set(got) != set(ref) or not loss_err <= TRAIN_LOSS_RTOL:
-            raise AssertionError(f"small train step {step}: losses card vs CPU rel err {loss_err}")
+            raise AssertionError(f"small {what} train step {step}: losses card vs CPU rel err "
+                                 f"{loss_err}")
         top = max(float(v.abs().max()) for v in grads[0].values())
         worst, worst_k = 0.0, None
         for k, r in grads[0].items():
@@ -1647,12 +1715,16 @@ def phase_train_small_reference():
             if err > worst:
                 worst, worst_k = err, k
         if set(grads[0]) != set(grads[1]) or not worst <= TRAIN_GRAD_RTOL:
-            raise AssertionError(f"small train step {step}: gradient {worst_k} card vs CPU "
-                                 f"{worst} of its scale")
-        log(f"[check] small train step {step} (256px, narrow, float32, TF32 off): card vs CPU "
-            f"losses within {loss_err:.2e} relative (<= {TRAIN_LOSS_RTOL}), {len(grads[0])} "
-            f"gradients within {worst:.2e} of their scale (<= {TRAIN_GRAD_RTOL}, largest at "
-            f"{worst_k}); B1 launched {counts['warp_blend']}")
+            raise AssertionError(f"small {what} train step {step}: gradient {worst_k} card vs "
+                                 f"CPU {worst} of its scale")
+        moved = max(float((p.detach().cpu() - q.detach()).abs().max()) for p, q in
+                    zip(gpu.train_g.values(), cpu.train_g.values()))
+        log(f"[check] small {what} train step {step} (256px, narrow, float32, TF32 off): card "
+            f"vs CPU losses within {loss_err:.2e} relative (<= {TRAIN_LOSS_RTOL}), "
+            f"{len(grads[0])} gradients within {worst:.2e} of their scale (<= "
+            f"{TRAIN_GRAD_RTOL}, largest at {worst_k}); trainable G after the step within "
+            f"{moved:.2e} abs; B1 launched {counts['warp_blend']}")
+        del cpu, gpu
     log(f"[check] small train steps took {time.time() - t0:.1f} s")
 
 
@@ -1875,6 +1947,57 @@ def phase_train_pipeline():
             f"resumed run started at iteration {start2 + 1}")
         log(f"[pipeline] phase took {time.time() - t_phase:.1f} s")
         return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_restyle_pipeline(bare_step_ms):
+    """`train.train_pipeline` on options/train/ReStyle_Face.yml at full
+    width (1024px, b = 2, enc_cycle 5, float32, seeded weights) over 2
+    train and 1 val synthetic PNGs, at ModSize 256: 2 iterations, the
+    final validation of 1 image and the final save; the only overrides
+    those of phase_train_pipeline. Checks the losses, B1's launches
+    against the curriculum and the checkpoint, and prints ms/iteration
+    beside the bare fused step's `bare_step_ms`. Returns B1's launches."""
+    import os
+    import shutil
+    import tempfile
+    from ood_gan_inversion_tpu_torch.train import train_pipeline
+    t_phase = time.time()
+    root = tempfile.mkdtemp(prefix="ogi_restyle_pipeline_")
+    try:
+        write_face_pngs(f"{root}/train", 2, SEED + 22)
+        write_face_pngs(f"{root}/val", 1, SEED + 23)
+        argv = ["--opt", "options/train/ReStyle_Face.yml", "--device", "cuda", "--force_yml",
+                f"datasets:train:dataroot_gt_list=[{root}/train]",
+                f"datasets:val:dataroot_gt={root}/val",
+                "path:pretrain_network_g=~", "path:pretrain_network_d=~",
+                f"path:experiments_root={root}/exp", "train:total_iter=2", "val:val_freq=1000",
+                "logger:print_freq=1", "logger:save_checkpoint_freq=1000",
+                "network_g:ModSize=256"]
+        with StepRecorder() as rec:
+            reset_counts()
+            t0 = time.time()
+            run = train_pipeline(".", args=argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = read_counts()
+        check_pipeline_run("ReStyle_Face.yml run", run, rec, 1, 1, counts, (2,))
+        for f in ("models/net_2.pth", "training_states/state_2.pth"):
+            if not os.path.isfile(f"{root}/exp/{f}"):
+                raise AssertionError(f"ReStyle pipeline: checkpoint {f} missing")
+        period, step, periods = rec.times_ms(0)
+        log(f"[pipeline] ReStyle_Face.yml (enc_cycle 5, ModSize 256): iterations 1..2, B1 "
+            f"launched {counts['warp_blend']} (training + a validation of 1 image), {wall:.1f} s "
+            f"in all; ms/iteration (CUDA events, start to next start, no warm-up) "
+            f"{[round(x, 2) for x in periods]}; train_step median {step:.2f} ms, all "
+            f"{[round(c[2].elapsed_time(c[3]), 2) for c in rec.calls]}; the bare fused step "
+            f"{bare_step_ms:.2f} ms (phase_training); checkpoint save "
+            f"{[round(x, 2) for x in run.save_seconds]} s; validation "
+            f"{[round(1e3 * x, 1) for x in run.val_seconds]} ms/image; metrics "
+            f"{run.val_results}")
+        log(f"[pipeline] ReStyle phase took {time.time() - t_phase:.1f} s")
+        return counts["warp_blend"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2149,9 +2272,13 @@ def main():
     phase_build()
     entries = [phase_kernels(), *phase_packed_kernels(), *phase_samm_kernels()]
     phase_gradients()
-    train_launches = phase_training()
+    train_launches, train_ms = 0, {}
+    for yml, cycle_align in TRAIN_FAMILIES:
+        n, train_ms[yml] = phase_training(yml, cycle_align)
+        train_launches += n
     phase_train_small_reference()
     pipeline_launches = phase_train_pipeline()
+    pipeline_launches += phase_restyle_pipeline(train_ms["ReStyle_Face.yml"][FUSED_STEP])
     test_launches = phase_test_pipeline()
     _, engine, imgs, replies = phase_main_path()
     launches, tails = phase_packed_tail(engine, imgs, replies)
@@ -2168,8 +2295,9 @@ def main():
     entries[0]["test_launches"] = test_launches
     entries[0]["train_launches"] = train_launches
     entries[0]["pipeline_launches"] = pipeline_launches
-    entries[0]["train_launches_per_step"] = {"step0": TRAIN_B1[0],
-                                             "fused": TRAIN_B1[FUSED_STEP]}
+    entries[0]["train_launches_per_step"] = {
+        yml.split("_")[0]: {"step0": train_b1(c)[0], "fused": train_b1(c)[FUSED_STEP]}
+        for yml, c in TRAIN_FAMILIES}
     phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s,
                       **bf16s}, imgs)
     for e in entries[1:]:

@@ -121,17 +121,24 @@ class OODFaceGANE4E(nn.Module):
         (Generator.make_noise), drawn in layer order."""
         return self.generator.make_noise(batch, generator, device)
 
+    def split_noise(self, noise):
+        """make_noise's list -> (the encoder's share, the final decode's):
+        this encoder decodes nothing, so its share is None."""
+        return None, noise
+
     def random_latents(self, z):
         """z (B, style_dim) -> W through the style MLP, repeated to W+."""
         w = self.generator.style_mlp(z)
         return w[:, None, :].repeat(1, self.style_cnt, 1)
 
     def encode(self, x, truncation: float = 1.0, stage: int = PROGRESSIVE_INFERENCE,
-               freeze_encoder: bool = True):
+               freeze_encoder: bool = True, noise=None):
         """x (B, 3, S, S) in [-1, 1] -> (W+ latents, adapted SAMM features).
-        freeze_encoder: the encoder's latents and features carry no
-        gradient (the reference runs the encoder under no_grad); the W+
-        offsets and the adapters after it still do."""
+        stage: the progressive encoder stage (the first stage + 1 style
+        heads are active). freeze_encoder: the encoder's latents and
+        features carry no gradient (the reference runs the encoder under
+        no_grad); the W+ offsets and the adapters after it still do.
+        noise: split_noise's encoder share (None here)."""
         lats, feats = self.encoder(resize_bilinear(x.to(self.dtype), (256, 256)), stage)
         if freeze_encoder:
             lats, feats = lats.detach(), [f.detach() for f in feats]
@@ -172,5 +179,6 @@ class OODFaceGANE4E(nn.Module):
         x = x.permute(0, 3, 1, 2)
         if noise is None:
             noise = self.make_noise(x.shape[0], generator, x.device)
-        lats, feats_c = self.encode(x, truncation, stage, freeze_encoder)
-        return nhwc_outputs(self.decode_samm(lats, feats_c, x, mod_size, noise))
+        enc_noise, dec_noise = self.split_noise(noise)
+        lats, feats_c = self.encode(x, truncation, stage, freeze_encoder, enc_noise)
+        return nhwc_outputs(self.decode_samm(lats, feats_c, x, mod_size, dec_noise))

@@ -37,9 +37,11 @@ class OODFaceGANFeatureStyle(OODFaceGANE4E):
         return (self.style_cnt, self.style_dim)
 
     def encode(self, x, truncation: float = 1.0, stage: int = PROGRESSIVE_INFERENCE,
-               freeze_encoder: bool = True):
+               freeze_encoder: bool = True, noise=None):
         """x (B, 3, S, S) in [-1, 1] -> (W+, (adapted features, content));
-        the content rides along to the decode."""
+        the content rides along to the decode. The encoder has no
+        progressive stages (JAX's ignores `stage` too) and decodes
+        nothing (`noise` is None)."""
         lats, content, feats = self.encoder(adaptive_avg_pool(x.to(self.dtype), (256, 256)))
         if freeze_encoder:
             lats, content = lats.detach(), content.detach()

@@ -27,7 +27,7 @@ import torch
 from ..nn.encoders.e4e import PROGRESSIVE_INFERENCE
 from ..nn.encoders.restyle import ProgressiveBackboneEncoder
 from ..ops.resize import adaptive_avg_pool
-from .ood_e4e import OODFaceGANE4E, nhwc_outputs
+from .ood_e4e import OODFaceGANE4E
 
 
 class OODFaceGANReStyle(OODFaceGANE4E):
@@ -52,6 +52,12 @@ class OODFaceGANReStyle(OODFaceGANE4E):
         order the module docstring gives, drawn in that order."""
         return [n for _ in range(self.enc_cycle + 1)
                 for n in self.generator.make_noise(batch, generator, device)]
+
+    def split_noise(self, noise):
+        """make_noise's list -> (the enc_cycle decodes' lists of `encode`,
+        the final decode's list)."""
+        n = self.generator.num_layers
+        return noise[:-n], noise[-n:]
 
     def encode(self, x, truncation: float = 1.0, stage: int = PROGRESSIVE_INFERENCE,
                freeze_encoder: bool = True, noise=None):
@@ -78,15 +84,3 @@ class OODFaceGANReStyle(OODFaceGANE4E):
                 delta, feats = self.encoder(torch.cat([x256, new_x], dim=1), stage)
                 lats = lats + delta
         return self.offset_and_adapt(lats, feats, truncation)
-
-    def forward(self, x, mod_size: int = 256, truncation: float = 1.0,
-                noise=None, generator=None, stage: int = PROGRESSIVE_INFERENCE,
-                freeze_encoder: bool = True):
-        """As `OODFaceGANE4E.forward`; noise is `make_noise`'s list, drawn
-        from `generator` when None."""
-        x = x.permute(0, 3, 1, 2)
-        if noise is None:
-            noise = self.make_noise(x.shape[0], generator, x.device)
-        n = self.generator.num_layers
-        lats, feats_c = self.encode(x, truncation, stage, freeze_encoder, noise[:-n])
-        return nhwc_outputs(self.decode_samm(lats, feats_c, x, mod_size, noise[-n:]))

@@ -44,14 +44,31 @@ def port_key(jax_key: str, list_members: bool = True) -> str:
     return k.replace("/", ".")
 
 
+def jax_layout(key: str, ndim: int):
+    """The permutation that takes a leaf's JAX axes to the port's (port
+    axis i is JAX axis perm[i]), or None where the layouts agree. `key` is
+    the JAX path or the port name: the rule reads only its end."""
+    if key.replace(".", "/") == "generator/input":
+        return (0, 3, 1, 2)
+    if key.endswith("weight") and ndim == 4:
+        return (3, 2, 0, 1)
+    if key.endswith("weight") and ndim == 2:
+        return (1, 0)
+    return None
+
+
+def jax_first_axis(key: str, ndim: int) -> int:
+    """The port axis that holds the leaf's first JAX axis (a conv kernel's
+    H, a linear weight's input)."""
+    perm = jax_layout(key, ndim)
+    return 0 if perm is None else perm.index(0)
+
+
 def port_value(jax_key: str, value) -> torch.Tensor:
     a = np.asarray(value, dtype=np.float32)
-    if jax_key == "generator/input":
-        a = a.transpose(0, 3, 1, 2)
-    elif jax_key.endswith("weight") and a.ndim == 4:
-        a = a.transpose(3, 2, 0, 1)
-    elif jax_key.endswith("weight") and a.ndim == 2:
-        a = a.T
+    perm = jax_layout(jax_key, a.ndim)
+    if perm is not None:
+        a = a.transpose(perm)
     return torch.from_numpy(np.ascontiguousarray(a))
 
 

@@ -25,10 +25,19 @@ optimizer its own moments and update count.
     the kept graph).
   * The adversarial G terms score detached outputs unless
     `g_gan_live_grad` (the reference's gradient-dead G-GAN terms).
-  * Noise: every G forward draws its noise from the model's
-    `torch.Generator` unless the caller passes `noise=`; the path
-    regularizer's cotangent (`path_cot=`) and the latent D's z (`z=`) the
-    same way. A test passes JAX's draws to hold the two step for step.
+  * Noise: a train step draws one noise list from the model's
+    `torch.Generator` unless the caller passes `noise=` (the arch's
+    `make_noise` list: ReStyle's holds its encoder's enc_cycle decodes
+    too, and the phases hand `encode` that share), and every phase of the
+    step reads it, as the fused step's one forward does (JAX folds a key
+    per phase); the path regularizer's cotangent (`path_cot=`) and the
+    latent D's z (`z=`) are drawn when None too. A test passes JAX's
+    draws to hold the two step for step.
+  * Every shipped family trains (E4E, ReStyle, FeatureStyle), at any
+    progressive `stage` (`WTraining` is 0), with Adam, SGD or Ranger and
+    MultiStepLR or CosineAnnealingRestartLR, each with JAX's warm-up. A
+    bfloat16 arch does not train: JAX's own bfloat16 train step fails, so
+    its float32 SAMM island has no reference to hold a port to.
 
 On the card the SAMM warp-blend of every G forward runs the CUDA kernel
 (B1); its gradient comes from its plain twin (`ops/cuda_call.py`), twice
@@ -50,7 +59,9 @@ from ..losses.id_loss import IDLoss
 from ..losses.mask_loss import MaskLoss
 from ..losses.perceptual import PerceptualLoss
 from ..nn.layers import init_weights
-from .optim import clip_by_global_norm, linear_warmup, make_optimizer, multistep_lr
+from ..convert import jax_first_axis
+from .optim import (clip_by_global_norm, cosine_annealing_restart_lr, linear_warmup,
+                    make_optimizer, multistep_lr)
 
 logger = logging.getLogger("ood_gan_inversion_tpu_torch")
 
@@ -143,9 +154,12 @@ class OODFaceGANModel:
             self.net_d = build_network(opt["network_d"]) if "network_d" in opt else None
             self.net_d2 = build_network(opt["network_d2"]) if "network_d2" in opt else None
         if self.net_g.dtype != torch.float32:
+            # JAX's own bfloat16 train step raises in the gradient of
+            # AlignNet's conv (ROADMAP C): there is no reference to hold a
+            # port of its float32 SAMM island to
             raise NotImplementedError(
-                "training runs float32 only: the train path's float32 SAMM island "
-                "of a bfloat16 arch is not ported (ROADMAP A7)")
+                "training runs float32 only: JAX's bfloat16 train step fails (TypeError in "
+                "the gradient of AlignNet's conv), so its SAMM island has no reference")
 
         # --- curriculum ---------------------------------------------------
         self.style_cnt = int(math.log2(narch.get("out_size", 1024))) * 2 - 2
@@ -237,14 +251,28 @@ class OODFaceGANModel:
         od = train_opt.get("optim_d", {"lr": 2e-5})
         od2 = train_opt.get("optim_d2", {"lr": 2e-6})
         sched = train_opt.get("scheduler", {}) or {}
-        if sched.get("type", "MultiStepLR") not in ("MultiStepLR", "MultiStepRestartLR"):
-            raise NotImplementedError(f"scheduler {sched['type']} is not ported yet "
-                                      "(ROADMAP A7)")
+        sched_type = sched.get("type", "MultiStepLR")
+        if sched_type not in ("MultiStepLR", "MultiStepRestartLR", "CosineAnnealingRestartLR"):
+            raise NotImplementedError(f"scheduler {sched_type}")
         warmup = train_opt.get("warmup_iter", -1)
 
         def lr_schedule(base_lr):
-            return linear_warmup(multistep_lr(base_lr, sched.get("milestones", None),
-                                              sched.get("gamma", 1.0)), warmup)
+            if sched_type == "CosineAnnealingRestartLR":
+                base = cosine_annealing_restart_lr(
+                    base_lr, sched.get("periods", [250000]), sched.get("restart_weights"),
+                    sched.get("eta_min", 0.0))
+            else:
+                base = multistep_lr(base_lr, sched.get("milestones", None),
+                                    sched.get("gamma", 1.0))
+            return linear_warmup(base, warmup)
+
+        def optimizer(which, named, lr, betas):
+            """JAX passes an optimizer its type, lr and betas only (Ranger
+            then takes its defaults); Ranger also gets each parameter's
+            layout axis for its gradient centralization."""
+            return make_optimizer(which.get("type", "Adam"), [p for _, p in named], lr,
+                                  betas=betas,
+                                  gc_axis=[jax_first_axis(n, p.ndim) for n, p in named])
 
         reg_ratio = self.net_g_reg_every / (self.net_g_reg_every + 1)
         betas = (0.0 ** reg_ratio, 0.99 ** reg_ratio)
@@ -252,9 +280,8 @@ class OODFaceGANModel:
         lr_of = {"encoder": lr_g, "generator": lr_g * og.get("generator_lr_decay", 0.1),
                  "overfit": lr_g * og.get("overfit_lr_decay", 1.0)}
         names = {g: [k for k in self.train_g if _group(k) == g] for g in lr_of}
-        self.opt_g = {g: (ks, make_optimizer(og.get("type", "Adam"),
-                                             [self.train_g[k] for k in ks],
-                                             lr_schedule(lr_of[g]), betas=betas))
+        self.opt_g = {g: (ks, optimizer(og, [(k, self.train_g[k]) for k in ks],
+                                        lr_schedule(lr_of[g]), betas))
                       for g, ks in names.items() if ks}
         d_reg_ratio = self.net_d_reg_every / (self.net_d_reg_every + 1)
         d_betas = (0.0 ** d_reg_ratio, 0.99 ** d_reg_ratio)
@@ -265,11 +292,11 @@ class OODFaceGANModel:
                            od2.get("lr"), od.get("lr", 2e-5))
         self.opt_d = self.opt_d2 = None
         if self.net_d is not None:
-            self.opt_d = make_optimizer(od.get("type", "Adam"), self.net_d.parameters(),
-                                        lr_schedule(od.get("lr", 2e-5)), betas=d_betas)
+            self.opt_d = optimizer(od, list(self.net_d.named_parameters()),
+                                   lr_schedule(od.get("lr", 2e-5)), d_betas)
         if self.net_d2 is not None:
-            self.opt_d2 = make_optimizer(od2.get("type", "Adam"), self.net_d2.parameters(),
-                                         lr_schedule(od.get("lr", 2e-5)), betas=d_betas)
+            self.opt_d2 = optimizer(od2, list(self.net_d2.named_parameters()),
+                                    lr_schedule(od.get("lr", 2e-5)), d_betas)
 
     def _grads(self, loss, params):
         """Gradients of `loss` w.r.t. params, zero where it does not reach
@@ -303,15 +330,10 @@ class OODFaceGANModel:
             progressive_mod_size=self.progressive_mod_size,
             progressive_stage_steps=self.progressive_stage_steps)
 
-    def _noise(self, noise, batch):
-        if noise is not None:
-            return noise
-        return self.net_g.make_noise(batch, self.rng, self.device)
-
     def _forward(self, x, mod_size, stage, noise):
         """The arch on NHWC x; NHWC outputs."""
         return self.net_g(x, mod_size=mod_size, stage=stage,
-                          noise=self._noise(noise, x.shape[0]))
+                          noise=noise)
 
     def _d_losses(self, gt, fake, do_r1):
         real_pred, _ = self.net_d(gt)
@@ -404,9 +426,10 @@ class OODFaceGANModel:
         self._update(self.opt_d, self.net_d, l_d)
         return aux
 
-    def _d2_phase(self, x, stage, do_r1, z):
+    def _d2_phase(self, x, stage, do_r1, z, noise):
+        enc_noise, _ = self.net_g.split_noise(noise)
         with torch.no_grad():
-            enc_lats, _ = self.net_g.encode(x.permute(0, 3, 1, 2), stage=stage)
+            enc_lats, _ = self.net_g.encode(x.permute(0, 3, 1, 2), stage=stage, noise=enc_noise)
         loss, aux = self._d2_losses(self._real_latents(x.shape[0], z), enc_lats, do_r1)
         self._update(self.opt_d2, self.net_d2, loss)
         return aux
@@ -439,11 +462,13 @@ class OODFaceGANModel:
             # path-length regularization: the decode's vjp w.r.t. the W+
             # latents, kept in the graph so that its penalty differentiates
             xc = x.permute(0, 3, 1, 2)
-            lats, feats_c = self.net_g.encode(xc, stage=stage)
+            enc_noise, dec_noise = self.net_g.split_noise(noise)
+            lats, feats_c = self.net_g.encode(xc, stage=stage, noise=enc_noise)
             if not lats.requires_grad:
                 lats = lats.detach().requires_grad_()
-            out = nhwc_outputs(self.net_g.decode_samm(
-                lats, feats_c, xc, mod_size, self._noise(noise, x.shape[0])))
+            # feats_c is what encode hands its decode (FeatureStyle: the
+            # adapted features and the content)
+            out = nhwc_outputs(self.net_g.decode_samm(lats, feats_c, xc, mod_size, dec_noise))
             fake = out["image"]
             if path_cot is None:
                 path_cot = torch.randn(fake.shape, generator=self.rng,
@@ -467,15 +492,12 @@ class OODFaceGANModel:
         cadence read it). batch: {which_gt: (B, K, H, W, 3) NHWC in [-1, 1],
         'lq_size': (B, K) scores for the MIMO identity loss}, tensors or
         arrays. noise: the per-layer (B*K, 1, h, w) noise list of every G
-        forward of the step; path_cot: (B*K, H, W, 3); z: (B*K, style_dim).
-        Each is drawn from the model's generator when None. Returns the
-        logged losses, 0-d tensors on the device (no host sync). Only the
-        E4E arch trains here; the ReStyle and FeatureStyle archs infer and
-        validate, and raise."""
-        if self.net_g.ENCODER != "E4E":
-            raise NotImplementedError(
-                f"train_step of the {self.net_g.ENCODER} arch is not ported yet (ROADMAP A9); "
-                "it infers and validates")
+        forward of the step (the arch's `make_noise` list: ReStyle's holds
+        its encoder's decodes too, and its latent-D phase encodes with
+        them), one list for all of the step's phases; path_cot: (B*K, H,
+        W, 3); z: (B*K, style_dim). Each is drawn from the model's
+        generator when None. Returns the logged losses,
+        0-d tensors on the device (no host sync)."""
         batch = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                     device=self.device)
                  for k, v in batch.items() if k in (self.which_gt, "lq_size")}
@@ -497,6 +519,8 @@ class OODFaceGANModel:
                            "path_batch_shrink to enable")
             self._warned_path_reg = True
         x = gt5.reshape((-1,) + tuple(gt5.shape[2:]))
+        if noise is None:                           # one draw for every phase
+            noise = self.net_g.make_noise(batch_n, self.rng, self.device)
 
         if self.fused_step and not do_path_reg and (do_d or do_d2):
             logs = self._fused_phase(batch, x, mod_size, stage, do_d, do_d2, do_r1_d,
@@ -506,7 +530,7 @@ class OODFaceGANModel:
             if do_d:
                 logs.update(self._d_phase(x, mod_size, stage, do_r1_d, noise))
             if do_d2:
-                logs.update(self._d2_phase(x, stage, do_r1_d2, z))
+                logs.update(self._d2_phase(x, stage, do_r1_d2, z, noise))
             logs.update(self._g_phase(batch, x, mod_size, stage, do_d, do_d2,
                                       do_path_reg, noise, path_cot))
         return {k: v.detach() for k, v in logs.items()}

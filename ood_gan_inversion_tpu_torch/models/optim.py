@@ -9,15 +9,26 @@ as optax computes them so that the port's updates are JAX's:
     order and skips parameters without a gradient; optax counts those as
     a zero gradient, and so does this one.
   * SGD is optax `trace(momentum)` (if any) then `scale_by_schedule(-lr)`.
+  * Ranger is JAX's `ranger` as its trainer builds it: gradient
+    centralization, optax `scale_by_radam` (rectification threshold 5),
+    `scale_by_schedule(-lr)`, all inside `lookahead_flat` (slow weights
+    pulled half of the way to the fast ones every 6 updates, the fast
+    weights set to them). Its scalars (the bias corrections, RAdam's rho
+    and r) are computed in float32 as optax computes them: at b2 = 0.999
+    rho is a difference of two numbers near 2000, so its float32 rounding
+    decides the first rectified steps.
   * A schedule reads each optimizer's own count of updates, starting at 0,
     like optax's `scale_by_schedule`, not the train step.
   * `clip_by_global_norm` scales by max_norm / norm only when the global
     norm reaches max_norm (optax's rule; torch's clip_grad_norm_ adds 1e-6
     to the norm).
 
-Ranger and the cosine-restart schedule are not ported (no shipped config
-uses them).
+The schedules: MultiStepLR and CosineAnnealingRestartLR (BasicSR's, as
+JAX's `cosine_annealing_restart_lr` computes it in float32), each with an
+optional linear warm-up.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -34,6 +45,34 @@ def multistep_lr(base_lr: float, milestones, gamma: float):
         return lambda count: base_lr * gamma ** (count // period)
     ms = sorted(int(m) for m in milestones)
     return lambda count: base_lr * gamma ** sum(count >= m for m in ms)
+
+
+def cosine_annealing_restart_lr(base_lr: float, periods, restart_weights=None,
+                                eta_min: float = 0.0):
+    """BasicSR's CosineAnnealingRestartLR as a schedule of the update
+    count: within period i (from the sum of the periods before it) the lr
+    falls from eta_min + w_i (base_lr - eta_min) to eta_min along half a
+    cosine; past the last period it stays at eta_min. Float32 arithmetic
+    in JAX's order (near a period's end 1 + cos(pi t) is a difference of
+    numbers near 1, so the float32 rounding is part of the schedule)."""
+    restart_weights = list(restart_weights or [1.0] * len(periods))
+    if len(restart_weights) != len(periods):
+        raise ValueError("periods and restart_weights must have the same length")
+    f32 = np.float32
+    cum = np.cumsum([0] + list(periods))
+    span = f32(base_lr - eta_min)           # a Python float, rounded to float32 once
+    pi = f32(math.pi)
+
+    def schedule(count):
+        step = f32(count)
+        idx = min(int(np.searchsorted(cum[1:].astype(f32), step, side="right")),
+                  len(periods) - 1)
+        t = min(max((step - f32(cum[idx])) / f32(periods[idx]), f32(0.0)), f32(1.0))
+        cos = f32(math.cos(float(pi * t)))
+        return float(f32(eta_min) + f32(restart_weights[idx]) * f32(0.5) * span
+                     * (f32(1.0) + cos))
+
+    return schedule
 
 
 def linear_warmup(schedule, warmup_iter: int):
@@ -146,12 +185,107 @@ class SGD:
         torch._foreach_add_(self.params, torch._foreach_mul(grads, -lr))
 
 
+class Ranger:
+    """Ranger over a list of parameters, updated in place by `step(grads)`.
+    JAX's trainer gives it only an lr (make_optimizer's ranger_betas and
+    eps are its defaults there); the knobs it never sets keep `ranger`'s
+    defaults, fixed here: lookahead every K = 6 updates with
+    ALPHA 0.5, gradient centralization on, no weight decay. gc_axis: per
+    parameter, the axis that gradient centralization keeps (the others are
+    averaged out, as JAX's are over all axes but its layout's first;
+    `convert.jax_first_axis` gives it), 0 by default. The slow weights are
+    the parameters as the first step finds them (the reference's Ranger
+    keeps them from its first step too)."""
+
+    K, ALPHA = 6, 0.5
+
+    def __init__(self, params, lr, betas=(0.95, 0.999), eps=1e-5, gc_axis=None):
+        self.params = list(params)
+        self.lr = lr if callable(lr) else (lambda count, v=lr: v)
+        self.b1, self.b2 = betas
+        self.eps = eps
+        self.gc_axis = list(gc_axis) if gc_axis is not None else [0] * len(self.params)
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.slow = None
+
+    def state_dict(self):
+        return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu),
+                "slow": None if self.slow is None else list(self.slow)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        _load_moments("Ranger", self.mu, state["mu"])
+        _load_moments("Ranger", self.nu, state["nu"])
+        if state["slow"] is None:
+            self.slow = None
+        else:
+            self.slow = [torch.empty_like(p) for p in self.params]
+            _load_moments("Ranger", self.slow, state["slow"])
+        self.count = int(state["count"])
+
+    def _centralized(self, grads):
+        out = []
+        for g, a in zip(grads, self.gc_axis):
+            if g.ndim >= 2:
+                g = g - g.mean(dim=tuple(d for d in range(g.ndim) if d != a), keepdim=True)
+            out.append(g)
+        return out
+
+    def _radam_scalars(self, count):
+        """(1 - b1^t, 1 - b2^t, rho_t, r_t) in float32, optax's order."""
+        f32 = np.float32
+        b1t, b2t = f32(self.b1) ** f32(count), f32(self.b2) ** f32(count)
+        ro_inf = 2.0 / (1.0 - self.b2) - 1.0
+        ro = f32(ro_inf) - f32(2 * count) * b2t / (f32(1.0) - b2t)
+        with np.errstate(invalid="ignore"):
+            r = np.sqrt((ro - f32(4.0)) * (ro - f32(2.0)) * f32(ro_inf)
+                        / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
+        return f32(1.0) - b1t, f32(1.0) - b2t, ro, r
+
+    @torch.no_grad()
+    def step(self, grads):
+        grads = self._centralized([torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(self.params, grads)])
+        if self.slow is None:
+            self.slow = [p.detach().clone() for p in self.params]
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1.0 - b1))
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads),
+                                                        1.0 - b2))
+        lr = self.lr(self.count)
+        self.count += 1
+        bc1, bc2, ro, r = self._radam_scalars(self.count)
+        upd = torch._foreach_div(self.mu, float(bc1))
+        if ro >= 5.0:                       # rectified: r mu_hat / (sqrt(nu_hat) + eps)
+            denom = torch._foreach_add(torch._foreach_sqrt(
+                torch._foreach_div(self.nu, float(bc2))), self.eps)
+            upd = torch._foreach_div(torch._foreach_mul(upd, float(r)), denom)
+        torch._foreach_mul_(upd, -lr)
+        if self.count % self.K:
+            torch._foreach_add_(self.params, upd)
+            return
+        # a lookahead sync: slow += alpha (fast - slow); the parameters move
+        # by (slow - p), JAX's emitted update
+        fast = torch._foreach_add(self.params, upd)
+        torch._foreach_add_(self.slow, torch._foreach_mul(torch._foreach_sub(fast, self.slow),
+                                                          self.ALPHA))
+        torch._foreach_add_(self.params, torch._foreach_sub(self.slow, self.params))
+
+
 def make_optimizer(optim_type: str, params, lr, betas=(0.9, 0.999), **kwargs):
-    """The optimizer of a YAML `optim_*` type: Adam or SGD."""
+    """The optimizer of a YAML `optim_*` type: Adam, SGD or Ranger (which
+    reads `ranger_betas`, default (0.95, 0.999), not `betas`, and `eps`
+    1e-5 by default, as JAX's make_optimizer does; `gc_axis` as Ranger
+    takes it)."""
     if optim_type == "Adam":
         return Adam(params, lr, betas, kwargs.get("eps", 1e-8))
     if optim_type == "SGD":
         return SGD(params, lr, kwargs.get("momentum", 0.0))
     if optim_type == "Ranger":
-        raise NotImplementedError("optimizer Ranger is not ported yet (ROADMAP A7)")
+        return Ranger(params, lr, betas=tuple(kwargs.get("ranger_betas", (0.95, 0.999))),
+                      eps=kwargs.get("eps", 1e-5), gc_axis=kwargs.get("gc_axis"))
     raise NotImplementedError(f"optimizer {optim_type}")

@@ -1,8 +1,10 @@
 """E4E (encoder4editing): IR-SE trunk + FPN + per-layer W deltas
 (counterpart of nn/encoders/e4e.py), NCHW. Returns W+ (B, style_count, 512)
 and the five trunk taps [256px/64, 128px/64, 64px/128, 32px/256, 16px/512].
-Only the Inference progressive stage (every delta active) is ported; the
-style heads run one after another, the JAX default."""
+At progressive stage s the first s + 1 style heads run and the others'
+deltas are zero (stage 0, `WTraining`: one W for every layer); at
+Inference every head runs. The heads run one after another, the JAX
+default."""
 
 import math
 
@@ -58,21 +60,19 @@ class Encoder4Editing(nn.Module):
 
     def forward(self, x, stage: int = PROGRESSIVE_INFERENCE):
         """stage: the progressive stage; the first stage + 1 style heads
-        are active. Only stages that activate every head are ported."""
-        if min(stage + 1, self.style_count) < self.style_count:
-            raise NotImplementedError(
-                f"progressive encoder stage {stage} (< {self.style_count - 1}) "
-                "is not ported (ROADMAP A7); use stage: Inference")
+        are active, the others give zero deltas (and their FPN maps are not
+        built)."""
         _, feats = self.trunk(x, taps=trunk_taps(self.num_layers))
         c1, c2, c3 = feats[2], feats[3], feats[4]
         w0 = self.style[0](c3)
         deltas = [torch.zeros_like(w0)]
         features, p2 = c3, None
-        for i in range(1, self.style_count):
+        for i in range(1, min(stage + 1, self.style_count)):
             if i == self.coarse_ind:
                 p2 = _upsample_add(c3, self.latlayer1(c2))
                 features = p2
             elif i == self.middle_ind:
                 features = _upsample_add(p2, self.latlayer2(c1))
             deltas.append(self.style[i](features))
+        deltas += [torch.zeros_like(w0)] * (self.style_count - len(deltas))
         return w0[:, None, :] + torch.stack(deltas, dim=1), feats

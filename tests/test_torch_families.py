@@ -16,12 +16,15 @@ gen_image, mask, lats and aligns within 1e-3 of max|ref| (the slice's
 bound, tests/test_torch_arch.py); a batched ReStyle reply bit for bit the
 lone request's."""
 
+import pathlib
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from torch_parity import (fill_params, init_shapes, jax_tree, load_port, max_rel_err, nchw,
                           nhwc, with_style_mlp)
@@ -36,11 +39,15 @@ from ood_gan_inversion_tpu_torch.archs.ood_featurestyle import OODFaceGANFeature
 from ood_gan_inversion_tpu_torch.archs.ood_restyle import OODFaceGANReStyle
 from ood_gan_inversion_tpu_torch.convert import from_jax_params
 from ood_gan_inversion_tpu_torch.infer import InversionEngine
+from ood_gan_inversion_tpu_torch.losses import id_loss
 from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
 from ood_gan_inversion_tpu_torch.nn.encoders.feature_style import FSEncoderV2
 from ood_gan_inversion_tpu_torch.nn.encoders.restyle import ProgressiveBackboneEncoder
+from ood_gan_inversion_tpu_torch.nn.irse import ArcFaceBackbone
 from ood_gan_inversion_tpu_torch.nn.stylegan2 import NoiseInjection
+from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 ENCODER_RTOL = 1e-4
 SLICE_RTOL = 1e-3
 RESTYLE = dict(out_size=64, channel_multiplier=1, narrow=0.125, enc_cycle=2, cycle_align=1,
@@ -80,22 +87,27 @@ def encoder_subtree(flat):
 
 
 def test_progressive_backbone_encoder_matches_jax(restyle_flat):
-    """The ReStyle arch's encoder (6 channels, 10 styles) alone, at 64px."""
+    """The ReStyle arch's encoder (6 channels, 10 styles) alone, at 64px:
+    at Inference, at stage 3 (four heads active, the others' deltas zero)
+    and at stage 0 (WTraining: one W for every layer)."""
     rs = np.random.RandomState(0)
     x = rs.uniform(-1, 1, (2, 64, 64, 6)).astype(np.float32)
     jenc = JPBE(num_layers=50, n_styles=10, input_nc=6)
     flat = encoder_subtree(restyle_flat)
     enc = load_port(ProgressiveBackboneEncoder(50, "ir_se", 10, input_nc=6), flat, "encoder/")
-    ref_w, ref_feats = jax.jit(jenc.apply)({"params": jax_tree(flat)}, jnp.asarray(x))
-    with torch.no_grad():
-        w, feats = enc(nchw(x))
-    assert w.shape == ref_w.shape == (2, 10, 512)
-    assert max_rel_err(w.numpy(), ref_w) < ENCODER_RTOL
-    assert len(feats) == len(ref_feats) == 5
-    for f, r in zip(feats, ref_feats):
-        assert max_rel_err(nhwc(f), r) < ENCODER_RTOL
-    with pytest.raises(NotImplementedError, match="A7"):
-        enc(nchw(x), stage=3)
+    jfwd = jax.jit(lambda p, xx, stage: jenc.apply({"params": p}, xx, stage=stage),
+                   static_argnums=2)
+    for stage in (18, 3, 0):
+        ref_w, ref_feats = jfwd(jax_tree(flat), jnp.asarray(x), stage)
+        with torch.no_grad():
+            w, feats = enc(nchw(x), stage)
+        assert w.shape == ref_w.shape == (2, 10, 512)
+        assert max_rel_err(w.numpy(), ref_w) < ENCODER_RTOL, stage
+        assert len(feats) == len(ref_feats) == 5
+        for f, r in zip(feats, ref_feats):
+            assert max_rel_err(nhwc(f), r) < ENCODER_RTOL, stage
+        active = min(stage + 1, 10)
+        assert torch.equal(w[:, active:], w[:, :1].expand(-1, 10 - active, -1)), stage
 
 
 def test_feature_style_encoder_matches_jax(featurestyle_flat):
@@ -218,18 +230,39 @@ def test_restyle_batched_reply_is_bit_for_bit_the_lone_request():
     assert not torch.equal(other["lats"], alone["lats"])
 
 
-def test_featurestyle_engine_and_model_run_and_train_step_refuses():
+def test_featurestyle_engine_and_model_run_and_train_step_refuses(monkeypatch):
+    """Once a refusal, now the behaviour that replaced it: a FeatureStyle
+    engine inverts, and each family's train_step (ReStyle_Face.yml and
+    FeatureStyle_Face.yml's losses on a small arch) takes a fused step on
+    the CPU with finite losses and trainable parameters moved, the
+    warp-blend through its plain version (no kernel launch)."""
     eng = InversionEngine(small_opt("ood_faceGAN_FeatureStyle", cycle_align=3), seed=0,
                           device="cpu")
     out = eng.invert(np.random.RandomState(0).rand(64, 64, 3).astype(np.float32), seed=1)
     assert out["image"].shape == (1, 64, 64, 3) and bool(torch.isfinite(out["image"]).all())
-    model = OODFaceGANModel({**small_opt("ood_faceGAN_restyle"), "model_type":
-                             "ood_faceGAN_Model", "train": {}}, device="cpu")
-    assert len(model.make_noise(1, torch.Generator().manual_seed(0))) == \
-        3 * model.net_g.generator.num_layers
-    batch = {"gt": np.zeros((1, 1, 64, 64, 3), np.float32), "lq_size": np.ones((1, 1))}
-    with pytest.raises(NotImplementedError, match="ReStyle.*ROADMAP A9"):
-        model.train_step(batch, 1)
+    rs = np.random.RandomState(1)
+    batch = {"gt": rs.uniform(-1, 1, (2, 1, 64, 64, 3)).astype(np.float32),
+             "lq_size": rs.rand(2, 1).astype(np.float32)}
+    # the identity loss's ArcFace with a 4-layer trunk, as the train tests cut it
+    monkeypatch.setattr(id_loss, "ArcFaceBackbone", lambda num_layers: ArcFaceBackbone(4))
+    warp_blend.launches = 0
+    for arch, yml, g in (("ood_faceGAN_restyle", "ReStyle_Face.yml", {"enc_cycle": 2}),
+                         ("ood_faceGAN_FeatureStyle", "FeatureStyle_Face.yml",
+                          {"cycle_align": 3})):
+        opt = yaml.safe_load((ROOT / "options/train" / yml).read_text())
+        opt["network_g"] = small_opt(arch, **g)["network_g"]
+        opt["network_d"].update(out_size=64, channel_multiplier=1, narrow=0.125)
+        opt["network_d2"].update(chn=10, n_mlp=2)
+        model = OODFaceGANModel(opt, device="cpu")
+        if arch == "ood_faceGAN_restyle":
+            assert len(model.make_noise(1, torch.Generator().manual_seed(0))) == \
+                3 * model.net_g.generator.num_layers
+        before = {k: p.detach().clone() for k, p in model.train_g.items()}
+        logs = model.train_step(batch, 1)
+        assert {"l_d", "l_g", "l_pix", "l_bin"} <= set(logs)
+        assert all(bool(torch.isfinite(v)) for v in logs.values()), (arch, logs)
+        assert any(not torch.equal(p, before[k]) for k, p in model.train_g.items()), arch
+    assert warp_blend.launches == 0
 
 
 @pytest.mark.parametrize("g", [

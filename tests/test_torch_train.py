@@ -33,6 +33,7 @@ JAX runs its phases jitted, as train_step does."""
 import copy
 import math
 import pathlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,7 @@ from ood_gan_inversion_tpu.models import ood_model as j_ood
 from ood_gan_inversion_tpu.models.optim import make_optimizer as j_make_optimizer
 from ood_gan_inversion_tpu.nn.irse import ArcFaceBackbone as JArcFace
 from ood_gan_inversion_tpu_torch.convert import flatten_tree, load_jax_train_state, port_key, port_value
+from ood_gan_inversion_tpu_torch.losses import id_loss
 from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
 from ood_gan_inversion_tpu_torch.models import ood_model as p_ood
 from ood_gan_inversion_tpu_torch.models.optim import (clip_by_global_norm, linear_warmup,
@@ -145,9 +147,10 @@ class Case:
         jm._path_cot = lambda rng, shape, dtype: jnp.asarray(self.cot)
 
     def port(self):
-        """A fresh port model holding the JAX state."""
-        model = OODFaceGANModel(copy.deepcopy(self.opt), device="cpu")
-        model.cri_id.facenet = ArcFaceBackbone(num_layers=4).requires_grad_(False)
+        """A fresh port model holding the JAX state (its identity loss
+        built with the 4-layer trunk JAX's has)."""
+        with mock.patch.object(id_loss, "ArcFaceBackbone", lambda num_layers: ArcFaceBackbone(4)):
+            model = OODFaceGANModel(copy.deepcopy(self.opt), device="cpu")
         load_jax_train_state(model, self.state)
         return model
 
@@ -374,25 +377,32 @@ def test_model_option_errors():
     bad["train"]["pixx_opt"] = {"type": "MSELoss"}
     with pytest.raises(ValueError, match="pixx_opt"):
         OODFaceGANModel(bad, device="cpu")
+    # stage: WTraining runs (stage 0: the encoder's one W for every layer)
     wtrain = micro_e4e_opt()
     wtrain["network_g"]["stage"] = "WTraining"
     model = OODFaceGANModel(wtrain, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        model.infer(np.zeros((1, SIZE, SIZE, 3), np.float32), step=0)
+    assert model.schedule_at(0)[0] == 0
+    lats = model.infer(np.zeros((1, SIZE, SIZE, 3), np.float32), step=0)["lats"]
+    assert torch.equal(lats - model.net_g.avg_latent, (lats - model.net_g.avg_latent)[:, :1]
+                       .expand_as(lats))
+    # a bfloat16 arch does not train: JAX's own bfloat16 train step raises
+    # in the gradient of AlignNet's conv, so its SAMM island has no reference
     bf16 = micro_e4e_opt()
     bf16["network_g"]["dtype"] = "bfloat16"
     with pytest.raises(NotImplementedError, match="float32"):
         OODFaceGANModel(bf16, device="cpu")
 
 
-def test_chip_smoke_trains_the_shipped_config():
-    """chip_smoke.py (which runs where PyYAML may be absent) carries
-    options/train/E4E_Face.yml's sections as a dict: the same dict."""
+@pytest.mark.parametrize("yml", ["E4E_Face.yml", "ReStyle_Face.yml", "FeatureStyle_Face.yml"])
+def test_chip_smoke_trains_the_shipped_config(yml):
+    """chip_smoke.py (which runs where PyYAML may be absent) carries each
+    options/train/*.yml's model and train sections as a dict: the same
+    dict."""
     import chip_smoke
-    opt = yaml.safe_load((ROOT / "options/train/E4E_Face.yml").read_text())
-    assert chip_smoke.e4e_train_opt() == {k: opt[k] for k in
-                                          ("is_mimo", "network_g", "network_d", "network_d2",
-                                           "train")}
+    opt = yaml.safe_load((ROOT / "options/train" / yml).read_text())
+    assert chip_smoke.shipped_train_opt(yml) == {k: opt[k] for k in
+                                                 ("is_mimo", "network_g", "network_d",
+                                                  "network_d2", "train")}
 
 
 @pytest.mark.parametrize("step", [0, 2, 3, 6, 7, 100])
