@@ -65,7 +65,16 @@
    forward and of each metric, and holds InceptionV3FID's features of the
    outputs and inputs on the card against the CPU, with their FID. Later,
    beside the small E4E slice, holds the ReStyle and FeatureStyle
-   forwards on the card against the CPU at a small width.
+   forwards on the card against the CPU at a small width. Then the options
+   and modules no shipped config uses (phase_inventory): the engine at
+   1024px with the SAMM bottleneck (`mod_btn: style_bottleneck_IR`), with
+   it and `modulation_type: ADD` in float32 and bfloat16, and bfloat16
+   with the float32 SAMM island, each timed, with B1's 8 launches per
+   forward, and held against the CPU at 256px; E4E_Face.yml's train step
+   with the bottleneck (step 0 and a fused step, B1 4 and 8); and one
+   call each of GPENGenerator and GCFSRGenerator at 1024px, pSp's and the
+   single-W encoder, ResNetArcFace, deform_conv2d and LPIPS_Loss against
+   the same call on the CPU, each timed.
    Then the port on several devices, on this one card: E4E_Face.yml's
    train step at full width (b = 2, step 0 and a fused step) in one
    process, under torchrun on NCCL at world size 1 (bit for bit the one
@@ -78,14 +87,15 @@
    through torchrun.
 4. Prints the card's name and power limit, which of cv2, PIL and yaml are
    installed, one JSON line describing the kernels (B1's `launches` are
-   the test runs', with the train steps' and the training pipeline's
-   under their own keys), and as the last line
+   the test runs', with the train steps', the training pipeline's and
+   phase_inventory's under their own keys), and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs CUDA and refuses to run on the CPU.
 """
 
+import copy
 import json
 import math
 import subprocess
@@ -1542,7 +1552,7 @@ def check_train_logs(what, logs, keys):
         raise AssertionError(f"{what}: non-finite {bad}")
 
 
-def phase_training(yml, cycle_align, fused_steps=2, reps=3):
+def phase_training(yml, cycle_align, fused_steps=2, reps=3, **g):
     """options/train/<yml>'s train step at full width (1024px, the family's
     encoder -- IR-SE-50 E4E, ReStyle's IR-SE-50 over enc_cycle 5 decodes,
     FeatureStyle's iresnet50 --, the 1024px discriminator, VGG19 and
@@ -1554,12 +1564,14 @@ def phase_training(yml, cycle_align, fused_steps=2, reps=3):
     parameters stay bit for bit while the trainable G, D and EMA ones move,
     and B1's launches per step. Then times step 0 and the fused step (CUDA
     events, median of `reps` after a warm-up) with their peak memory.
-    Returns (B1's launches, {step: median ms})."""
+    `g` overrides network_g. Returns (B1's launches, {step: median ms})."""
     from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
     t_phase = t0 = time.time()
-    what = yml.split("_")[0]
+    what = yml.split("_")[0] + "".join(f" {k}={v}" for k, v in g.items())
     b1 = train_b1(cycle_align)
-    model = OODFaceGANModel(shipped_train_opt(yml), device="cuda", seed=SEED)
+    opt = shipped_train_opt(yml)
+    opt["network_g"].update(g)
+    model = OODFaceGANModel(opt, device="cuda", seed=SEED)
     batch = train_batch(model, 1024, SEED + 2)
     n_frozen = sum(p.numel() for p in model.net_g.parameters()) - sum(
         p.numel() for p in model.train_g.values())
@@ -2258,6 +2270,187 @@ def phase_family_small_reference():
             f"CPU max rel err {errs} (<= 1e-3); B1 launched {b1}")
 
 
+# --- the rest of the model inventory: SAMM options, generator families, nets --------------
+BTN = "style_bottleneck_IR"
+# the four inversion configurations of phase_inventory: (what, network_g
+# overrides, engine options)
+INVENTORY_ENGINES = (
+    ("(a) mod_btn, float32", {"mod_btn": BTN}, {}),
+    ("(b) mod_btn + ADD, float32", {"mod_btn": BTN, "modulation_type": "ADD"}, {}),
+    ("(c) mod_btn + ADD, bfloat16", {"mod_btn": BTN, "modulation_type": "ADD",
+                                     "dtype": "bfloat16"}, {}),
+    ("(d) bfloat16, float32 SAMM island", {"dtype": "bfloat16"}, {"samm_fp32_infer": True}))
+# in bfloat16 the card's forward is held against the CPU's on what JAX's
+# island test holds, image and mask (bf16_compare), gen_image reported: with
+# ADD and the bottleneck at 256px it read 2.2% of the range (PERF.md)
+# the card's call against the CPU's on the same weights and inputs, float32
+# without TF32: a deep net (generators, encoders, the ArcFace trunk)
+# within the slice's 1e-3 of max|ref|, as phase_small_reference holds the
+# 512px slice; deform_conv2d and LPIPS_Loss within 1e-4
+INVENTORY_NET_RTOL, INVENTORY_OP_RTOL = 1e-3, 1e-4
+
+
+def forward_ms(engine, x, seed, reps=5):
+    """Median ms of one forward of the preprocessed batch x (CUDA events,
+    after a warm-up), and the reply."""
+    out = engine._dispatch_perkey(x, [seed])
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = engine._dispatch_perkey(x, [seed])
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times)), out
+
+
+def inventory_engine_checks():
+    """(a)-(d) at 1024px (E4E_Face_test.yml's network_g, IR-SE-50, noise
+    0.1, b = 1): ms/img, B1's launches in one forward (8: 4 SAMM blocks x
+    cycle_align 2, counted from 0 just before it) and finite outputs; then
+    each configuration at 256px (narrow 0.25, a 4-unit trunk) on the card
+    against the CPU on the same weights and noise. Returns B1's launches."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    img = np.random.RandomState(SEED + 5).rand(1024, 1024, 3).astype(np.float32)
+    launches = 0
+    for what, g, kw in INVENTORY_ENGINES:
+        engine = noisy(InversionEngine(e4e_opt(**g), seed=SEED, device="cuda", **kw))
+        x = engine.input_batch([img])
+        ms, _ = forward_ms(engine, x, 7)
+        reset_counts()
+        out = engine._dispatch_perkey(x, [7])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expected_counts(warp_blend=8):
+            raise AssertionError(f"inventory {what}: launched {counts}, expected B1 8")
+        launches += counts["warp_blend"]
+        for k in ("image", "gen_image", "mask", "lats"):
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"inventory {what}: non-finite {k}")
+        if tuple(out["image"].shape) != (1, 1024, 1024, 3):
+            raise AssertionError(f"inventory {what}: image shape {tuple(out['image'].shape)}")
+        del engine
+        torch.cuda.empty_cache()
+        small = e4e_opt(out_size=256, channel_multiplier=1, narrow=0.25, encoder_num_layers=4,
+                        **g)
+        params = noisy(InversionEngine(small, seed=SEED + 6, device="cuda", **kw)).net.state_dict()
+        gpu = InversionEngine(small, params=params, device="cuda", **kw)
+        cpu = InversionEngine(small, params=params, device="cpu", **kw)
+        noise = cpu.net.make_noise(1, torch.Generator().manual_seed(8), torch.device("cpu"))
+        xs = torch.from_numpy(img[None, ::4, ::4] * 2.0 - 1.0)
+        with torch.inference_mode():
+            ref = cpu.net(xs, mod_size=256, noise=noise)
+            reset_counts()
+            got = gpu.net(xs.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
+            torch.cuda.synchronize()
+        if read_counts() != expected_counts(warp_blend=8):
+            raise AssertionError(f"inventory {what} at 256px: launched {read_counts()}")
+        if gpu.dtype == torch.bfloat16:
+            text = bf16_compare(f"inventory {what} 256px, card vs CPU", got,
+                                {k: ref[k].cuda() for k in ("image", "gen_image", "mask",
+                                                            "lats")},
+                                held=("image", "mask"))[1]
+        else:
+            errs = {k: rel_err(got[k].cpu(), ref[k]) for k in ("image", "gen_image", "mask")}
+            bad = {k: v for k, v in errs.items() if not v <= INVENTORY_NET_RTOL}
+            if bad:
+                raise AssertionError(f"inventory {what} 256px: card vs CPU rel err {bad}")
+            text = (", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f" (max rel err, <= {INVENTORY_NET_RTOL})")
+        log(f"[inventory] {what}: {ms:.2f} ms/img (1024px, b = 1, CUDA events, median of 5); "
+            f"B1 {counts['warp_blend']} launches per forward; image {out['image'].dtype}; "
+            f"card vs CPU at 256px ({len(noise)} noise tensors): {text}")
+    return launches
+
+
+def hold_on_card(what, fn_cpu, fn_gpu, rtol):
+    """fn_gpu() against fn_cpu() (each returning a tensor): rel err within
+    rtol, or it raises; and fn_gpu's ms (time_ms, median of 5)."""
+    ref = fn_cpu()
+    got = fn_gpu()
+    err = rel_err(got.cpu(), ref)
+    if not err <= rtol:
+        raise AssertionError(f"inventory {what}: card vs CPU rel err {err} > {rtol}")
+    ms = time_ms(fn_gpu, iters=5, warmup=1)
+    log(f"[inventory] {what}: {ms:.3f} ms on the card (CUDA events, median of 5); card vs CPU "
+        f"max rel err {err:.2e} (<= {rtol}); shape {tuple(got.shape)}")
+
+
+def inventory_module_checks():
+    """One call each of the generator families at 1024px (channel_multiplier
+    2, seeded weights, noise 0.1, b = 1), pSp's and the single-W encoder
+    (IR-SE-50, 256px input, 18 styles), ResNetArcFace (128px gray),
+    deform_conv2d at an IR-SE 128-channel 64px shape and LPIPS_Loss at
+    256px, on the card against the CPU."""
+    from ood_gan_inversion_tpu_torch.losses import LPIPS_Loss
+    from ood_gan_inversion_tpu_torch.nn.arcface_resnet import ResNetArcFace
+    from ood_gan_inversion_tpu_torch.nn.encoders.e4e import (
+        BackboneEncoderUsingLastLayerIntoW, GradualStyleEncoder)
+    from ood_gan_inversion_tpu_torch.nn.gcfsr import GCFSRGenerator
+    from ood_gan_inversion_tpu_torch.nn.layers import init_weights
+    from ood_gan_inversion_tpu_torch.nn.stylegan2_gpen import GPENGenerator, NoiseConcat
+    from ood_gan_inversion_tpu_torch.ops.deform_conv import deform_conv2d
+    g = torch.Generator().manual_seed(SEED + 7)
+
+    def pair(make):
+        cpu = init_weights(make(), SEED + 8).eval().requires_grad_(False)
+        return cpu, copy.deepcopy(cpu).cuda()
+
+    for name, make in (("GPENGenerator", lambda: GPENGenerator(1024)),
+                       ("GCFSRGenerator", lambda: GCFSRGenerator(1024))):
+        cpu, gpu = pair(make)
+        for net in (cpu, gpu):
+            for m in net.modules():
+                if isinstance(m, NoiseConcat) or hasattr(m, "noise_weight"):
+                    (m.weight if isinstance(m, NoiseConcat) else m.noise_weight).data.fill_(0.1)
+        lats = torch.randn(1, cpu.n_latent, 512, generator=g)
+        noise = cpu.make_noise(1, g)
+        gn, gl = [n.cuda() for n in noise], lats.cuda()
+        with torch.no_grad():
+            hold_on_card(f"{name} (1024px)", lambda: cpu(lats, noise), lambda: gpu(gl, gn),
+                         INVENTORY_NET_RTOL)
+        del cpu, gpu
+    x = torch.rand(1, 3, 256, 256, generator=g) * 2 - 1
+    for name, make in (("GradualStyleEncoder", lambda: GradualStyleEncoder(50, "ir_se", 1024)),
+                       ("BackboneEncoderUsingLastLayerIntoW",
+                        lambda: BackboneEncoderUsingLastLayerIntoW(50, "ir_se", 1024)),
+                       ("ResNetArcFace", lambda: ResNetArcFace())):
+        cpu, gpu = pair(make)
+        xi = x[:, :1, ::2, ::2].contiguous() if name == "ResNetArcFace" else x
+        xg = xi.cuda()
+        with torch.no_grad():
+            hold_on_card(f"{name} ({tuple(xi.shape)} input)", lambda: cpu(xi),
+                         lambda: gpu(xg), INVENTORY_NET_RTOL)
+    ops = [torch.randn(2, 128, 64, 64, generator=g), torch.randn(2, 18, 64, 64, generator=g) * 0.7,
+           torch.randn(128, 128, 3, 3, generator=g) / 34.0, torch.rand(2, 9, 64, 64, generator=g),
+           torch.randn(128, generator=g)]
+    gops = [o.cuda() for o in ops]
+    hold_on_card("deform_conv2d (2, 128, 64, 64), 3x3, mask + bias",
+                 lambda: deform_conv2d(*ops), lambda: deform_conv2d(*gops), INVENTORY_OP_RTOL)
+    cpu, gpu = pair(LPIPS_Loss)
+    a, b = (torch.rand(2, 256, 256, 3, generator=g) * 2 - 1 for _ in range(2))
+    ga, gb = a.cuda(), b.cuda()
+    with torch.no_grad():
+        hold_on_card("LPIPS_Loss (2, 256, 256, 3)", lambda: cpu(a, b)[0][None],
+                     lambda: gpu(ga, gb)[0][None], INVENTORY_OP_RTOL)
+
+
+def phase_inventory():
+    """The options and modules no shipped config uses, on the card: the
+    inversion engine with the SAMM bottleneck, ADD and the float32 SAMM
+    island (inventory_engine_checks), E4E_Face.yml's train step with the
+    bottleneck (phase_training: step 0 and a fused step, B1 4 and 8), and
+    the other nets (inventory_module_checks). Returns B1's launches of its
+    inversion forwards and train steps."""
+    t0 = time.time()
+    launches = inventory_engine_checks()
+    n, _ = phase_training("E4E_Face.yml", 2, fused_steps=1, reps=2, mod_btn=BTN)
+    inventory_module_checks()
+    log(f"[inventory] phase took {time.time() - t0:.1f} s")
+    return launches + n
+
+
 # --- several devices: data-parallel training, sharded and banded inversion -----------------
 # the 2-rank gloo step on one card against the one-process step on the same
 # global batch and draws: the card-against-CPU train bounds (losses within
@@ -2788,6 +2981,7 @@ def main():
         e["launches"] = launches[e["name"]]
     phase_small_reference()
     phase_family_small_reference()
+    entries[0]["inventory_launches"] = phase_inventory()
     entries.append(phase_probe())
     log(installed)
     log(smi)
@@ -2799,7 +2993,7 @@ def main():
         e.setdefault("cc_bound_ms", e["bound_ms"])
     extra = ("bf16_ms", "test_launches", "train_launches", "pipeline_launches",
              "train_launches_per_step", "dp_launches", "pipeline_dp_launches",
-             "sharded_launches", "spatial_launches")
+             "sharded_launches", "spatial_launches", "inventory_launches")
     log(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(x for x in extra if x in e)}
                                 for e in entries]}))
     log(json.dumps({"ok": True, "device": {

@@ -40,6 +40,5 @@ def build_network(opt: dict):
             raise ValueError(f"unknown dtype {opt['dtype']!r}")
         opt["dtype"] = dt
     if net_type not in _ARCHS:
-        raise NotImplementedError(f"arch {net_type!r} is not ported (ported: {sorted(_ARCHS)}; "
-                                  "the other families are ROADMAP A9)")
+        raise KeyError(f"{net_type!r} not found in the arch registry; known: {sorted(_ARCHS)}")
     return _ARCHS[net_type](**opt)

@@ -1,17 +1,31 @@
 """SAMM-conditioned decode loop and mask compositing (counterpart of
-archs/common.py), NCHW, shared by the three encoder families. Only the
-NOISE modulation path is ported: at a conditioned layer the aligned
-encoder feature replaces the generator's conv output before the noise
-injection (aligned + w * noise). FeatureStyle's content injection mixes a
-feature into the generator's activation at the layers `features_in`
-names. Stages that are neither conditioned nor injected run phase-packed
-where the generator packs them (`Generator.stage_is_packable`), or banded
-over a mesh's slots inside parallel/spatial.py's `banding`."""
+archs/common.py), NCHW, shared by the three encoder families.
+
+At a conditioned layer the SAMM block aligns the generator feature to the
+encoder's, by the arch's `modulation_type`:
+  * NOISE (the shipped configs): the aligned feature replaces the
+    generator's conv output before the noise injection (aligned + w *
+    noise, then the activation). With the arch's `samm_fp32_infer` a
+    bfloat16 arch runs the block in float32 (the feature, the style and
+    the conv output cast up, the aligned feature cast back; JAX's
+    OGI_SAMM_FP32_INFER=1 at every SAMM scale);
+  * ADD: the block aligns the full styled conv's output out_a, and the
+    layer's output is feature_modulation(out_a, (None, aligned - out_a +
+    n), "ADD") with n ~ N(0, 1) of out_a's shape: the draws that
+    `cond_noise_shapes` lists, after the generator's per-layer list in the
+    forward's noise;
+  * SFT and FUSE build but raise here, as JAX's decode does.
+FeatureStyle's content injection mixes a feature into the generator's
+activation at the layers `features_in` names. Stages that are neither
+conditioned nor injected run phase-packed where the generator packs them
+(`Generator.stage_is_packable`), or banded over a mesh's slots inside
+parallel/spatial.py's `banding`."""
 
 import math
 
 import torch
 
+from ..nn.stylegan2 import feature_modulation
 from ..ops.resize import resize_bilinear
 from ..parallel import spatial
 
@@ -26,10 +40,23 @@ def cond_layers_for(mod_size: int, n_feats: int = 4):
     return [(2 * (k + 2)) + 1 for k in range(cond_len)]
 
 
+def cond_noise_shapes(arch, batch):
+    """The shapes of the ADD injection's draws: one (B, C, s, s) per SAMM
+    block, in layer order (32px first), C the generator's width at s px;
+    none for another modulation type. Drawn for every block whatever the
+    forward's mod_size, so a forward's noise does not depend on it."""
+    if not arch.enable_modulation or arch.modulation_type != "ADD":
+        return []
+    gen = arch.generator
+    return [(batch, gen.convs[2 * (k + 2)].conv.weight.shape[0], 2 ** (k + 5), 2 ** (k + 5))
+            for k in range(len(arch.modulation))]
+
+
 def conditioned_decode(arch, lats, feats_c, mod_size: int, noise, features_in=None,
                        feature_scale: float = 1.0):
     """feats_c: the 4 adapted encoder features [256, 128, 64, 32]px;
-    noise: the generator's per-layer noise list (Generator.make_noise).
+    noise: the generator's per-layer noise list (Generator.make_noise),
+    then, for ADD, the draws of cond_noise_shapes.
     features_in: optional {layer index: (B, C, H, W) feature}; the
     activation entering layer i becomes (1 - feature_scale) * out +
     feature_scale * feature (i odd: before the pair's first conv; even:
@@ -38,6 +65,12 @@ def conditioned_decode(arch, lats, feats_c, mod_size: int, noise, features_in=No
     gen = arch.generator
     cond_layers = cond_layers_for(mod_size)
     features_in = features_in or {}
+    mod_type = arch.modulation_type
+    if cond_layers and mod_type not in ("NOISE", "ADD"):
+        raise NotImplementedError(
+            f"modulation_type={mod_type} SAMM injection is non-functional in the "
+            "reference (None condition slots); use NOISE or ADD")
+    cond_noise = noise[gen.num_layers:]
 
     def inject(out, layer):
         f = features_in.get(layer)
@@ -66,10 +99,21 @@ def conditioned_decode(arch, lats, feats_c, mod_size: int, noise, features_in=No
             out = inject(out, i)
             if i in cond_layers:
                 ind = cond_layers.index(i) + 1
-                out_c = conv_a.conv(out, lats[:, i])
-                aligned, align = arch.modulation[str(4 - ind)](
-                    feats_c[4 - ind], out_c, aligned_coarse=prev_align)
-                out = conv_a.activate(conv_a.noise(aligned, noise[1 + 2 * idx]))
+                mod, feat, style = arch.modulation[str(4 - ind)], feats_c[4 - ind], lats[:, i]
+                if mod_type == "ADD":
+                    out_a = conv_a(out, style, noise[1 + 2 * idx])
+                    aligned, align = mod(feat, out_a, prev_align, style)
+                    cond = aligned - out_a + cond_noise[ind - 1].to(out_a.dtype)
+                    out = feature_modulation(out_a, (None, cond), mod_type="ADD")
+                else:
+                    out_c = conv_a.conv(out, style)
+                    if arch.samm_fp32_infer and out_c.dtype == torch.bfloat16:
+                        aligned, align = mod(feat.float(), out_c.float(), prev_align,
+                                             style.float())
+                        aligned = aligned.to(out_c.dtype)
+                    else:
+                        aligned, align = mod(feat, out_c, prev_align, style)
+                    out = conv_a.activate(conv_a.noise(aligned, noise[1 + 2 * idx]))
                 aligns[ind] = prev_align = align
             else:
                 out = conv_a(out, lats[:, i], noise[1 + 2 * idx])

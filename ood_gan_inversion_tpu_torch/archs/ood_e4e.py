@@ -3,18 +3,23 @@ archs/ood_e4e.py): encode -> W+ latent math -> SAMM-conditioned StyleGAN2
 decode -> mask composite -> OOD blend.
 
 `forward` takes and returns NHWC like the JAX arch; the work inside is
-NCHW. Ported configuration: NOISE modulation without the SAMM feature
-bottleneck -- the options of the shipped configs; other values raise. The
-ReStyle and FeatureStyle families (archs/ood_restyle.py,
+NCHW. The ReStyle and FeatureStyle families (archs/ood_restyle.py,
 archs/ood_featurestyle.py) are this class with another encoder.
+
+SAMM options, as JAX takes them: `modulation_type` NOISE (the shipped
+configs) or ADD (archs/common.py says how each injects); SFT and FUSE
+build, with the blocks' out_ch doubled for SFT, and raise at decode, as
+JAX's do. `mod_btn: style_bottleneck_IR` puts the feature bottleneck
+(nn/samm.py:StyleBottleneckIR) in front of each block's SPMWarp.
 
 dtype: the activation dtype, float32 or bfloat16 (JAX's serving config,
 `bench.py`). The parameters stay float32 and each module casts them to its
 input's dtype at use, as the JAX modules do; the input is cast to the
 arch dtype at the top of `encode` and `decode_samm`. In bfloat16 the SAMM
 blocks follow the arch dtype, JAX's inference default
-(`OGI_SAMM_FP32_INFER=0`); what stays float32 inside them is said in
-nn/samm.py.
+(`OGI_SAMM_FP32_INFER=0`), unless `samm_fp32_infer` makes them a float32
+island (JAX's `OGI_SAMM_FP32_INFER=1`); what stays float32 inside them
+either way is said in nn/samm.py.
 """
 
 import math
@@ -27,7 +32,7 @@ from ..nn.layers import Conv2dTorch
 from ..nn.samm import StyledScaleNShiftBlock, check_samm_options
 from ..nn.stylegan2 import STYLEGAN2_CHANNELS, Generator
 from ..ops.resize import resize_bilinear
-from .common import blend_and_pack, cond_layers_for, conditioned_decode
+from .common import blend_and_pack, cond_layers_for, cond_noise_shapes, conditioned_decode
 
 
 def _nhwc(x):
@@ -47,9 +52,10 @@ class OODFaceGANE4E(nn.Module):
     """Constructor keys mirror the `network_g` schema of the YAML configs;
     packed_tail and tail_kernel choose how the generator computes its
     >=512px stages (nn/stylegan2.py), samm_body0 and samm_conv_kernel how
-    the SAMM blocks compute AlignNet's body0 (nn/samm.py); none of them adds
-    a parameter. A family subclass sets `ENCODER` and builds its encoder in
-    `build_encoder`."""
+    the SAMM blocks compute AlignNet's body0 (nn/samm.py), samm_fp32_infer
+    whether a bfloat16 arch runs them in float32 (archs/common.py); none of
+    them adds a parameter. A family subclass sets `ENCODER` and builds its
+    encoder in `build_encoder`; the `encoder` key must name that family."""
     ENCODER = "E4E"
 
     def __init__(self, out_size=1024, style_dim=512, n_mlp=8, channel_multiplier=2,
@@ -59,18 +65,17 @@ class OODFaceGANE4E(nn.Module):
                  blend_with_gen=True, blend_cnt=1, optim_delta_latent=False,
                  dtype=torch.float32,
                  packed_tail=False, tail_kernel="none", samm_body0="algebraic",
-                 samm_conv_kernel=False):
+                 samm_conv_kernel=False, samm_fp32_infer=False):
         super().__init__()
         check_samm_options(samm_body0, samm_conv_kernel)
-        if encoder != self.ENCODER or modulation_type != "NOISE" or mod_btn is not None:
-            raise NotImplementedError(
-                f"ported: encoder={self.ENCODER!r} for {type(self).__name__} (E4E, ReStyle "
-                "and FeatureStyle each have their arch), modulation_type='NOISE', "
-                f"mod_btn=None; got encoder={encoder!r}, modulation_type={modulation_type!r}, "
-                f"mod_btn={mod_btn!r} (ROADMAP A9)")
+        if encoder != self.ENCODER:
+            raise ValueError(
+                f"{type(self).__name__} builds the {self.ENCODER} encoder; got "
+                f"encoder={encoder!r} (each of E4E, ReStyle and FeatureStyle has its arch)")
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"ported dtypes: float32, bfloat16; got {dtype}")
         self.dtype = dtype
+        self.modulation_type, self.samm_fp32_infer = modulation_type, samm_fp32_infer
         self.out_size, self.enable_modulation = out_size, enable_modulation
         self.style_dim, self.optim_delta_latent = style_dim, optim_delta_latent
         self.blend_with_gen, self.blend_cnt = blend_with_gen, blend_cnt
@@ -85,10 +90,13 @@ class OODFaceGANE4E(nn.Module):
             # SAMM blocks, coarse->fine index 0..3 = [256, 128, 64, 32] px,
             # each where the generator has that resolution (the blocks whose
             # parameters JAX's tree holds)
+            chn_mul = 2 if modulation_type == "SFT" else 1
             self.modulation = nn.ModuleDict({
-                str(i): StyledScaleNShiftBlock(channels[s], warp_scale=warp_scale,
-                                               cycle_align=cycle_align,
+                str(i): StyledScaleNShiftBlock(channels[s], channels[s] * chn_mul,
+                                               warp_scale=warp_scale,
+                                               cycle_align=cycle_align, btn=mod_btn,
                                                diff_f_and_g=diff_fAndg,
+                                               style_dim=style_dim,
                                                samm_body0=samm_body0,
                                                samm_conv_kernel=samm_conv_kernel)
                 for i, s in enumerate(sizes) if s <= out_size})
@@ -117,9 +125,14 @@ class OODFaceGANE4E(nn.Module):
             self.delta_latent.zero_()
 
     def make_noise(self, batch, generator=None, device=None):
-        """The noise of one forward: the generator's per-layer list
-        (Generator.make_noise), drawn in layer order."""
-        return self.generator.make_noise(batch, generator, device)
+        """The noise of one forward, the SAMM-conditioned decode's, drawn in
+        this order from `generator`: the generator's per-layer list
+        (Generator.make_noise), then, for ADD, one N(0, 1) draw of each
+        shape of common.py:cond_noise_shapes."""
+        noise = self.generator.make_noise(batch, generator, device)
+        device = noise[0].device
+        return noise + [torch.randn(s, generator=generator, device=device)
+                        for s in cond_noise_shapes(self, batch)]
 
     def split_noise(self, noise):
         """make_noise's list -> (the encoder's share, the final decode's):
@@ -169,10 +182,10 @@ class OODFaceGANE4E(nn.Module):
     def forward(self, x, mod_size: int = 256, truncation: float = 1.0,
                 noise=None, generator=None, stage: int = PROGRESSIVE_INFERENCE,
                 freeze_encoder: bool = True):
-        """x: (B, S, S, 3) NHWC in [-1, 1]. noise: per-layer list of
-        (B, 1, H, W) tensors (Generator.noise_shapes), cast to the
-        activations' dtype where they are added; drawn from `generator`
-        when None (`make_noise`). Returns dict(image, lats, aligns, mask, gen_image) in the
+        """x: (B, S, S, 3) NHWC in [-1, 1]. noise: make_noise's list (the
+        per-layer (B, 1, H, W) tensors of Generator.noise_shapes, then
+        ADD's draws), cast to the activations' dtype where they are added;
+        drawn from `generator` when None. Returns dict(image, lats, aligns, mask, gen_image) in the
         arch dtype with NHWC images; aligns maps the SAMM index (1 = 32px
         .. 4 = 256px) to (B, h, w, 3) [dx, dy, alpha] and out_size to the
         composited 3-channel mask."""

@@ -14,10 +14,12 @@ the generator's per-layer noise. `make_noise` and the `noise` argument of
 `forward` are the concatenation of those lists in decode order: the
 average image's, the enc_cycle - 1 refinements', then the final
 conditioned decode's (each `Generator.num_layers` entries, in layer
-order). Every decode runs at the input's batch, the average image's too:
-a batch of per-seed draws gives each sample its own average image, as a
-lone request has, at the cost of b decodes where JAX runs one at batch 1
-and tiles it (PERF.md gives the cost).
+order; the final decode's followed by ADD's draws where the arch has
+them, as the E4E arch's noise is). Every decode runs at the input's
+batch, the average image's too: a batch of per-seed draws gives each
+sample its own average image, as a lone request has, at the cost of b
+decodes where JAX runs one at batch 1 and tiles it (PERF.md gives the
+cost).
 """
 
 import contextlib
@@ -49,15 +51,17 @@ class OODFaceGANReStyle(OODFaceGANE4E):
 
     def make_noise(self, batch, generator=None, device=None):
         """The noise of the enc_cycle + 1 decodes of one forward, in the
-        order the module docstring gives, drawn in that order."""
-        return [n for _ in range(self.enc_cycle + 1)
-                for n in self.generator.make_noise(batch, generator, device)]
+        order the module docstring gives, drawn in that order; the final
+        decode's is the E4E arch's (with ADD's draws)."""
+        return ([n for _ in range(self.enc_cycle)
+                 for n in self.generator.make_noise(batch, generator, device)]
+                + super().make_noise(batch, generator, device))
 
     def split_noise(self, noise):
         """make_noise's list -> (the enc_cycle decodes' lists of `encode`,
-        the final decode's list)."""
-        n = self.generator.num_layers
-        return noise[:-n], noise[-n:]
+        the final decode's noise)."""
+        n = self.enc_cycle * self.generator.num_layers
+        return noise[:n], noise[n:]
 
     def encode(self, x, truncation: float = 1.0, stage: int = PROGRESSIVE_INFERENCE,
                freeze_encoder: bool = True, noise=None):

@@ -5,9 +5,12 @@
 port's `state_dict` names: the inversion arch ("g"), the image
 discriminator ("d"), the latent discriminator ("d2"), the perceptual
 loss's VGG19 ("vgg"), the identity loss's ArcFace net ("id"), the
-LPIPS metric's AlexNet-LPIPS ("lpips") and FID's InceptionV3
-("inception"). The arch "g" is any of the three families: E4E, ReStyle
-and FeatureStyle.
+LPIPS metric's and LPIPS_Loss's AlexNet-LPIPS ("lpips"), FID's
+InceptionV3 ("inception"), pSp's GradualStyleEncoder ("psp"), the single-W
+encoder ("w_encoder"), ArcFaceLoss's ResNetArcFace ("arcface") and the
+GPEN and GCFSR generators ("gpen", "gcfsr"). The arch "g" is any of the
+three families: E4E, ReStyle and FeatureStyle, with or without the SAMM
+bottleneck ('modulation_i/btn1').
 `from_reference_irse50` reads the reference's own torch `model_ir_se50.pth`
 into the ArcFace net.
 `load_jax_train_state` loads all of a JAX `TrainState` into a port
@@ -19,7 +22,8 @@ into the ArcFace net.
     'norm1.weight', running statistics 'mean'/'var' -> 'running_mean' /
     'running_var'; InstanceNorm 'scale' -> 'weight';
   * layouts: conv kernels HWIO -> OIHW, linear weights (in, out) ->
-    (out, in), the generator's constant input NHWC -> NCHW;
+    (out, in) (flax Dense's 'kernel' becomes 'weight'), a generator's
+    constant input NHWC -> NCHW;
   * the Inception net keeps torchvision's names ('branch5x5_1'), so its
     keys take only the BatchNorm renames.
 """
@@ -38,7 +42,7 @@ def port_key(jax_key: str, list_members: bool = True) -> str:
     k = re.sub(r"/norm/(scale|bias|mean|var)$", r"/\1", jax_key)
     if list_members:
         k = _LIST_MEMBER.sub(r"/\1", k)
-    k = re.sub(r"/scale$", "/weight", k)
+    k = re.sub(r"/(scale|kernel)$", "/weight", k)
     k = re.sub(r"/mean$", "/running_mean", k)
     k = re.sub(r"/var$", "/running_var", k)
     return k.replace("/", ".")
@@ -48,11 +52,11 @@ def jax_layout(key: str, ndim: int):
     """The permutation that takes a leaf's JAX axes to the port's (port
     axis i is JAX axis perm[i]), or None where the layouts agree. `key` is
     the JAX path or the port name: the rule reads only its end."""
-    if key.replace(".", "/") == "generator/input":
+    if key.replace(".", "/") in ("generator/input", "input"):
         return (0, 3, 1, 2)
-    if key.endswith("weight") and ndim == 4:
+    if key.endswith(("weight", "kernel")) and ndim == 4:
         return (3, 2, 0, 1)
-    if key.endswith("weight") and ndim == 2:
+    if key.endswith(("weight", "kernel")) and ndim == 2:
         return (1, 0)
     return None
 
@@ -81,21 +85,27 @@ _PORTED = {
         r"|^encoder/(input_conv|input_bn|input_prelu|layer[1-4]|content_\w+)/"
         r"|^encoder/style_\d+_(weight|bias)$"
         r"|^feats_conv_\d+/"
-        r"|^modulation_\d+/alignment/body/"
+        r"|^modulation_\d+/(alignment/body|btn1)/"
         r"|^generator/(input$|conv1/|to_rgb1/|convs_\d+/|to_rgbs_\d+/|style_\d+/)"),
     "d": re.compile(r"^d/(conv0|res_\d+|final_conv|final_linear[01])/"),
     "d2": re.compile(r"^(first_linear|layer_\d+|final_linear)/"),
     "vgg": re.compile(r"^conv\d_\d/"),
     "id": re.compile(r"^(trunk|out_norm|out_norm1d)/|^linear_(weight|bias)$"),
+    "psp": re.compile(r"^(trunk|style_\d+|latlayer[12])/"),
+    "w_encoder": re.compile(r"^(trunk|linear)/"),
+    "arcface": re.compile(r"^(conv1|bn[145]|prelu|layer[1-4]_\d+|fc5)/"),
+    "gpen": re.compile(r"^(input$|conv1/|to_rgb1/|convs_\d+/|to_rgbs_\d+/|style_\d+/)"),
     "lpips": re.compile(r"^net/conv\d/|^lin\d$"),
     "inception": re.compile(r"^(Conv2d_\d[ab]_\dx\d|Mixed_\d[a-e])/"),
 }
+_PORTED["gcfsr"] = _PORTED["gpen"]
 
 
 def from_jax_params(flat: dict, net: str = "g"):
     """Returns (state_dict, leftovers): the port's tensors for every JAX
-    leaf of a ported subtree of `net` ("g", "d", "d2", "vgg", "id",
-    "lpips" or "inception"), and the JAX keys outside them. Load the
+    leaf of a ported subtree of `net` (a key of `_PORTED`: "g", "d", "d2",
+    "vgg", "id", "lpips", "inception", "psp", "w_encoder", "arcface",
+    "gpen" or "gcfsr"), and the JAX keys outside them. Load the
     state_dict with `load_state_dict(..., strict=True)`, which also catches
     a port tensor that no JAX leaf filled."""
     state, leftovers = {}, []

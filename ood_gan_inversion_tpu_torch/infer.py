@@ -80,7 +80,8 @@ def _cat(outs, device=None):
 class InversionEngine:
     def __init__(self, opt, params=None, seed: int = 0, device="cuda",
                  packed_tail: bool = False, tail_kernel: str = "none",
-                 samm_body0: str = "algebraic", samm_conv_kernel: bool = False):
+                 samm_body0: str = "algebraic", samm_conv_kernel: bool = False,
+                 samm_fp32_infer: bool = False):
         """opt: option dict with `network_g` (its `dtype`, float32 unless
         given, is the activations' dtype); params: a state_dict of the arch
         (e.g. from convert.from_jax_params), loaded strictly; without it the
@@ -88,7 +89,9 @@ class InversionEngine:
         generator computes its >=512px stages (nn/stylegan2.py); the default
         is the unpacked tail. samm_body0, samm_conv_kernel: how the SAMM
         blocks compute AlignNet's body0 (nn/samm.py); the default is the
-        algebraic formulation in plain PyTorch."""
+        algebraic formulation in plain PyTorch. samm_fp32_infer: a bfloat16
+        arch runs its SAMM blocks in float32 (archs/common.py; off by
+        default, as JAX's OGI_SAMM_FP32_INFER)."""
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,7 +100,8 @@ class InversionEngine:
         torch.backends.cudnn.deterministic = True
         g_opt = arch_options(opt["network_g"])
         g_opt.update(packed_tail=packed_tail, tail_kernel=tail_kernel,
-                     samm_body0=samm_body0, samm_conv_kernel=samm_conv_kernel)
+                     samm_body0=samm_body0, samm_conv_kernel=samm_conv_kernel,
+                     samm_fp32_infer=samm_fp32_infer)
         self.out_size = opt["network_g"].get("out_size", 1024)
         self.mod_size = opt["network_g"].get("ModSize") or 256
         with torch.device(self.device):

@@ -1,19 +1,18 @@
-"""Losses of the port (counterpart of losses/): the ones the shipped E4E
-train config uses. `build_loss` builds one from a `*_opt` dict by its
-`type`; a type the JAX registry has and the port has not yet raises
-NotImplementedError naming it."""
+"""Losses of the port (counterpart of losses/): every type JAX's loss
+registry has. `build_loss` builds one from a `*_opt` dict by its `type`."""
 
 from .basic import CharbonnierLoss, L1Loss, MSELoss
+from .extra import GANFeatLoss, MultiScaleGANLoss, WeightedTVLoss, gradient_penalty_loss
 from .gan_loss import GANLoss, path_regularize_stats, r1_penalty_fn
-from .id_loss import IDLoss
+from .id_loss import ArcFaceLoss, IDLoss
+from .lpips_loss import LPIPS_Loss
 from .mask_loss import MaskLoss
 from .perceptual import PerceptualLoss
 
 _LOSSES = {c.__name__: c for c in (L1Loss, MSELoss, CharbonnierLoss, GANLoss,
-                                   MaskLoss, PerceptualLoss, IDLoss)}
-# registered in the JAX package, not ported yet (ROADMAP A5)
-_NOT_PORTED = ("WeightedTVLoss", "MultiScaleGANLoss", "GANFeatLoss",
-               "LPIPS_Loss", "ArcFaceLoss")
+                                   MaskLoss, PerceptualLoss, IDLoss, ArcFaceLoss,
+                                   WeightedTVLoss, MultiScaleGANLoss, GANFeatLoss,
+                                   LPIPS_Loss)}
 
 
 def build_loss(opt: dict):
@@ -21,9 +20,6 @@ def build_loss(opt: dict):
     `type` or an unknown one raises KeyError, as the JAX registry does."""
     opt = dict(opt)
     loss_type = opt.pop("type")
-    if loss_type in _NOT_PORTED:
-        raise NotImplementedError(f"loss type {loss_type!r} is not ported yet "
-                                  f"(ported: {sorted(_LOSSES)})")
     if loss_type not in _LOSSES:
         raise KeyError(f"no loss type {loss_type!r}")
     return _LOSSES[loss_type](**opt)

@@ -2,13 +2,15 @@
 region [35s:-33s, 32s:-36s] (s = h // 256), adaptive-average-pools it to
 112 x 112, embeds it with IR-SE-50 and penalizes 1 - cos(y_hat, y). The
 MIMO mode adds the cross-output reference term keyed by each view's
-quality score. Inputs are NHWC, like the JAX loss."""
+quality score. Inputs are NHWC, like the JAX loss. Also ArcFaceLoss, the
+reference's grayscale ResNetArcFace loss."""
 
 import torch
 from torch import nn
 
+from ..nn.arcface_resnet import ResNetArcFace
 from ..nn.irse import ArcFaceBackbone
-from ..ops.resize import adaptive_avg_pool
+from ..ops.resize import adaptive_avg_pool, resize_bilinear
 
 
 class IDLoss(nn.Module):
@@ -57,3 +59,31 @@ class IDLoss(nn.Module):
         ref = self.ref_loss_weight * per_b.mean()
         red = diff_target.mean() if self.reduce == "mean" else diff_target.sum()
         return self.loss_weight * red, ref
+
+
+class ArcFaceLoss(nn.Module):
+    """The reference's grayscale ArcFace loss (no shipped config uses it):
+    both NHWC images to gray, resized to 128px, embedded by ResNetArcFace
+    (IRBlock [2, 2, 2, 2]); loss_weight * mean |e(y_hat) - e(y)|, the
+    target's embedding carrying no gradient. The reference's method is
+    misspelled (`foward`) and so never runs; these are its working
+    semantics, as JAX's."""
+
+    def __init__(self, loss_weight=1.0, block="IRBlock", layers=(2, 2, 2, 2), use_se=False,
+                 ckpt=None, **kwargs):
+        super().__init__()
+        if block != "IRBlock":
+            raise ValueError("the reference wires IRBlock only")
+        self.loss_weight, self.ckpt = loss_weight, ckpt
+        self.facenet = ResNetArcFace(layers=tuple(layers), use_se=use_se)
+
+    @staticmethod
+    def gray_resize_for_identity(x, size=128):
+        """(B, H, W, 3) -> (B, 1, size, size) luma, bilinear."""
+        gray = 0.2989 * x[..., 0] + 0.5870 * x[..., 1] + 0.1140 * x[..., 2]
+        return resize_bilinear(gray[:, None], (size, size))
+
+    def forward(self, y_hat, y):
+        e_hat = self.facenet(self.gray_resize_for_identity(y_hat))
+        e = self.facenet(self.gray_resize_for_identity(y)).detach()
+        return self.loss_weight * torch.abs(e_hat - e).mean()

@@ -46,21 +46,27 @@ def trunk_taps(num_layers):
 
 class BottleneckIR(nn.Module):
     """shortcut: subsample (in == depth) or 1x1 conv + BN;
-    residual: BN -> 3x3 -> PReLU -> 3x3(stride) -> BN -> SE."""
+    residual: BN -> 3x3 -> PReLU -> 3x3(stride) -> BN -> SE. bn=False
+    drops the three BNs (JAX's `bn=False`, the SAMM feature bottleneck's
+    units)."""
 
-    def __init__(self, in_ch, depth, stride=1, se=True):
+    def __init__(self, in_ch, depth, stride=1, se=True, bn=True):
         super().__init__()
         self.stride = stride
+
+        def norm(ch):
+            return BatchNorm2dEval(ch) if bn else nn.Identity()
+
         if in_ch != depth:
             self.shortcut_conv = Conv2dTorch(in_ch, depth, 1, stride, 0, bias=False)
-            self.shortcut_norm = BatchNorm2dEval(depth)
+            self.shortcut_norm = norm(depth)
         else:
             self.shortcut_conv = None
-        self.norm1 = BatchNorm2dEval(in_ch)
+        self.norm1 = norm(in_ch)
         self.conv1 = Conv2dTorch(in_ch, depth, 3, 1, 1, bias=False)
         self.prelu = PReLU(depth)
         self.conv2 = Conv2dTorch(depth, depth, 3, stride, 1, bias=False)
-        self.norm2 = BatchNorm2dEval(depth)
+        self.norm2 = norm(depth)
         self.se = SEModule(depth, 16) if se else None
 
     def forward(self, x):

@@ -137,7 +137,8 @@ class FusedLeakyReLU(nn.Module):
 
 
 class PReLU(nn.Module):
-    """torch nn.PReLU(channels), init 0.25."""
+    """torch nn.PReLU(channels), init 0.25, over dim 1 of an NCHW or (N, C)
+    input; PReLU(1) is nn.PReLU()'s one shared slope."""
 
     def __init__(self, channels):
         super().__init__()
@@ -148,7 +149,7 @@ class PReLU(nn.Module):
         self.weight.fill_(0.25)
 
     def forward(self, x):
-        return torch.where(x >= 0, x, self.weight.to(x.dtype)[:, None, None] * x)
+        return torch.where(x >= 0, x, _channel_view(self.weight.to(x.dtype), x.ndim) * x)
 
 
 class BatchNorm2dEval(nn.Module):

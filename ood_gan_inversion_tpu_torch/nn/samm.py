@@ -44,7 +44,9 @@ bfloat16. The blocks follow their inputs' dtype (JAX's inference default,
 import torch
 from torch import nn
 
-from .layers import InstanceNorm2d, XavierConv
+from .irse import BottleneckIR
+from .layers import FusedLeakyReLU, InstanceNorm2d, XavierConv
+from .stylegan2 import ModulatedConv2d
 from ..ops.alignnet import (algebraic_alignnet_body0, alignnet_body0_supported,
                             alignnet_t_context, fused_alignnet_body0)
 from ..ops.samm_conv import conv3x3_act, conv3x3_act_supported
@@ -223,18 +225,56 @@ class SPMWarp(nn.Module):
         return aligned_target, accum
 
 
-class StyledScaleNShiftBlock(nn.Module):
-    """One SAMM block. With the shipped configs there is no feature
-    bottleneck, so the block is SPMWarp alone."""
+class StyleBottleneckIR(nn.Module):
+    """The optional SAMM feature bottleneck (`mod_btn:
+    style_bottleneck_IR`): two BottleneckIR units without norms, a
+    modulated 3x3 conv on the layer's style, then the fused lrelu."""
 
-    def __init__(self, in_ch, warp_scale=0.02, cycle_align=1, diff_f_and_g=True,
-                 samm_body0="algebraic", samm_conv_kernel=False):
+    def __init__(self, in_ch, depth, style_dim=512):
         super().__init__()
-        self.alignment = SPMWarp(in_ch, scale=warp_scale,
+        self.btn0 = BottleneckIR(in_ch, in_ch, 1, se=False, bn=False)
+        self.btn1 = BottleneckIR(in_ch, depth, 1, se=False, bn=False)
+        self.final_conv = ModulatedConv2d(depth, depth, 3, style_dim)
+        self.act = FusedLeakyReLU(depth)
+
+    def forward(self, x, style):
+        return self.act(self.final_conv(self.btn1(self.btn0(x)), style))
+
+
+# the only `mod_btn` value that builds the bottleneck; any other leaves the
+# feature path the identity, as in JAX
+STYLE_BOTTLENECK_IR = "style_bottleneck_IR"
+
+
+class StyledScaleNShiftBlock(nn.Module):
+    """One SAMM block: the encoder feature through the optional bottleneck
+    (`btn` == STYLE_BOTTLENECK_IR, in_ch -> out_ch channels), then SPMWarp
+    on that many channels. Without the bottleneck (the shipped configs) the
+    block is SPMWarp alone on in_ch channels, and out_ch is not read."""
+
+    def __init__(self, in_ch, out_ch=None, warp_scale=0.02, cycle_align=1, btn=None,
+                 diff_f_and_g=True, style_dim=512, samm_body0="algebraic",
+                 samm_conv_kernel=False):
+        super().__init__()
+        out_ch = in_ch if out_ch is None else out_ch
+        if btn == STYLE_BOTTLENECK_IR:
+            self.btn1 = StyleBottleneckIR(in_ch, out_ch, style_dim)
+            ch = out_ch
+        else:
+            self.btn1, ch = None, in_ch
+        self.alignment = SPMWarp(ch, scale=warp_scale,
                                  cycle_align=cycle_align,
                                  diff_f_and_g=diff_f_and_g,
                                  samm_body0=samm_body0,
                                  samm_conv_kernel=samm_conv_kernel)
 
-    def forward(self, feat, gen_feat, aligned_coarse=None):
+    def forward(self, feat, gen_feat, aligned_coarse=None, style=None):
+        """feat: the adapted encoder feature; gen_feat: the generator's conv
+        output; style: the layer's W (B, style_dim), which the bottleneck
+        needs and nothing else reads. Returns SPMWarp's (aligned gen_feat,
+        align)."""
+        if self.btn1 is not None:
+            if style is None:
+                raise ValueError("the SAMM bottleneck needs the layer's style")
+            feat = self.btn1(feat, style)
         return self.alignment(feat, gen_feat, aligned_coarse)

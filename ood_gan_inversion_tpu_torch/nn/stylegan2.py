@@ -301,6 +301,23 @@ class Generator(nn.Module):
         return spatial.gather(skip)
 
 
+def feature_modulation(gen_feats, conditions, clss=None, mod_type: str = "SFT"):
+    """Condition injection other than NOISE: SFT applies (scale, shift), ADD
+    adds the shift, FUSE gates the shift by sigmoid(scale). `conditions` is
+    a (scale, shift) pair of tensors shaped like gen_feats (scale may be
+    None for ADD); clss, optional (B,), scales both terms per sample (SFT,
+    FUSE)."""
+    dt = gen_feats.dtype
+    c = 1.0 if clss is None else clss.reshape(-1, 1, 1, 1).to(dt)
+    if mod_type == "SFT":
+        return gen_feats * (1.0 + conditions[0].to(dt) * c) + conditions[1].to(dt) * c
+    if mod_type == "ADD":
+        return gen_feats + conditions[1].to(dt)
+    if mod_type == "FUSE":
+        return gen_feats + conditions[1].to(dt) * (torch.sigmoid(conditions[0].to(dt)) * c)
+    raise NotImplementedError(f"unknown mod_type {mod_type}")
+
+
 class Discriminator(nn.Module):
     """StyleGAN2 discriminator. forward(x NHWC) returns (score (B, 1),
     [body feature, final feature]), the features NHWC views of the NCHW

@@ -59,9 +59,13 @@ def interp_matrix(in_size: int, out_size: int, method: str = "bilinear",
 
 @lru_cache(maxsize=None)
 def _matrix(in_size, out_size, method, align_corners, dtype, device):
-    """interp_matrix as a tensor, uploaded once per device and dtype."""
-    return torch.tensor(interp_matrix(in_size, out_size, method, align_corners),
-                        dtype=dtype, device=device)
+    """interp_matrix as a tensor, uploaded once per device and dtype. Made
+    outside inference mode whatever the caller's mode: a cached tensor made
+    under `torch.inference_mode` (the engine's forward) could not be saved
+    for a later backward (a train step of the same shapes)."""
+    with torch.inference_mode(False):
+        return torch.tensor(interp_matrix(in_size, out_size, method, align_corners),
+                            dtype=dtype, device=device)
 
 
 def _apply_separable(x: torch.Tensor, size, method: str,

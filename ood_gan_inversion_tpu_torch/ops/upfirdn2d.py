@@ -50,9 +50,11 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
 
 @lru_cache(maxsize=None)
 def _flipped_kernel(data: bytes, shape, dtype, device) -> torch.Tensor:
-    """The flipped FIR kernel as a tensor, uploaded once per device."""
+    """The flipped FIR kernel as a tensor, uploaded once per device; made
+    outside inference mode, as ops/resize.py:_matrix is."""
     k = np.frombuffer(data, dtype=np.float32).reshape(shape)[::-1, ::-1]
-    return torch.tensor(k.copy(), dtype=dtype, device=device)
+    with torch.inference_mode(False):
+        return torch.tensor(k.copy(), dtype=dtype, device=device)
 
 
 def _resample_pads(k_len: int, factor: int, up: bool = True):

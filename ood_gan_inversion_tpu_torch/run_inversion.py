@@ -5,7 +5,7 @@ python -m ood_gan_inversion_tpu_torch.run_inversion \
     [--out results/inversion] [--direction smile --intensity 1.5] \
     [--device cuda] [--dtype bfloat16] [--packed-tail] \
     [--tail-kernel none|pair|stage] [--samm-body0 algebraic|fused|literal] \
-    [--samm-conv-kernel]
+    [--samm-conv-kernel] [--samm-fp32-infer]
 
 Inverts every image of each dataset's `dataroot_gt`, writes the inversion
 and the per-scale masks as PNG files and reports each `val.metrics` entry
@@ -88,6 +88,7 @@ def main(argv=None):
     ap.add_argument("--samm-body0", default="algebraic",
                     choices=("algebraic", "fused", "literal"))
     ap.add_argument("--samm-conv-kernel", action="store_true")
+    ap.add_argument("--samm-fp32-infer", action="store_true")
     args = ap.parse_args(argv)
     with open(args.opt) as f:
         opt = load_yaml(f)
@@ -101,7 +102,8 @@ def main(argv=None):
     run_inversion(opt, args.out or osp.join("results", opt.get("name", "inversion")),
                   params=params, device=args.device, packed_tail=args.packed_tail,
                   tail_kernel=args.tail_kernel, samm_body0=args.samm_body0,
-                  samm_conv_kernel=args.samm_conv_kernel)
+                  samm_conv_kernel=args.samm_conv_kernel,
+                  samm_fp32_infer=args.samm_fp32_infer)
 
 
 if __name__ == "__main__":

@@ -592,3 +592,55 @@ def test_batched_forward_has_no_batch_dependent_op_on_card(cuda, dtype):
                          "narrow": 0.25, "encoder_num_layers": 4, "cycle_align": 2,
                          "warp_scale": 0.08, "ModSize": 128, "dtype": dtype}}
     assert batch_dependent_ops(InversionEngine(opt, device="cuda")) == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", [{"modulation_type": "ADD"},
+                                  {"mod_btn": "style_bottleneck_IR"}], ids=["add", "mod_btn"])
+def test_samm_options_launch_warp_blend_on_card(cuda, opts):
+    """A 64px E4E arch with ADD or the SAMM bottleneck forwards on the card
+    through B1 (one launch per SAMM block and cycle: 2 x 2), and its
+    outputs equal, within 1e-4 of max|ref|, those of the same forward with
+    the plain twin in B1's place."""
+    from ood_gan_inversion_tpu_torch.archs import build_network
+    from ood_gan_inversion_tpu_torch.nn import samm
+    from ood_gan_inversion_tpu_torch.nn.layers import init_weights
+    with torch.device(cuda):
+        arch = build_network({"type": "ood_faceGAN_e4e", "out_size": 64,
+                              "channel_multiplier": 1, "narrow": 0.25,
+                              "encoder_num_layers": 4, "cycle_align": 2,
+                              "warp_scale": 0.08, **opts})
+    init_weights(arch, 0).eval()
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1)).to(cuda) * 2 - 1
+    noise = arch.make_noise(2, torch.Generator(device=cuda).manual_seed(2), cuda)
+
+    def forward():
+        with torch.no_grad():
+            return arch(x, mod_size=64, noise=noise)
+
+    before = warp_blend.launches
+    out = forward()
+    torch.cuda.synchronize()
+    assert warp_blend.launches == before + 4
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(samm, "warp_blend", warp_blend_reference)
+        ref = forward()
+    for k in ("image", "mask"):
+        assert float((out[k] - ref[k]).abs().max()) <= 1e-4 * float(ref[k].abs().max()), k
+
+
+@pytest.mark.cuda
+def test_deform_conv2d_on_card(cuda):
+    """deform_conv2d at an IR-SE 128-channel 64px shape with offsets of
+    scale 0.7, a mask and a bias: the card's result within 1e-5 of max|ref|
+    of the CPU's on the same inputs (float32, TF32 off)."""
+    from ood_gan_inversion_tpu_torch.ops.deform_conv import deform_conv2d
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 128, 64, 64, generator=g)
+    off = torch.randn(2, 18, 64, 64, generator=g) * 0.7
+    mask = torch.rand(2, 9, 64, 64, generator=g)
+    w = torch.randn(128, 128, 3, 3, generator=g) / 34.0
+    b = torch.randn(128, generator=g)
+    ref = deform_conv2d(x, off, w, mask, b)
+    got = deform_conv2d(*(a.to(cuda) for a in (x, off, w, mask, b)))
+    assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

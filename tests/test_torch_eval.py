@@ -16,6 +16,7 @@ and scipy arithmetic); Inception features within 1e-4 of max|ref|
 relative."""
 
 import importlib.util
+import logging
 import os.path as osp
 
 import jax
@@ -184,11 +185,19 @@ def test_calculate_identity_reads_model_ir_se50(arcface_flat, tmp_path):
 
 
 def test_identity_metric_warns_once_for_a_missing_file(arcface_flat, caplog):
+    """caplog's handler sits on the package logger itself: a training run
+    earlier in the same process (utils/logger.py:get_root_logger) turns
+    that logger's propagation to the root off."""
     _, a, b = identity_pairs()[0]
     path = "checkpoints/absent/other_ir_se50.pth"
-    with caplog.at_level("WARNING", logger="ood_gan_inversion_tpu_torch"):
-        for _ in range(2):
-            p_identity.calculate_identity(a, b, model_path=path, device="cpu")
+    log = logging.getLogger("ood_gan_inversion_tpu_torch")
+    log.addHandler(caplog.handler)
+    try:
+        with caplog.at_level("WARNING", logger="ood_gan_inversion_tpu_torch"):
+            for _ in range(2):
+                p_identity.calculate_identity(a, b, model_path=path, device="cpu")
+    finally:
+        log.removeHandler(caplog.handler)
     assert [r.message for r in caplog.records].count(
         f"identity metric: {path} not found; scoring with seeded ArcFace weights") == 1
 

@@ -272,5 +272,23 @@ def test_featurestyle_engine_and_model_run_and_train_step_refuses(monkeypatch):
     {"type": "ood_faceGAN_gpen"},
 ], ids=["e4e_mod_btn", "restyle_sft", "featurestyle_e4e_encoder", "gpen"])
 def test_unported_arch_options_still_raise(g):
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_network({"out_size": 64, "channel_multiplier": 1, "narrow": 0.125, **g})
+    """The options the port once refused now do what JAX's do: a mod_btn
+    other than "style_bottleneck_IR" builds no bottleneck; SFT builds and
+    raises at decode; an arch type outside the registry raises KeyError.
+    The port keeps one refusal of its own: a family's `encoder` key must
+    name that family (JAX ignores the key)."""
+    opt = {"out_size": 64, "channel_multiplier": 1, "narrow": 0.125, "encoder_num_layers": 4,
+           **g}
+    if g["type"] == "ood_faceGAN_gpen":
+        with pytest.raises(KeyError):
+            build_network(opt)
+    elif "encoder" in g:
+        with pytest.raises(ValueError, match="FeatureStyle encoder"):
+            build_network(opt)
+    else:
+        arch = build_network(opt)
+        assert all(m.btn1 is None for m in arch.modulation.values())
+        if g.get("modulation_type") == "SFT":
+            with pytest.raises(NotImplementedError, match="SFT"), torch.no_grad():
+                arch(torch.zeros(1, 64, 64, 3), mod_size=64,
+                     generator=torch.Generator().manual_seed(0))

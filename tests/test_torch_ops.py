@@ -155,3 +155,20 @@ def test_warp_blend_rejects_what_the_kernel_does_not_take():
         warp_blend(x, grid.double(), alpha)
     with pytest.raises(ValueError):
         warp_blend(x, grid, alpha[..., 0])
+
+
+@pytest.mark.parametrize("shape_from,shape_to", [((32, 32), (64, 64)), ((8, 8), (16, 16))])
+def test_cached_operators_made_in_inference_mode_serve_autograd(shape_from, shape_to):
+    """The resize matrices and FIR kernels are cached per shape, dtype and
+    device. A cache entry made inside `torch.inference_mode` (an engine's
+    forward) must still serve a later forward that autograd records (a
+    train step of the same shapes): an inference tensor cannot be saved for
+    backward."""
+    k = upfirdn2d.make_kernel((1, 3, 3, 2))
+    x = torch.rand(1, 1, *shape_from)
+    with torch.inference_mode():
+        resize.resize_bilinear(x, shape_to)
+        upfirdn2d.upsample2x(x, k)
+    y = x.clone().requires_grad_()
+    (resize.resize_bilinear(y, shape_to).sum() + upfirdn2d.upsample2x(y, k).sum()).backward()
+    assert y.grad is not None and bool(torch.isfinite(y.grad).all())

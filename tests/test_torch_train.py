@@ -44,6 +44,7 @@ import torch
 import yaml
 
 from torch_parity import fill_params
+from torch_parity import release_freed_memory  # noqa: F401 (autouse)
 
 from ood_gan_inversion_tpu.archs.ood_e4e import OODFaceGANE4E as JArch
 from ood_gan_inversion_tpu.models import build_model

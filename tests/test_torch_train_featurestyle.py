@@ -28,6 +28,7 @@ import pytest
 
 from test_torch_families import FEATURESTYLE
 from torch_family_train import FamilyCase, check_step, micro_family_opt
+from torch_parity import release_freed_memory  # noqa: F401 (autouse)
 
 from ood_gan_inversion_tpu.archs.ood_featurestyle import OODFaceGANFeatureStyle as JFS
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from torch_parity import fill_params, init_shapes, jax_tree, load_port, max_rel_err, nchw, nhwc
+from torch_parity import release_freed_memory  # noqa: F401 (autouse)
 from test_torch_train import NOISE_FLOOR, Case, check_grads, check_logs, micro_e4e_opt
 
 from ood_gan_inversion_tpu.models import build_model as j_build_model

@@ -1,11 +1,14 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package on the CPU: seeded parameter trees, the weights bridge, layouts."""
 
+import ctypes
 import functools
+import gc
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import traverse_util
 
@@ -13,6 +16,19 @@ from ood_gan_inversion_tpu_torch.convert import from_jax_params
 
 # xdist runs several test workers side by side on the host's cores
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_freed_memory():
+    """When a worker leaves the module, hands the memory its tests freed
+    back to the system. glibc keeps freed blocks in its arenas, so a
+    worker's resident size stays at its largest test's for the rest of the
+    run (a JAX forward and a micro train step leave ~2-4 GB), and the
+    tier-1 run's six workers together come near the host's memory.
+    Autouse in each test file that imports it by name."""
+    yield
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
 def fill_params(shapes, seed):
@@ -71,12 +87,12 @@ def with_style_mlp(flat, jmodule, style_dim, seed):
     return {**fill_params(shapes, seed), **flat}
 
 
-def load_port(module, flat, prefix=""):
+def load_port(module, flat, prefix="", net="g"):
     """Loads a JAX flat tree into a port module through the bridge;
     asserts that no JAX leaf is left over and that the load is strict.
     `prefix`: the module's path in the arch tree (e.g. "generator/") when
-    the tree is a submodule's."""
-    state, leftovers = from_jax_params({prefix + k: v for k, v in flat.items()})
+    the tree is a submodule's; `net`: the bridge's net (from_jax_params)."""
+    state, leftovers = from_jax_params({prefix + k: v for k, v in flat.items()}, net)
     assert leftovers == []
     n = len(prefix.replace("/", "."))
     module.load_state_dict({k[n:]: v for k, v in state.items()}, strict=True)
