@@ -82,19 +82,32 @@
    card-against-CPU train bounds, replicas bit for bit), those ranks then
    running `train_pipeline` (only rank 0 writes, the replicas agree); the data-sharded inversions on meshes of 2 and 4 slots on the
    card, bit for bit the unsharded calls, and the bfloat16 server behind
-   a mesh; the H-banded `invert_spatial` against `invert`. `python3
+   a mesh; the H-banded `invert_spatial` against `invert`: the default
+   engine at min_h 512, 256 and 128 (the last through the 256px SAMM
+   stage, its banded input gathered), and the packed tail through B3
+   and B4 on bands in float32 and bfloat16, with each kernel's launches
+   per band. Beside the training phases, E4E_Face.yml's full-width train
+   step banded over 2 slots (min_h 512) against the unbanded step, both
+   timed with their peak memory, and a micro decode banded over the
+   slots ["cuda:0", "cpu"] whose bands' gradients must reach the
+   parameters on the card. Then the bfloat16-operand SAMM options
+   (samm_conv_bf16, samm_warp_bf16 "fit" and "all", samm_gather_bf16,
+   the last through B1's third instantiation) on the 1024px float32
+   engine, and on the card against the CPU at a small width. `python3
    chip_smoke.py --dp-worker ...` is the process those phases start
    through torchrun.
 4. Prints the card's name and power limit, which of cv2, PIL and yaml are
    installed, one JSON line describing the kernels (B1's `launches` are
    the test runs', with the train steps', the training pipeline's and
-   phase_inventory's under their own keys), and as the last line
+   phase_inventory's under their own keys; every kernel with its
+   bfloat16 bound and bfloat16 library call), and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no last
 line. It needs CUDA and refuses to run on the CPU.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -156,6 +169,10 @@ BF16_SPAN, BF16_MASK = 0.02, 0.02
 # every batch-size-dependent op sample by sample (ops/batch_invariant.py),
 # so the two are expected bit for bit; the script says which held
 SLOT_RTOL, BF16_SLOT_RTOL = 1e-5, 2.0 ** -7
+# warp_blend_taps_bf16 against its plain version: the same bfloat16
+# roundings in the same order, so bit for bit is expected; the bound is
+# far below the 2^-9 of one rounding that the kernel could skip
+TAPS_BF16_RTOL = 1e-6
 # forwards in one drive(): invert, one batched invert_batch_perkey of 3,
 # invert_batch_perkey_split of 3 (one forward each)
 DRIVE_FORWARDS = 5
@@ -243,10 +260,22 @@ def phase_build():
 
 def phase_kernels():
     """warp_blend against warp_blend_reference at the main-path shapes;
-    timed beside a plain copy of the same target and on a zero flow."""
+    timed beside a plain copy of the same target and on a zero flow, with
+    the bfloat16 target's bound and its library call (F.grid_sample in
+    bfloat16 + the blend). Then its instantiation for samm_gather_bf16
+    (warp_blend_taps_bf16: a float32 target sampled in JAX's gather4bf16
+    bfloat16 arithmetic) at the same shapes: within TAPS_BF16_RTOL of
+    max|x| of its plain version (the same roundings; whether bit for bit is
+    logged), which lies further than that from F.grid_sample of the
+    rounded target in float32; timed beside its plain version and that
+    library call + the blend. Returns the two kernels-line entries."""
+    from ood_gan_inversion_tpu_torch.ops.grid_sample import grid_sample_bilinear
     from ood_gan_inversion_tpu_torch.ops.warp_blend import (
-        warp_blend, warp_blend_reference)
-    per_image = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        warp_blend, warp_blend_reference, warp_blend_taps_bf16)
+    per_image = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                 "bf16_bound_ms": 0.0, "bf16_library_ms": 0.0}
+    taps = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    taps_err, taps_exact = 0.0, True
     max_err, bound_by, copy_per_image, bf16_per_image = 0.0, "bytes", 0.0, 0.0
     for size, c in WARP_SHAPES:
         for b, at_bound in ((1, False), (2, False), (2, True)):
@@ -282,8 +311,16 @@ def phase_kernels():
                                   padding_mode="zeros", align_corners=False)
                 return w * an + xn * (1.0 - an)
 
+            xnb, anb, gridb = xn.to(torch.bfloat16), an.to(torch.bfloat16), grid.to(torch.bfloat16)
+
+            def library_bf16():
+                w = F.grid_sample(xnb, gridb, mode="bilinear",
+                                  padding_mode="zeros", align_corners=False)
+                return w * anb + xnb * (1.0 - anb)
+
             lib_err = float((library().permute(0, 2, 3, 1) - ref).abs().max())
             ms = time_ms(lambda: warp_blend(x, grid, alpha))
+            lib_b = time_ms(library_bf16)
             plain = time_ms(lambda: warp_blend_reference(x, grid, alpha))
             lib = time_ms(library)
             # yardsticks: a plain copy of the target (the bound's bytes but
@@ -304,21 +341,65 @@ def phase_kernels():
                 f"copy of the target {copy:.5f} ms (kernel / copy {ms / copy:.2f}), "
                 f"plain {plain:.4f} ms, "
                 f"grid_sample+blend {lib:.4f} ms (|diff| {lib_err:.1e}), "
-                f"bound {bound:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB)")
+                f"bound {bound:.5f} ms ({bound_by}: {nbytes / 1e6:.2f} MB); bf16 "
+                f"grid_sample+blend {lib_b:.4f} ms")
+            # samm_gather_bf16's instantiation against its plain version,
+            # and how far that lies from rounding only the taps
+            tap_out = warp_blend_taps_bf16(x, grid, alpha)
+            plain_taps = warp_blend_reference(x, grid, alpha, taps_bf16=True)
+            taps_only = (grid_sample_bilinear(x.bfloat16().float(), grid) * alpha
+                         + x * (1.0 - alpha))
+            top = float(x.abs().max())
+            err_p = float((tap_out - plain_taps).abs().max())
+            err_t = float((plain_taps - taps_only).abs().max())
+            if not (err_p <= TAPS_BF16_RTOL * top < err_t):
+                raise AssertionError(f"warp_blend_taps_bf16 {b}x{size}x{c}: vs its plain "
+                                     f"version {err_p} (<= {TAPS_BF16_RTOL * top}); the plain "
+                                     f"version vs the taps alone rounded {err_t} (> that)")
+            taps_err = max(taps_err, err_p)
+            taps_exact = taps_exact and torch.equal(tap_out, plain_taps)
+            xr = xn.to(torch.bfloat16)
+
+            def library_taps():
+                w = F.grid_sample(xr.float(), grid, mode="bilinear",
+                                  padding_mode="zeros", align_corners=False)
+                return w * an + xn * (1.0 - an)
+
+            tt = {"ms": time_ms(lambda: warp_blend_taps_bf16(x, grid, alpha)),
+                  "plain_ms": time_ms(lambda: warp_blend_reference(x, grid, alpha, True)),
+                  "library_ms": time_ms(library_taps), "bound_ms": bound}
+            log(f"[kernel] warp_blend_taps_bf16 b={b} {size}px C={c}: max|err| {err_p:.3e} "
+                f"against its plain version (<= {TAPS_BF16_RTOL * top:.3e}; bit for bit: "
+                f"{torch.equal(tap_out, plain_taps)}), which lies {err_t:.3e} from the taps "
+                f"alone rounded; kernel {tt['ms']:.5f} ms, plain "
+                f"{tt['plain_ms']:.4f} ms, grid_sample on the rounded target+blend "
+                f"{tt['library_ms']:.4f} ms, bound {bound:.5f} ms")
             if b == 1:      # the main path: 2 align cycles per scale per image
                 for k, v in (("ms", ms), ("plain_ms", plain),
-                             ("bound_ms", bound), ("library_ms", lib)):
+                             ("bound_ms", bound), ("library_ms", lib),
+                             ("bf16_bound_ms", warp_bound_ms(b, size, c, 2)[0]),
+                             ("bf16_library_ms", lib_b)):
                     per_image[k] += 2 * v
+                for k, v in tt.items():
+                    taps[k] += 2 * v
                 copy_per_image += 2 * copy
                 bf16_per_image += 2 * msb
     log(f"[kernel] warp_blend per image (8 launches, b=1): "
         + ", ".join(f"{k} {v:.4f}" for k, v in per_image.items())
         + f", copy of the targets {copy_per_image:.4f}, bf16 targets {bf16_per_image:.4f}")
-    return {"name": "warp_blend", "route": "cuda",
-            "source": "ood_gan_inversion_tpu_torch/csrc/warp_blend.cu",
-            "replaces": "ood_gan_inversion_tpu/ops/pallas_warp.py:380",
-            "max_abs_err": max_err, "bound_by": bound_by, "bf16_ms": bf16_per_image,
-            **per_image}
+    log(f"[kernel] warp_blend_taps_bf16 per image (8 launches, b=1): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in taps.items())
+        + f"; bit for bit its plain version at every shape: {taps_exact}")
+    return [{"name": "warp_blend", "route": "cuda",
+             "source": "ood_gan_inversion_tpu_torch/csrc/warp_blend.cu",
+             "replaces": "ood_gan_inversion_tpu/ops/pallas_warp.py:380",
+             "max_abs_err": max_err, "bound_by": bound_by, "bf16_ms": bf16_per_image,
+             **per_image},
+            {"name": "warp_blend_taps_bf16", "route": "cuda",
+             "source": "ood_gan_inversion_tpu_torch/csrc/warp_blend.cu",
+             "replaces": "ood_gan_inversion_tpu/ops/pallas_warp.py:380",
+             "serves": "ood_gan_inversion_tpu/ops/grid_sample.py:169",
+             "max_abs_err": taps_err, "bound_by": bound_by, **taps}]
 
 
 def packed_operands(b, h, c1, cmid, seed):
@@ -397,8 +478,10 @@ def phase_packed_kernels():
     from ood_gan_inversion_tpu_torch.ops.packed_conv import (
         fused_conv3x3_act, fused_packed_stage, packed_conv3x3_act_reference,
         packed_stage_reference)
-    # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one
-    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms", "bf16_ms")
+    # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one;
+    # bf16_*: the bfloat16 operands' bound and library call
+    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms", "bf16_ms",
+            "bf16_bound_ms", "bf16_library_ms")
     per_image = {"B3": dict.fromkeys(keys, 0.0), "B4": dict.fromkeys(keys, 0.0)}
     max_err = {"B3": 0.0, "B4": 0.0}
     bound_by = {"B3": {}, "B4": {}}        # per image: bound ms by what bounds it
@@ -430,12 +513,15 @@ def phase_packed_kernels():
                 xn, n4n = x.permute(0, 3, 1, 2), n4.permute(0, 3, 1, 2)
                 wk = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
                 lib = lambda: library_conv_act(xn, n4n, wk, s, d, bias, co // 4)
+                opb = [v.to(torch.bfloat16) for v in (xn, n4n, wk, s, d, bias)]
+                lib_b = lambda: library_conv_act(*opb, co // 4)
                 lib_diff = float((lib().permute(0, 2, 3, 1)
                                   - packed_conv3x3_act_reference(*args)).abs().max())
                 t = {"ms": time_ms(lambda: fused_conv3x3_act(*args), iters=10),
                      "plain_ms": time_ms(lambda: packed_conv3x3_act_reference(*args), iters=10),
                      "library_ms": time_ms(lib, iters=10)}
                 msb = t["bf16_ms"] = time_ms(lambda: fused_conv3x3_act(*argsb), iters=10)
+                t["bf16_library_ms"] = time_ms(lib_b, iters=10)
                 dense, useful = conv_flops(b, h, k)
                 epi = 5 * b * h * h * co
                 nbytes = lambda isz: ((b * h * h * (ci + co) + 9 * ci * co) * isz
@@ -445,6 +531,7 @@ def phase_packed_kernels():
                 t["cc_bound_ms"] = cc_ms
                 dense_ms, _ = bound_ms(dense + epi, nbytes(4), FP32_FLOPS)
                 bf16_ms, bf16_by = tc_bound_ms(useful + epi, nbytes(2), 2)
+                t["bf16_bound_ms"] = bf16_ms
                 log(f"[kernel] B3 {stage} {name} b={b} ({h}x{h}, {ci}->{co}): fp32 "
                     f"max|err| {err:.3e} <= {lim:.3e}, bf16 {errb:.3e} <= {limb:.3e}; "
                     f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
@@ -454,7 +541,8 @@ def phase_packed_kernels():
                     f"{bound_parts(useful + epi, nbytes(4), FP32_FLOPS)}; "
                     f"{useful / 1e9:.2f} useful GFLOP), dense {dense_ms:.4f} ms "
                     f"({dense / 1e9:.2f} GFLOP); "
-                    f"bf16 kernel {msb:.4f} ms, bound {bf16_ms:.4f} ms ({bf16_by})")
+                    f"bf16 kernel {msb:.4f} ms, bound {bf16_ms:.4f} ms ({bf16_by}), "
+                    f"cudnn+epilogue in bf16 {t['bf16_library_ms']:.4f} ms")
                 max_err["B3"] = max(max_err["B3"], err)
                 if b == 1:
                     bound_by["B3"][by] = bound_by["B3"].get(by, 0.0) + t["bound_ms"]
@@ -492,11 +580,23 @@ def phase_packed_kernels():
                 return (torch.einsum("bchw,bco->bohw", zz2, a["k3sr"])
                         + a["b3"][None, :, None, None] + F.conv2d(skn, wk4, padding=1))
 
+            lb = {k: v.to(torch.bfloat16) for k, v in a.items()}
+            wb1, wb2, wb4 = (v.to(torch.bfloat16) for v in (wk1, wk2, wk4))
+            xnb, sknb = xn.to(torch.bfloat16), skn.to(torch.bfloat16)
+            n1b, n2b = n1n.to(torch.bfloat16), n2n.to(torch.bfloat16)
+
+            def lib_b():
+                zz = library_conv_act(xnb, n1b, wb1, lb["s1"], lb["d1"], lb["b1"], cmid)
+                zz2 = library_conv_act(zz, n2b, wb2, lb["s2"], lb["d2"], lb["b2"], cmid)
+                return (torch.einsum("bchw,bco->bohw", zz2, lb["k3sr"])
+                        + lb["b3"][None, :, None, None] + F.conv2d(sknb, wb4, padding=1))
+
             lib_diff = float((lib().permute(0, 2, 3, 1) - rgb_ref).abs().max())
             t = {"ms": time_ms(lambda: fused_packed_stage(*args), iters=10),
                  "plain_ms": time_ms(lambda: packed_stage_reference(*args), iters=10),
                  "library_ms": time_ms(lib, iters=10)}
             msb = t["bf16_ms"] = time_ms(lambda: fused_packed_stage(*argsb), iters=10)
+            t["bf16_library_ms"] = time_ms(lib_b, iters=10)
             d1, u1 = conv_flops(b, h, a["k1"])
             d2, u2 = conv_flops(b, h, a["k2"])
             px = b * h * h
@@ -512,6 +612,7 @@ def phase_packed_kernels():
             t["cc_bound_ms"] = cc_ms
             dense_ms, _ = bound_ms(dense, nbytes(4), FP32_FLOPS)
             bf16_ms, bf16_by = tc_bound_ms(useful, nbytes(2), 2)
+            t["bf16_bound_ms"] = bf16_ms
             log(f"[kernel] B4 {stage} b={b} ({h}x{h}, {c1}->{c4}->{c4}, rgb 12): fp32 "
                 f"max|err| {err:.3e} <= {PACKED_TOL:.0e} of max|ref|, bf16 "
                 f"{errb:.3e}; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
@@ -520,7 +621,8 @@ def phase_packed_kernels():
                 f"{t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms ({cc_by}: "
                 f"{bound_parts(useful, nbytes(4), FP32_FLOPS)}; {useful / 1e9:.2f} useful GFLOP), "
                 f"dense {dense_ms:.4f} ms ({dense / 1e9:.2f} GFLOP); bf16 kernel "
-                f"{msb:.4f} ms, bound {bf16_ms:.4f} ms ({bf16_by})")
+                f"{msb:.4f} ms, bound {bf16_ms:.4f} ms ({bf16_by}), cudnn chain in bf16 "
+                f"{t['bf16_library_ms']:.4f} ms")
             max_err["B4"] = max(max_err["B4"], err)
             if b == 1:
                 bound_by["B4"][by] = bound_by["B4"].get(by, 0.0) + t["bound_ms"]
@@ -594,8 +696,10 @@ def phase_samm_kernels():
     conv2 in each cycle)."""
     from ood_gan_inversion_tpu_torch.ops import alignnet as an
     from ood_gan_inversion_tpu_torch.ops.samm_conv import conv3x3_act, conv3x3_act_reference
-    # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one
-    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms", "bf16_ms")
+    # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one;
+    # bf16_*: the bfloat16 operands' bound and library call
+    keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms", "bf16_ms",
+            "bf16_bound_ms", "bf16_library_ms")
     ids = ("B2a", "B2b", "B5")
     per_image = {k: dict.fromkeys(keys, 0.0) for k in ids}
     max_err = dict.fromkeys(ids, 0.0)
@@ -610,6 +714,12 @@ def phase_samm_kernels():
             conv1 = (a["s"], a["t"], a["coeffs"], a["k1"], a["alpha"])
             z = an.alignnet_conv1_reference(*conv1)
             s_b, t_b, k1_b, k2_b, z_b = map(bf16, (a["s"], a["t"], a["k1"], a["k2"], z))
+            x1_b, alpha_b = bf16(a["x1"]), bf16(a["alpha"])
+            libs_b = {   # the library calls on bfloat16 operands
+                "B2a": lambda: F.prelu(F.conv2d(bf16(body0_x1(a)), k1_b, padding=1), alpha_b),
+                "B2b": lambda: conv_moments(z_b, k2_b),
+                "B5 conv1": lambda: F.prelu(F.conv2d(x1_b, k1_b, padding=1), alpha_b),
+                "B5 conv2": lambda: F.conv2d(z_b, k2_b, padding=1)}
             runs = {
                 # id: (kernel, plain, library, bf16 kernel, bf16 plain on the
                 # same rounded operands, flops, bytes at an itemsize)
@@ -661,10 +771,12 @@ def phase_samm_kernels():
                 t = {"ms": time_ms(kern, iters=10), "plain_ms": time_ms(plain, iters=10),
                      "library_ms": time_ms(lib, iters=10)}
                 msb = t["bf16_ms"] = time_ms(kern_b, iters=10)
+                t["bf16_library_ms"] = time_ms(libs_b[name], iters=10)
                 t["bound_ms"], by = tc_bound_ms(flops, nbytes(4), 4)
                 cc_ms, cc_by = bound_ms(flops, nbytes(4), FP32_FLOPS)
                 t["cc_bound_ms"] = cc_ms
                 bf16_ms, bf16_by = tc_bound_ms(flops, nbytes(2), 2)
+                t["bf16_bound_ms"] = bf16_ms
                 log(f"[kernel] {what}: fp32 max|err| {err:.3e} (<= {SAMM_TOL:.0e} of max|ref|)"
                     f"{moment_text}, "
                     f"bf16 {errb:.3e} <= {limb:.3e}; kernel {t['ms']:.4f} ms "
@@ -673,7 +785,8 @@ def phase_samm_kernels():
                     f"tensor cores {t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms "
                     f"({cc_by}: {bound_parts(flops, nbytes(4), FP32_FLOPS)}; "
                     f"{flops / 1e9:.2f} GFLOP); bf16 kernel {msb:.4f} ms "
-                    f"({flops / msb / 1e9:.1f} TFLOP/s), bound {bf16_ms:.4f} ms ({bf16_by})")
+                    f"({flops / msb / 1e9:.1f} TFLOP/s), bound {bf16_ms:.4f} ms ({bf16_by}), "
+                    f"cudnn+epilogue in bf16 {t['bf16_library_ms']:.4f} ms")
                 kid = name.split()[0]
                 max_err[kid] = max(max_err[kid], err)
                 if b == 1:      # the main path: 2 align cycles per scale per image
@@ -799,12 +912,16 @@ def phase_probe():
     err = float((out - oracle()).abs().max())
     if not err <= 1e-5:
         raise AssertionError(f"probe: box3x3 vs the oracle max|err| {err} > 1e-5")
+    xb, ones_b = x.to(torch.bfloat16), torch.ones(1, 1, 3, 3, device="cuda", dtype=torch.bfloat16)
     t = {"ms": time_ms(lambda: box3x3(x)), "plain_ms": time_ms(lambda: box3x3_reference(x)),
-         "library_ms": time_ms(oracle)}
+         "library_ms": time_ms(oracle),
+         "bf16_library_ms": time_ms(lambda: F.conv2d(xb[None, None], ones_b, padding=1))}
     t["bound_ms"], by = bound_ms(8 * x.numel(), 2 * 4 * x.numel(), FP32_FLOPS)
+    t["bf16_bound_ms"] = bound_ms(8 * x.numel(), 2 * 2 * x.numel(), FP32_FLOPS)[0]
     log(f"[probe] box3x3 (32, 32): equal to its plain version, max|err| vs the oracle "
         f"{err:.3e} <= 1e-5; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-        f"conv2d {t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms ({by}); launches "
+        f"conv2d {t['library_ms']:.4f} ms (bf16 {t['bf16_library_ms']:.4f}), bound "
+        f"{t['bound_ms']:.6f} ms ({by}), bf16 {t['bf16_bound_ms']:.6f}; launches "
         f"{launches}")
     return {"name": "box3x3", "route": "cuda",
             "source": "ood_gan_inversion_tpu_torch/csrc/halo_probe.cu",
@@ -833,7 +950,8 @@ def noisy(engine):
 
 
 KERNEL_COUNTERS = ("warp_blend", "fused_conv3x3_act", "fused_packed_stage",
-                   "alignnet_conv1", "alignnet_conv2", "conv3x3_act", "box3x3")
+                   "alignnet_conv1", "alignnet_conv2", "conv3x3_act", "box3x3",
+                   "warp_blend_taps_bf16")
 
 
 def counters():
@@ -842,9 +960,10 @@ def counters():
     from ood_gan_inversion_tpu_torch.ops.packed_conv import (
         fused_conv3x3_act, fused_packed_stage)
     from ood_gan_inversion_tpu_torch.ops.samm_conv import conv3x3_act
-    from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend
+    from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend, warp_blend_taps_bf16
     return dict(zip(KERNEL_COUNTERS, (warp_blend, fused_conv3x3_act, fused_packed_stage,
-                                      alignnet_conv1, alignnet_conv2, conv3x3_act, box3x3)))
+                                      alignnet_conv1, alignnet_conv2, conv3x3_act, box3x3,
+                                      warp_blend_taps_bf16)))
 
 
 def expected_counts(**launches):
@@ -2873,48 +2992,379 @@ def phase_sharded(engines, imgs):
     return launches
 
 
-def phase_spatial(engine, imgs):
-    """invert_spatial at 1024px, float32, min_h 512 (the 512 and 1024px
-    stages banded) on 2 and 4 slots on this card against invert (the same
-    seed's noise), within SPATIAL_RTOL of max|ref|; ms/img beside invert's
-    (the bands share one card and run one after another); B1 launched 8 per
-    image (SAMM is not banded). Returns B1's launches."""
+def spatial_timed(fn, reps=3):
+    """(fn()'s result, median ms of `reps` more calls), CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return out, float(np.median(times))
+
+
+def phase_spatial(engine, imgs, tails, bf16s):
+    """invert_spatial at 1024px on 2 and 4 slots on this card against
+    invert of the same engine (the same seed's noise), within SPATIAL_RTOL
+    of max|ref|, float32 and bfloat16 alike; ms/img beside invert's (the bands share one
+    card and run one after another); B1 launched 8 per image (SAMM is not
+    banded). The engines: the default at min_h 512 (the 512 and 1024px
+    stages banded), at min_h 256 (the 256px SAMM stage whole, its output
+    banded) and at min_h 128 (the 128px SAMM stage's output banded, then
+    gathered into the 256px SAMM stage); the packed tail through B3
+    ("pair": 2 launches per packed stage per band) and B4 ("stage": 1) in
+    float32 and bfloat16 at min_h 512, each band on its window of coarse
+    rows. Returns the launches of B1, B3 and B4."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
     from ood_gan_inversion_tpu_torch.parallel import make_mesh
     t_phase = time.time()
-    launches = 0
-
-    def timed(fn, reps=3):
-        fn()
-        times = []
-        for _ in range(reps):
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            out = fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return out, float(np.median(times))
-
-    ref, ms_ref = timed(lambda: engine.invert(imgs[0], seed=7))
-    for n in (2, 4):
-        mesh = make_mesh(["cuda:0"] * n, axes=("sp",))
-        reset_counts()
-        out = engine.invert_spatial(imgs[0], seed=7, mesh=mesh, min_h=512)
-        torch.cuda.synchronize()
-        counts = read_counts()
-        if counts != expected_counts(warp_blend=8):
-            raise AssertionError(f"invert_spatial n={n}: launched {counts}")
-        launches += counts["warp_blend"]
-        errs = {k: rel_err(out[k], ref[k]) for k in ("image", "gen_image", "mask")}
-        if not max(errs.values()) <= SPATIAL_RTOL:
-            raise AssertionError(f"invert_spatial n={n} against invert: {errs}")
-        _, ms = timed(lambda: engine.invert_spatial(imgs[0], seed=7, mesh=mesh, min_h=512))
-        log(f"[spatial] invert_spatial, {n} bands on cuda:0, min_h 512, 1024px float32: "
-            f"against invert rel err {errs} (<= {SPATIAL_RTOL}); B1 {counts['warp_blend']}; "
-            f"{ms:.2f} ms/img against invert's {ms_ref:.2f} (CUDA events, median of 3; bands "
-            f"on one card run one after another)")
+    launches = dict.fromkeys(("warp_blend", "fused_conv3x3_act", "fused_packed_stage"), 0)
+    bf_pair = InversionEngine(e4e_opt(dtype="bfloat16"), params=engine.net.state_dict(),
+                              device="cuda", packed_tail=True, tail_kernel="pair")
+    runs = [("default", engine, 512, {}), ("default", engine, 256, {}),
+            ("default", engine, 128, {}),
+            ("packed tail pair", tails["packed tail pair"], 512, {"fused_conv3x3_act": 4}),
+            ("packed tail stage", tails["packed tail stage"], 512, {"fused_packed_stage": 2}),
+            ("bf16 packed tail pair", bf_pair, 512, {"fused_conv3x3_act": 4}),
+            ("bf16 packed tail stage", bf16s["bf16 packed tail stage"], 512,
+             {"fused_packed_stage": 2})]
+    for label, eng, min_h, per_band in runs:
+        ref, ms_ref = spatial_timed(lambda: eng.invert(imgs[0], seed=7))
+        for n in (2, 4):
+            mesh = make_mesh(["cuda:0"] * n, axes=("sp",))
+            reset_counts()
+            out = eng.invert_spatial(imgs[0], seed=7, mesh=mesh, min_h=min_h)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = expected_counts(warp_blend=8, **{k: v * n for k, v in per_band.items()})
+            if counts != want:
+                raise AssertionError(f"invert_spatial {label} n={n} min_h {min_h}: launched "
+                                     f"{counts}, expected {want}")
+            for k in launches:
+                launches[k] += counts[k]
+            errs = {k: rel_err(out[k], ref[k]) for k in ("image", "gen_image", "mask")}
+            if not max(errs.values()) <= SPATIAL_RTOL:
+                raise AssertionError(f"invert_spatial {label} n={n} min_h {min_h} against "
+                                     f"invert: {errs}")
+            text = (f"rel err {errs} (<= {SPATIAL_RTOL}; bit for bit: "
+                    f"{differing_outputs(out, ref) == []})")
+            _, ms = spatial_timed(lambda: eng.invert_spatial(imgs[0], seed=7, mesh=mesh,
+                                                             min_h=min_h))
+            log(f"[spatial] invert_spatial {label}, {n} bands on cuda:0, min_h {min_h}, 1024px: "
+                f"against invert {text}; launches {{{', '.join(f'{k}: {v}' for k, v in counts.items() if v)}}}; "
+                f"{ms:.2f} ms/img against invert's {ms_ref:.2f} (CUDA events, median of 3; "
+                f"bands on one card run one after another)")
+    del bf_pair
+    torch.cuda.empty_cache()
     log(f"[spatial] phase took {time.time() - t_phase:.1f} s")
     return launches
+
+
+# the banded train step against the unbanded one on the same state and
+# draws: the bands' sums run in another order, as the data-parallel ranks'
+# do, so the logs within 1e-4 relative (over DP_LOG_FLOOR for the scores and
+# the area hinge, which cancel) and every gradient within 1e-3 of
+# max(its leaf's max|ref|, TRAIN_NOISE_FLOOR of its net's largest)
+BANDED_LOSS_RTOL, BANDED_GRAD_RTOL = 1e-4, 1e-3
+
+
+def phase_banded_training(reps=2):
+    """options/train/E4E_Face.yml's train step at full width (b = 2,
+    float32, step 0: R1 and the path regularizer's double backward through
+    the bands) inside spatial.banding over 2 slots of this card at min_h
+    512 (the 512 and 1024px stages banded), against the same step
+    unbanded from the same state with the same draws; then each timed
+    (median of `reps` further steps) with its peak memory."""
+    from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
+    from ood_gan_inversion_tpu_torch.parallel import Replicas, make_mesh, spatial
+    t_phase = time.time()
+    models = [OODFaceGANModel(e4e_train_opt(), device="cuda", seed=SEED) for _ in range(2)]
+    batch = train_batch(models[0], 1024, SEED + 2)
+    train_batch(models[1], 1024, SEED + 2)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    draws = {"noise": models[0].net_g.make_noise(2, g, torch.device("cuda")),
+             "path_cot": torch.randn((2, 1024, 1024, 3), generator=g, device="cuda") / 1024.0,
+             "z": torch.randn((2, 512), generator=g, device="cuda")}
+    mesh = make_mesh(["cuda:0"] * 2, axes=("sp",))
+    results = {}
+    for label, model in (("unbanded", models[0]), ("banded", models[1])):
+        grads = recorded_grads(model)
+        ctx = (spatial.banding(mesh, Replicas(model.net_g, model.device), 512)
+               if label == "banded" else contextlib.nullcontext())
+        with ctx:
+            logs = model.train_step(batch, 0, **draws)
+            torch.cuda.synchronize()
+            check_train_logs(f"{label} train step 0", logs, STEP0_KEYS)
+            results[label] = ({k: float(v) for k, v in logs.items()}, dict(grads))
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(reps):
+                a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                a.record()
+                model.train_step(batch, 0, **draws)
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+        log(f"[spatial] E4E_Face.yml train step 0 {label}"
+            f"{' (2 bands, min_h 512)' if label == 'banded' else ''}: "
+            f"median {float(np.median(times)):.2f} ms/step, all {[round(t, 2) for t in times]} "
+            f"(CUDA events, b = 2, 1024px, float32); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    (rl, rg), (gl, gg) = results["unbanded"], results["banded"]
+    log_err = max(abs(gl[k] - v) / max(abs(v), DP_LOG_FLOOR.get(k, 0.0), 1e-12)
+                  for k, v in rl.items())
+    grad_err, worst = 0.0, None
+    for net in ("net_g", "net_d", "net_d2"):
+        leaves = {k: v for k, v in rg.items() if k.startswith(net)}
+        if not leaves:
+            continue
+        top = max(float(v.abs().max()) for v in leaves.values())
+        for k, r in leaves.items():
+            scale = max(float(r.abs().max()), TRAIN_NOISE_FLOOR * top)
+            e = float((gg[k] - r).abs().max()) / scale if scale > 0 else 0.0
+            if e > grad_err:
+                grad_err, worst = e, k
+    if set(gg) != set(rg) or not (log_err <= BANDED_LOSS_RTOL and grad_err <= BANDED_GRAD_RTOL):
+        raise AssertionError(f"banded train step against unbanded: logs {log_err}, gradients "
+                             f"{grad_err} at {worst}")
+    log(f"[spatial] banded train step 0 against unbanded: logs within {log_err:.2e} "
+        f"(<= {BANDED_LOSS_RTOL}), {len(rg)} gradients within {grad_err:.2e} of their scale "
+        f"(<= {BANDED_GRAD_RTOL}; worst {worst}); phase took {time.time() - t_phase:.1f} s")
+    del models
+    torch.cuda.empty_cache()
+
+
+def phase_band_gradients():
+    """A band on another device sends its gradients to the trained
+    parameters: a micro E4E arch (64px, a quarter of the widths) on the
+    card decodes inside spatial.banding over the slots ["cuda:0", "cpu"]
+    at min_h 32 (the 64px stage's second band on the CPU); the gradients
+    of a loss of its image, with a gradient of the latents' gradient, w.r.t.
+    the generator's parameters on the card against the unbanded decode's,
+    within 1e-4 of max|ref|; and the same bands on the CPU replica (a deep
+    copy) miss them."""
+    from ood_gan_inversion_tpu_torch.archs import build_network
+    from ood_gan_inversion_tpu_torch.nn.layers import init_weights
+    from ood_gan_inversion_tpu_torch.parallel import Replicas, make_mesh, spatial
+    t_phase = time.time()
+    with torch.device("cuda"):
+        arch = build_network({"type": "ood_faceGAN_e4e", "out_size": 64, "channel_multiplier": 1,
+                              "narrow": 0.25, "encoder_num_layers": 4, "cycle_align": 2,
+                              "warp_scale": 0.08})
+    init_weights(arch, SEED).eval()
+    gen = torch.Generator().manual_seed(SEED)
+    x = (torch.rand(1, 3, 64, 64, generator=gen) * 2 - 1).cuda()
+    noise = [n.cuda() for n in arch.make_noise(1, gen, torch.device("cpu"))]
+    cot = torch.randn(1, 3, 64, 64, generator=gen).cuda()
+    with torch.no_grad():
+        lats0, feats = arch.encode(x, noise=arch.split_noise(noise)[0])
+    params = list(arch.generator.parameters())
+    mesh = make_mesh(["cuda:0", "cpu"], axes=("sp",))
+
+    def grads(banded):
+        lats = lats0.clone().requires_grad_()
+        ctx = spatial.banding(mesh, Replicas(arch, "cuda"), 32) if banded else \
+            contextlib.nullcontext()
+        with ctx:
+            img = arch.decode_samm(lats, feats, x, 32, arch.split_noise(noise)[1])["image"]
+        (gl,) = torch.autograd.grad(img, lats, cot, create_graph=True)
+        loss = (img * cot).sum() + gl.square().sum()
+        return torch.autograd.grad(loss, params, allow_unused=True)
+
+    ref = grads(False)
+    got = grads(True)
+    if any(g is not None and g.device.type != "cuda" for g in got):
+        raise AssertionError("band gradients: a gradient left the card")
+    err = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(got, ref)
+              if r is not None and r.abs().max() > 0)
+    if not err <= 1e-4:
+        raise AssertionError(f"band gradients on ['cuda:0', 'cpu'] against unbanded: {err}")
+    twin = spatial._State.twin
+    spatial._State.twin = lambda st, m, dev: (m if dev == st.slots[0] else st.replicas.get(dev)
+                                              .get_submodule(st._names[id(m)]))
+    try:
+        copies = grads(True)
+    finally:
+        spatial._State.twin = twin
+    miss = max(float((g - r).abs().max() / r.abs().max()) for g, r in zip(copies, ref)
+               if r is not None and r.abs().max() > 0)
+    if not miss > 0.1:
+        raise AssertionError(f"band gradients through the CPU replica should miss: {miss}")
+    log(f"[spatial] bands on ['cuda:0', 'cpu'] (micro E4E, min_h 32): generator gradients, "
+        f"grad-of-grad included, within {err:.2e} of the unbanded decode's (<= 1e-4); through "
+        f"the CPU replica instead they miss by {miss:.2f}; took {time.time() - t_phase:.1f} s")
+
+
+# the bfloat16-operand SAMM options (nn/samm.py) on the float32 engine: per
+# forward, B1 through warp_blend (some targets cast to bfloat16) or, with
+# samm_gather_bf16, through warp_blend_taps_bf16
+SAMM_BF16_OPTIONS = (
+    ("samm_conv_bf16", {"samm_conv_bf16": True}, {"warp_blend": 8}, 0),
+    ("samm_warp_bf16 fit", {"samm_warp_bf16": "fit"}, {"warp_blend": 8}, 2),
+    ("samm_warp_bf16 all", {"samm_warp_bf16": "all"}, {"warp_blend": 8}, 4),
+    ("samm_gather_bf16", {"samm_gather_bf16": True}, {"warp_blend_taps_bf16": 8}, 0))
+
+
+def phase_samm_bf16(engine, imgs):
+    """Each bfloat16-operand SAMM option on the 1024px float32 engine's
+    weights: launches (B1 8 per forward, and how many of its targets are
+    bfloat16: the 128px scale's two with "fit", the 128 and 256px ones'
+    four with "all"), the reply against the default engine's within JAX's
+    island bound (bf16_compare on image and mask; the options are small
+    bfloat16 islands) and not equal to it, ms/img; then, at the small
+    config of phase_small_reference, the card against the CPU with the
+    same option (within the same bound: the options round values to
+    bfloat16, and a float32 difference that crosses a rounding boundary
+    moves a value by a whole step, which the align cycles carry on), the
+    warp cast's floor lowered to 32px so that the 32px block (C 128) casts,
+    "fit" at the full width of the 1024px model's 32px scale (narrow 1.0:
+    C 512, whose float32 window does not fit), the others at a quarter of
+    it (C 128). Returns warp_blend_taps_bf16's launches on the 1024px
+    engine."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    from ood_gan_inversion_tpu_torch.nn import samm
+    t_phase = time.time()
+    params = engine.net.state_dict()
+    ref, ms_ref = spatial_timed(lambda: engine.invert(imgs[0], seed=7))
+    taps_launches = 0
+    for label, kwargs, per_fwd, n_bf16 in SAMM_BF16_OPTIONS:
+        eng = InversionEngine(e4e_opt(), params=params, device="cuda", **kwargs)
+        eng.invert(imgs[0], seed=7)
+        torch.cuda.synchronize()
+        seen, restore = record_b1_dtypes()
+        try:
+            reset_counts()
+            out = eng.invert(imgs[0], seed=7)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            restore()
+        if counts != expected_counts(**per_fwd) or seen.count(torch.bfloat16) != n_bf16:
+            raise AssertionError(f"{label}: launched {counts}, B1 targets {seen}")
+        taps_launches += counts["warp_blend_taps_bf16"]
+        if differing_outputs(out, ref) == []:
+            raise AssertionError(f"{label}: the reply equals the default engine's")
+        text = bf16_compare(f"{label} vs default", out, ref, ("image", "mask"))[1]
+        _, ms = spatial_timed(lambda: eng.invert(imgs[0], seed=7))
+        log(f"[samm bf16] {label}, 1024px float32: launches {{{', '.join(f'{k}: {v}' for k, v in counts.items() if v)}}} "
+            f"({n_bf16} bfloat16 B1 targets); against the default engine {text}; {ms:.2f} ms/img "
+            f"against the default's {ms_ref:.2f} (CUDA events, median of 3)")
+        del eng
+    x = torch.from_numpy(np.random.RandomState(SEED + 1).rand(1, 512, 512, 3)
+                         .astype(np.float32) * 2.0 - 1.0)
+    floor, samm.WARP_BF16_MIN = samm.WARP_BF16_MIN, 32
+    try:
+        for label, kwargs, per_fwd, _ in SAMM_BF16_OPTIONS:
+            case = e4e_opt(out_size=512, channel_multiplier=1, encoder_num_layers=4,
+                           narrow=1.0 if "fit" in label else 0.25)
+            small = noisy(InversionEngine(case, seed=SEED + 1, device="cuda")).net.state_dict()
+            gpu = InversionEngine(case, params=small, device="cuda", **kwargs)
+            cpu = InversionEngine(case, params=small, device="cpu", **kwargs)
+            noise = cpu.net.generator.make_noise(
+                1, torch.Generator().manual_seed(3), torch.device("cpu"))
+            with torch.inference_mode():
+                cref = cpu.net(x, mod_size=256, noise=noise)
+                reset_counts()
+                out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
+                torch.cuda.synchronize()
+                counts = read_counts()
+            if counts != expected_counts(**per_fwd):
+                raise AssertionError(f"small slice {label}: launched {counts}")
+            text = bf16_compare(f"small slice {label}, card vs CPU", out,
+                                {k: cref[k].cuda() for k in ("image", "gen_image", "mask",
+                                                             "lats")})[1]
+            errs = {k: rel_err(out[k], cref[k].cuda()) for k in ("image", "gen_image", "mask")}
+            log(f"[samm bf16] small slice (512px, {label}): card vs CPU max rel err "
+                f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())}; {text}")
+        fit_conditioning()
+    finally:
+        samm.WARP_BF16_MIN = floor
+    log(f"[samm bf16] phase took {time.time() - t_phase:.1f} s")
+    return taps_launches
+
+
+# fit_conditioning's nudge of the input: NUDGE of itself, from these seeds
+NUDGE, NUDGE_SEEDS = 1e-6, (100, 101, 102)
+
+
+def fit_conditioning():
+    """The readings behind the small slice's configuration of
+    samm_warp_bf16="fit": "fit" at warp_scale 0.75, where the quarter-width
+    32px block casts (C 128, a flow bound of 14 px), at the CPU test's
+    configuration (tests/test_torch_samm_bf16.py: 64px, ModSize 64) and at
+    the small slice's (512px, ModSize 256, where the 64px block casts too).
+    Each reading is max|diff| / max|ref| of image, gen_image and mask: the
+    card against the CPU; the card against the CPU with B1's bfloat16
+    sample computed in float32 on the bfloat16 taps, as the card's kernel
+    computes it (the plain version rounds the weights, products and sums
+    to bfloat16, as JAX's reference does); and how far each device's own
+    output moves when its input moves by NUDGE of itself, the most over
+    NUDGE_SEEDS. Holds the outputs finite; the caller lowers the cast's
+    floor to 32px."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    from ood_gan_inversion_tpu_torch.nn import samm
+    from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend_reference
+    keys = ("image", "gen_image", "mask")
+    real = samm.warp_blend
+
+    def kernel_arithmetic(target, grid, alpha):
+        if target.dtype == torch.bfloat16:
+            return warp_blend_reference(target.float(), grid, alpha).to(target.dtype)
+        return real(target, grid, alpha)
+
+    def rel(a, b):
+        return {k: rel_err(a[k], b[k]) for k in keys}
+
+    def worst(errs):
+        return {k: max(e[k] for e in errs) for k in keys}
+
+    def text(errs):
+        return ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+
+    for size, mod_size in ((64, 64), (512, 256)):
+        t0 = time.time()
+        case = e4e_opt(out_size=size, channel_multiplier=1, encoder_num_layers=4,
+                       narrow=0.25, warp_scale=0.75, ModSize=mod_size)
+        params = noisy(InversionEngine(case, seed=SEED + 1, device="cuda")).net.state_dict()
+        engines = {d: InversionEngine(case, params=params, device=d, samm_warp_bf16="fit")
+                   for d in ("cuda", "cpu")}
+        noise = engines["cpu"].net.generator.make_noise(
+            1, torch.Generator().manual_seed(3), torch.device("cpu"))
+        x = torch.from_numpy(np.random.RandomState(SEED + 1).rand(1, size, size, 3)
+                             .astype(np.float32) * 2.0 - 1.0)
+
+        def run(dev, xx):
+            with torch.inference_mode():
+                out = engines[dev].net(xx.to(dev), mod_size=mod_size,
+                                       noise=[n.to(dev) for n in noise])
+            out = {k: out[k].float().cpu() for k in keys}
+            if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+                raise AssertionError(f"fit conditioning {size}px on {dev}: non-finite output")
+            return out
+
+        base = {d: run(d, x) for d in ("cuda", "cpu")}
+        samm.warp_blend = kernel_arithmetic
+        try:
+            cpu_kernel = run("cpu", x)
+        finally:
+            samm.warp_blend = real
+        spread = {}
+        for d in ("cuda", "cpu"):
+            nudged = []
+            for seed in NUDGE_SEEDS:
+                g = torch.Generator().manual_seed(seed)
+                nudged.append(rel(run(d, x * (1.0 + NUDGE * torch.randn(x.shape, generator=g))),
+                                  base[d]))
+            spread[d] = worst(nudged)
+        log(f"[samm bf16] fit conditioning ({size}px, ModSize {mod_size}, narrow 0.25, "
+            f"warp_scale 0.75), max|diff| / max|ref|: card vs CPU {text(rel(base['cuda'], base['cpu']))}; "
+            f"card vs CPU with B1's bfloat16 sample in float32 as the kernel computes it "
+            f"{text(rel(base['cuda'], cpu_kernel))}; card's own output under a {NUDGE:g} nudge "
+            f"of the input (worst of {len(NUDGE_SEEDS)} seeds) {text(spread['cuda'])}; the "
+            f"CPU's {text(spread['cpu'])}; took {time.time() - t0:.1f} s")
 
 
 def main():
@@ -2940,13 +3390,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
     dp_launches, pipeline_dp_launches = phase_data_parallel()
-    entries = [phase_kernels(), *phase_packed_kernels(), *phase_samm_kernels()]
+    entries = [*phase_kernels(), *phase_packed_kernels(), *phase_samm_kernels()]
     phase_gradients()
     train_launches, train_ms = 0, {}
     for yml, cycle_align in TRAIN_FAMILIES:
         n, train_ms[yml] = phase_training(yml, cycle_align)
         train_launches += n
     phase_train_small_reference()
+    phase_banded_training()
+    phase_band_gradients()
     pipeline_launches = phase_train_pipeline()
     pipeline_launches += phase_restyle_pipeline(train_ms["ReStyle_Face.yml"][FUSED_STEP])
     test_launches = phase_test_pipeline()
@@ -2960,7 +3412,8 @@ def main():
     log(f"[serve] B1 launches behind the server: {serving_launches}")
     sharded_launches = phase_sharded({"float32": engine, "bfloat16": bf16s["bf16 default"]},
                                      imgs)
-    spatial_launches = phase_spatial(engine, imgs)
+    spatial_launches = phase_spatial(engine, imgs, tails, bf16s)
+    taps_launches = phase_samm_bf16(engine, imgs)
     # B1's launches: this slice's main path, the test_pipeline runs; the
     # E4E_Face.yml train steps and the train_pipeline runs under their own
     # keys. Each path is counted from 0 just before it
@@ -2971,14 +3424,18 @@ def main():
     entries[0]["dp_launches"] = dp_launches
     entries[0]["pipeline_dp_launches"] = pipeline_dp_launches
     entries[0]["sharded_launches"] = sharded_launches
-    entries[0]["spatial_launches"] = spatial_launches
+    entries[0]["spatial_launches"] = spatial_launches["warp_blend"]
     entries[0]["train_launches_per_step"] = {
         yml.split("_")[0]: {"step0": train_b1(c)[0], "fused": train_b1(c)[FUSED_STEP]}
         for yml, c in TRAIN_FAMILIES}
     phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s,
                       **bf16s}, imgs)
+    launches["warp_blend_taps_bf16"] = taps_launches
     for e in entries[1:]:
         e["launches"] = launches[e["name"]]
+    for e in entries:
+        if e["name"] in ("fused_conv3x3_act", "fused_packed_stage"):
+            e["spatial_launches"] = spatial_launches[e["name"]]
     phase_small_reference()
     phase_family_small_reference()
     entries[0]["inventory_launches"] = phase_inventory()
@@ -2991,9 +3448,10 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cc_bound_ms")
     for e in entries:
         e.setdefault("cc_bound_ms", e["bound_ms"])
-    extra = ("bf16_ms", "test_launches", "train_launches", "pipeline_launches",
-             "train_launches_per_step", "dp_launches", "pipeline_dp_launches",
-             "sharded_launches", "spatial_launches", "inventory_launches")
+    extra = ("bf16_ms", "bf16_bound_ms", "bf16_library_ms", "serves", "test_launches",
+             "train_launches", "pipeline_launches", "train_launches_per_step", "dp_launches",
+             "pipeline_dp_launches", "sharded_launches", "spatial_launches",
+             "inventory_launches")
     log(json.dumps({"kernels": [{k: e[k] for k in keys + tuple(x for x in extra if x in e)}
                                 for e in entries]}))
     log(json.dumps({"ok": True, "device": {

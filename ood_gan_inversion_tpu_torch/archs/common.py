@@ -18,8 +18,10 @@ encoder's, by the arch's `modulation_type`:
 FeatureStyle's content injection mixes a feature into the generator's
 activation at the layers `features_in` names. Stages that are neither
 conditioned nor injected run phase-packed where the generator packs them
-(`Generator.stage_is_packable`), or banded over a mesh's slots inside
-parallel/spatial.py's `banding`."""
+(`Generator.stage_is_packable`); inside parallel/spatial.py's `banding`
+they run banded over a mesh's slots (phase-packed where the generator packs
+them), and a conditioned or injected stage takes its input gathered onto
+the first slot and runs whole there."""
 
 import math
 
@@ -85,6 +87,10 @@ def conditioned_decode(arch, lats, feats_c, mod_size: int, noise, features_in=No
     i = 1
     for idx, to_rgb in enumerate(gen.to_rgbs):
         conditioned = i in cond_layers or i in features_in or i + 1 in features_in
+        if conditioned:
+            # SAMM and the feature injection run whole on the first slot
+            # (parallel/spatial.py; nothing outside its banding context)
+            out, skip = spatial.gather(out), spatial.gather(skip)
         if spatial.banded(out, conditioned):
             out, skip = spatial.banded_stage(
                 gen, idx, out, skip, lats[:, i], lats[:, i + 1], lats[:, i + 2],

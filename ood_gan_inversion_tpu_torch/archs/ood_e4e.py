@@ -53,8 +53,10 @@ class OODFaceGANE4E(nn.Module):
     packed_tail and tail_kernel choose how the generator computes its
     >=512px stages (nn/stylegan2.py), samm_body0 and samm_conv_kernel how
     the SAMM blocks compute AlignNet's body0 (nn/samm.py), samm_fp32_infer
-    whether a bfloat16 arch runs them in float32 (archs/common.py); none of
-    them adds a parameter. A family subclass sets `ENCODER` and builds its
+    whether a bfloat16 arch runs them in float32 (archs/common.py), and
+    samm_conv_bf16, samm_warp_bf16 and samm_gather_bf16 which of a float32
+    arch's SAMM operands are bfloat16 (nn/samm.py); none of them adds a
+    parameter. A family subclass sets `ENCODER` and builds its
     encoder in `build_encoder`; the `encoder` key must name that family."""
     ENCODER = "E4E"
 
@@ -65,9 +67,10 @@ class OODFaceGANE4E(nn.Module):
                  blend_with_gen=True, blend_cnt=1, optim_delta_latent=False,
                  dtype=torch.float32,
                  packed_tail=False, tail_kernel="none", samm_body0="algebraic",
-                 samm_conv_kernel=False, samm_fp32_infer=False):
+                 samm_conv_kernel=False, samm_fp32_infer=False, samm_conv_bf16=False,
+                 samm_warp_bf16="off", samm_gather_bf16=False):
         super().__init__()
-        check_samm_options(samm_body0, samm_conv_kernel)
+        check_samm_options(samm_body0, samm_conv_kernel, samm_conv_bf16, samm_warp_bf16)
         if encoder != self.ENCODER:
             raise ValueError(
                 f"{type(self).__name__} builds the {self.ENCODER} encoder; got "
@@ -98,7 +101,10 @@ class OODFaceGANE4E(nn.Module):
                                                diff_f_and_g=diff_fAndg,
                                                style_dim=style_dim,
                                                samm_body0=samm_body0,
-                                               samm_conv_kernel=samm_conv_kernel)
+                                               samm_conv_kernel=samm_conv_kernel,
+                                               samm_conv_bf16=samm_conv_bf16,
+                                               samm_warp_bf16=samm_warp_bf16,
+                                               samm_gather_bf16=samm_gather_bf16)
                 for i, s in enumerate(sizes) if s <= out_size})
         self.generator = Generator(out_size, style_dim, channel_multiplier, narrow,
                                    packed_tail=packed_tail, tail_kernel=tail_kernel,

@@ -42,6 +42,14 @@
 // depends on its own pixel's inputs only, so a sample's output is the same
 // bits in any batch slot.
 //
+// A third instantiation serves the SAMM option samm_gather_bf16 (JAX's
+// OGI_GRIDSAMPLE=gather4bf16): a float32 target and output, the bilinear
+// sample computed in JAX's bfloat16 arithmetic (TAPS_BF16): each tap, wx,
+// wy, 1 - wx, 1 - wy, each weight, each product and each partial sum
+// rounded to bfloat16 (round to nearest even), in the plain version's
+// order; then the float32 blend with the unrounded centre. So it is its
+// plain version bit for bit.
+//
 // Plain C interface (bound with ctypes): launches on the given stream and
 // returns cudaGetLastError().
 
@@ -117,9 +125,14 @@ template <> struct Vec<__nv_bfloat16, 1> {
   }
 };
 
+// v rounded to bfloat16 (nearest even), as a float
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // Block (strip, slice, sample): warp w takes pixel w of the strip, lane l
 // the vector slice * 32 + l of that pixel.
-template <typename T, int N>
+template <typename T, int N, bool TAPS_BF16>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 warp_blend_kernel(const T* __restrict__ target, const float* __restrict__ grid,
                   const float* __restrict__ alpha, T* __restrict__ out, int H, int W,
@@ -136,9 +149,13 @@ warp_blend_kernel(const T* __restrict__ target, const float* __restrict__ grid,
   const float fx = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(g.x, 1.0f), (float)W), -1.0f), 0.5f);
   const float fy = __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(g.y, 1.0f), (float)H), -1.0f), 0.5f);
   const float xf = floorf(fx), yf = floorf(fy);
-  const float wx = __fadd_rn(fx, -xf), wy = __fadd_rn(fy, -yf);
-  const float w[4] = {__fmul_rn(1.0f - wx, 1.0f - wy), __fmul_rn(wx, 1.0f - wy),
-                      __fmul_rn(1.0f - wx, wy), __fmul_rn(wx, wy)};
+  float wx = __fadd_rn(fx, -xf), wy = __fadd_rn(fy, -yf);
+  if (TAPS_BF16) wx = bf16_round(wx), wy = bf16_round(wy);
+  float ox = __fadd_rn(1.0f, -wx), oy = __fadd_rn(1.0f, -wy);
+  if (TAPS_BF16) ox = bf16_round(ox), oy = bf16_round(oy);
+  float w[4] = {__fmul_rn(ox, oy), __fmul_rn(wx, oy), __fmul_rn(ox, wy), __fmul_rn(wx, wy)};
+  if (TAPS_BF16)
+    for (int t = 0; t < 4; ++t) w[t] = bf16_round(w[t]);
   // which taps lie in the image, without forming x + 1 (xf may be huge)
   const int xi = (int)xf, yi = (int)yf;
   const bool in_x[2] = {xf >= 0.0f && xf < (float)W, xf >= -1.0f && xf < (float)(W - 1)};
@@ -157,28 +174,37 @@ warp_blend_kernel(const T* __restrict__ target, const float* __restrict__ grid,
   float o[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    float s = __fmul_rn(V::at(tap[0], i), w[0]);
-    s = __fadd_rn(s, __fmul_rn(V::at(tap[1], i), w[1]));
-    s = __fadd_rn(s, __fmul_rn(V::at(tap[2], i), w[2]));
-    s = __fadd_rn(s, __fmul_rn(V::at(tap[3], i), w[3]));
+    float s;
+    if (TAPS_BF16) {
+      s = bf16_round(__fmul_rn(bf16_round(V::at(tap[0], i)), w[0]));
+#pragma unroll
+      for (int t = 1; t < 4; ++t)
+        s = bf16_round(__fadd_rn(s, bf16_round(__fmul_rn(bf16_round(V::at(tap[t], i)), w[t]))));
+    } else {
+      s = __fmul_rn(V::at(tap[0], i), w[0]);
+      s = __fadd_rn(s, __fmul_rn(V::at(tap[1], i), w[1]));
+      s = __fadd_rn(s, __fmul_rn(V::at(tap[2], i), w[2]));
+      s = __fadd_rn(s, __fmul_rn(V::at(tap[3], i), w[3]));
+    }
     o[i] = __fadd_rn(__fmul_rn(s, a), __fmul_rn(V::at(cen, i), ia));
   }
   V::store(out + first * C + v * N + pix * C, o);
 }
 
-template <typename T, int N>
+template <typename T, int N, bool TAPS_BF16 = false>
 void launch(const void* target, const float* grid, const float* alpha, void* out, int B,
             int H, int W, int C, cudaStream_t stream) {
   const int strips_w = (W + PIXELS - 1) / PIXELS;
   const int vectors = C / N;
   const dim3 blocks(strips_w * H, (vectors + SLICE - 1) / SLICE, B);
-  warp_blend_kernel<T, N><<<blocks, THREADS, 0, stream>>>(
+  warp_blend_kernel<T, N, TAPS_BF16><<<blocks, THREADS, 0, stream>>>(
       static_cast<const T*>(target), grid, alpha, static_cast<T*>(out), H, W, C, strips_w);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. All tensors NHWC-contiguous:
+// dtype: 0 = float32, 1 = bfloat16, 2 = float32 sampled in bfloat16. All
+// tensors NHWC-contiguous:
 // target/out (B, H, W, C), grid (B, H, W, 2) float32, alpha (B, H, W, 1) float32.
 // Returns cudaGetLastError() after the launch (0 = success); 1000 for an
 // argument the kernel does not take (B > 65535, H * W * C >= 2^31, or a
@@ -188,9 +214,9 @@ extern "C" int ogi_warp_blend(const void* target, const void* grid,
                               int W, int C, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C <= 0 ||
       (int64_t)H * W * C >= ((int64_t)1 << 31) || reinterpret_cast<uintptr_t>(grid) % 8 != 0 ||
-      (dtype != 0 && dtype != 1))
+      dtype < 0 || dtype > 2)
     return 1000;
-  const int esize = dtype == 0 ? 4 : 2, n16 = 16 / esize;
+  const int esize = dtype == 1 ? 2 : 4, n16 = 16 / esize;
   const bool vec = C % n16 == 0 && reinterpret_cast<uintptr_t>(target) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const float* g = static_cast<const float*>(grid);
@@ -199,6 +225,9 @@ extern "C" int ogi_warp_blend(const void* target, const void* grid,
   if (dtype == 0) {
     if (vec) launch<float, 4>(target, g, a, out, B, H, W, C, s);
     else     launch<float, 1>(target, g, a, out, B, H, W, C, s);
+  } else if (dtype == 2) {
+    if (vec) launch<float, 4, true>(target, g, a, out, B, H, W, C, s);
+    else     launch<float, 1, true>(target, g, a, out, B, H, W, C, s);
   } else {
     if (vec) launch<__nv_bfloat16, 8>(target, g, a, out, B, H, W, C, s);
     else     launch<__nv_bfloat16, 1>(target, g, a, out, B, H, W, C, s);

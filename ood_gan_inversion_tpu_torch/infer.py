@@ -81,7 +81,8 @@ class InversionEngine:
     def __init__(self, opt, params=None, seed: int = 0, device="cuda",
                  packed_tail: bool = False, tail_kernel: str = "none",
                  samm_body0: str = "algebraic", samm_conv_kernel: bool = False,
-                 samm_fp32_infer: bool = False):
+                 samm_fp32_infer: bool = False, samm_conv_bf16: bool = False,
+                 samm_warp_bf16: str = "off", samm_gather_bf16: bool = False):
         """opt: option dict with `network_g` (its `dtype`, float32 unless
         given, is the activations' dtype); params: a state_dict of the arch
         (e.g. from convert.from_jax_params), loaded strictly; without it the
@@ -91,7 +92,11 @@ class InversionEngine:
         blocks compute AlignNet's body0 (nn/samm.py); the default is the
         algebraic formulation in plain PyTorch. samm_fp32_infer: a bfloat16
         arch runs its SAMM blocks in float32 (archs/common.py; off by
-        default, as JAX's OGI_SAMM_FP32_INFER)."""
+        default, as JAX's OGI_SAMM_FP32_INFER). samm_conv_bf16,
+        samm_warp_bf16 ("off", "fit" or "all"), samm_gather_bf16: a float32
+        arch's SAMM convs, warp feature or warp taps in bfloat16 (nn/samm.py;
+        off by default, as JAX's OGI_SAMM_CONV_BF16, OGI_MXU_WARP_BF16 and
+        OGI_GRIDSAMPLE=gather4bf16 are on the CPU)."""
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -101,7 +106,8 @@ class InversionEngine:
         g_opt = arch_options(opt["network_g"])
         g_opt.update(packed_tail=packed_tail, tail_kernel=tail_kernel,
                      samm_body0=samm_body0, samm_conv_kernel=samm_conv_kernel,
-                     samm_fp32_infer=samm_fp32_infer)
+                     samm_fp32_infer=samm_fp32_infer, samm_conv_bf16=samm_conv_bf16,
+                     samm_warp_bf16=samm_warp_bf16, samm_gather_bf16=samm_gather_bf16)
         self.out_size = opt["network_g"].get("out_size", 1024)
         self.mod_size = opt["network_g"].get("ModSize") or 256
         with torch.device(self.device):
@@ -227,10 +233,12 @@ class InversionEngine:
     def invert_spatial(self, img01, seed: int = 0, mesh=None, min_h: int = 512):
         """One image with the generator stages of at least min_h rows banded
         over the mesh's slots (every visible CUDA device by default;
-        parallel/spatial.py); the encoder, the coarse stages, SAMM and the
-        blend run once on the first slot. The noise is invert's for `seed`;
-        the result is on the engine's device. The phase-packed tail is not
-        banded (ROADMAP A10b): an engine with packed_tail raises."""
+        parallel/spatial.py), phase-packed where the engine's packed_tail
+        packs them (each band through its tail_kernel); the encoder, the
+        coarse stages, SAMM (and the stages it conditions, whose banded
+        input is gathered) and the blend run once on the first slot. The
+        noise is invert's for `seed`; the result is on the engine's
+        device."""
         mesh = mesh or make_mesh(axes=("sp",))
         first = mesh.slots[0]
         x = self.input_batch([img01]).to(first)

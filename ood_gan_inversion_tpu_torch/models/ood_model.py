@@ -55,6 +55,16 @@ before the clip, so the clip's norm is the global batch's) and the logs
 makes global. The step's draws are the global batch's, from the same
 generator on every rank, each rank keeping its rows: an N-rank step takes
 the one-process step's draws, and `state_dict()` is the same on every rank.
+
+Banded (parallel/spatial.py): `train_step` called inside
+`spatial.banding(mesh, Replicas(model.net_g, model.device), min_h)` runs
+every decode of the step, the path regularizer's double backward
+included, with its >= min_h generator stages banded over the mesh's slots;
+a band on another device computes with the trained parameters moved into
+the graph, so its gradients reach them. Under a process group each rank
+bands its own rows: ranks x slots, JAX's ("data", "sp") mesh. JAX reaches
+this only by calling its train_step inside `spatial_sharding`, and so does
+the port: no option of `run_train` bands.
 """
 
 import contextlib

@@ -7,7 +7,9 @@ algebra): the same linear algebra, with conv2's packed kernel dense (4x the
 MACs of the unpacked conv). `tail_kernel` picks how a packed stage is
 computed: "none" (plain PyTorch), "pair" (the fused packed conv kernel,
 twice) or "stage" (the whole-stage kernel). Off by default: on the H100 in
-float32 the unpacked tail does fewer MACs. The style MLP (`style_mlp`, z ->
+float32 the unpacked tail does fewer MACs. `packed_operands` makes a packed
+stage's row-independent operands and `packed_rows` computes it on rows, so
+that parallel/spatial.py can run it banded. The style MLP (`style_mlp`, z ->
 W) is not on the inversion path; training draws the latent
 discriminator's real latents from it. `Discriminator` is the StyleGAN2
 image discriminator.
@@ -212,67 +214,89 @@ class Generator(nn.Module):
         4 Cmid) when not unpack_out; skip (B, 3, 2H, 2W)); both NCHW views
         of NHWC tensors, so the next packed stage reads its input in place.
         """
+        ops = self.packed_operands(idx, l0, l1, l2, out.dtype)
+        rgb, z2 = self.packed_rows(ops, out.permute(0, 2, 3, 1).contiguous(),
+                                   skip.permute(0, 2, 3, 1).contiguous(), noise_a, noise_b)
+        if not unpack_out:
+            return z2, self.unpack(rgb, 3)
+        return self.unpack(z2, self.convs[2 * idx].conv.weight.shape[0]), self.unpack(rgb, 3)
+
+    @staticmethod
+    def unpack(packed, c):
+        """A packed NHWC (B, H, W, 4c) tensor as the NCHW view (B, c, 2H,
+        2W) of its unpacked NHWC."""
+        return unpack_depth_to_space(packed, c).permute(0, 3, 1, 2)
+
+    def packed_operands(self, idx, l0, l1, l2, dt):
+        """The operands of stage idx's packed computation that do not depend
+        on rows: the style scales, demodulations, biases and noise
+        strengths (float32) and the packed kernels (in dt, the activations'
+        dtype), as the dict packed_rows takes."""
         conv_a, conv_b, to_rgb = self.convs[2 * idx], self.convs[2 * idx + 1], self.to_rgbs[idx]
         ca, cb, cr = conv_a.conv, conv_b.conv, to_rgb.conv
-        b, cin, h, w = out.shape
-        cmid = ca.weight.shape[0]
-        dt = out.dtype
-        x = out.permute(0, 2, 3, 1).contiguous()
-        skip = skip.permute(0, 2, 3, 1).contiguous()
-
-        def packed_noise(noise, injection):
-            n = pack_space_to_depth(noise.float().permute(0, 2, 3, 1))
-            return n * injection.weight.float()
+        cmid, cin = ca.weight.shape[:2]
 
         def hwio(weight):
             return weight.permute(2, 3, 1, 0)
 
-        n_a, n_b = packed_noise(noise_a, conv_a.noise), packed_noise(noise_b, conv_b.noise)
         # conv_a: modulated upsample-conv + FIR blur as one packed 3x3 conv.
         # The style scales go to the kernels in float32, as their other
         # per-channel operands: exact for bfloat16 latents, and each use
-        # below rounds them to dt again where JAX does.
+        # in packed_rows rounds them to dt again where JAX does.
         s_a = ca.modulation(l0).float()
         w_a = ca.weight * (1.0 / math.sqrt(cin * 9))
-        d_a = tile_phase_major(demod_scale(w_a, s_a))
-        k1 = upconv_blur_packed_kernel(hwio(w_a), ca.blur_kernel).to(dt)
         # conv_b: same-resolution modulated 3x3, packed 4C -> 4C
         s_b = cb.modulation(l1).float()
         w_b = cb.weight * (1.0 / math.sqrt(cmid * 9))
-        s_b, d_b = tile_phase_major(s_b), tile_phase_major(demod_scale(w_b, s_b))
-        k2 = conv3x3_packed_kernel(hwio(w_b)).to(dt)
-        b_a = tile_phase_major(conv_a.activate.bias)
-        b_b = tile_phase_major(conv_b.activate.bias)
-        # to_rgb (1x1, no demod) and the packed FIR upsample of the skip
-        s_r = tile_phase_major(cr.modulation(l2).float())
-        k3 = conv1x1_packed_kernel(hwio(cr.weight * (1.0 / math.sqrt(cmid))))[0, 0]
-        b_r = tile_phase_major(to_rgb.bias)
-        k4 = skip_up_packed_kernel(to_rgb.blur_kernel, 3, dt, out.device)
+        ops = {"s_a": s_a, "d_a": tile_phase_major(demod_scale(w_a, s_a)),
+               "k1": upconv_blur_packed_kernel(hwio(w_a), ca.blur_kernel).to(dt),
+               "s_b": tile_phase_major(s_b), "d_b": tile_phase_major(demod_scale(w_b, s_b)),
+               "k2": conv3x3_packed_kernel(hwio(w_b)).to(dt),
+               "b_a": tile_phase_major(conv_a.activate.bias),
+               "b_b": tile_phase_major(conv_b.activate.bias),
+               "n_a": conv_a.noise.weight.float(), "n_b": conv_b.noise.weight.float(),
+               # to_rgb (1x1, no demod) and the packed FIR upsample of the skip
+               "s_r": tile_phase_major(cr.modulation(l2).float()),
+               "k3": conv1x1_packed_kernel(hwio(cr.weight * (1.0 / math.sqrt(cmid))))[0, 0],
+               "b_r": tile_phase_major(to_rgb.bias),
+               "k4": skip_up_packed_kernel(to_rgb.blur_kernel, 3, dt, l0.device)}
+        return ops
 
+    def packed_rows(self, ops, x, skip, noise_a, noise_b):
+        """The packed stage on rows: x (B, h, W, Cin) and skip (B, h, W, 3)
+        NHWC coarse, noise_a / noise_b their fine (B, 1, 2h, 2W) rows, ops
+        from packed_operands. Zero padding at the rows' border, as at the
+        image's. Returns (rgb (B, h, W, 12), z2 (B, h, W, 4 Cmid)), packed,
+        through tail_kernel's route."""
+        b, h, w, _ = x.shape
+        dt = x.dtype
+
+        def packed_noise(noise, strength):
+            return pack_space_to_depth(noise.float().permute(0, 2, 3, 1)) * strength
+
+        n_a, n_b = packed_noise(noise_a, ops["n_a"]), packed_noise(noise_b, ops["n_b"])
+        s_a, d_a, k1, b_a = ops["s_a"], ops["d_a"], ops["k1"], ops["b_a"]
+        s_b, d_b, k2, b_b = ops["s_b"], ops["d_b"], ops["k2"], ops["b_b"]
+        s_r, k3, b_r, k4 = ops["s_r"], ops["k3"], ops["b_r"], ops["k4"]
         if self.tail_kernel == "stage":
             k3sr = (s_r[:, :, None] * k3[None]).to(dt)
-            rgb, z2 = fused_packed_stage(x, n_a, n_b, skip, k1, s_a, d_a, b_a,
-                                         k2, s_b, d_b, b_b, k3sr, b_r, k4)
+            return fused_packed_stage(x, n_a, n_b, skip, k1, s_a, d_a, b_a,
+                                      k2, s_b, d_b, b_b, k3sr, b_r, k4)
+        if self.tail_kernel == "pair":
+            z2 = fused_packed_pair(x, n_a, n_b, k1, s_a, d_a, b_a, k2, s_b, d_b, b_b)
         else:
-            if self.tail_kernel == "pair":
-                z2 = fused_packed_pair(x, n_a, n_b, k1, s_a, d_a, b_a, k2, s_b, d_b, b_b)
-            else:
-                def add_noise_lrelu(z, n_packed, bias):
-                    z = (z.reshape(b, h, w, 4, -1) + n_packed.to(dt)[..., None]
-                         ).reshape(b, h, w, -1)
-                    return fused_leaky_relu(z.permute(0, 3, 1, 2), bias).permute(0, 2, 3, 1)
+            def add_noise_lrelu(z, n_packed, bias):
+                z = (z.reshape(b, h, w, 4, -1) + n_packed.to(dt)[..., None]
+                     ).reshape(b, h, w, -1)
+                return fused_leaky_relu(z.permute(0, 3, 1, 2), bias).permute(0, 2, 3, 1)
 
-                z = conv_packed(x * s_a[:, None, None, :].to(dt), k1)
-                z = add_noise_lrelu(z * d_a.to(dt)[:, None, None, :], n_a, b_a)
-                z2 = conv_packed(z * s_b.to(dt)[:, None, None, :], k2)
-                z2 = add_noise_lrelu(z2 * d_b.to(dt)[:, None, None, :], n_b, b_b)
-            rgb = conv_packed(z2 * s_r.to(dt)[:, None, None, :], k3[None, None].to(dt),
-                              padding=0)
-            rgb = rgb + b_r.to(dt) + conv_packed(skip, k4)
-        skip_fine = unpack_depth_to_space(rgb, 3).permute(0, 3, 1, 2)
-        if not unpack_out:
-            return z2, skip_fine
-        return unpack_depth_to_space(z2, cmid).permute(0, 3, 1, 2), skip_fine
+            z = conv_packed(x * s_a[:, None, None, :].to(dt), k1)
+            z = add_noise_lrelu(z * d_a.to(dt)[:, None, None, :], n_a, b_a)
+            z2 = conv_packed(z * s_b.to(dt)[:, None, None, :], k2)
+            z2 = add_noise_lrelu(z2 * d_b.to(dt)[:, None, None, :], n_b, b_b)
+        rgb = conv_packed(z2 * s_r.to(dt)[:, None, None, :], k3[None, None].to(dt),
+                          padding=0)
+        return rgb + b_r.to(dt) + conv_packed(skip, k4), z2
 
     def forward(self, latent, noise):
         """Plain (unconditioned) decode; noise from make_noise."""

@@ -103,17 +103,19 @@ def alignnet_body0_reference(s, t, g1, b1, k1, alpha, k2, g2, b2,
     return (inorm(_conv(z, k2), g2, b2) + h).to(s.dtype)
 
 
-def alignnet_t_context(t, g1, b1, k1, eps: float = 1e-5):
+def alignnet_t_context(t, g1, b1, k1, eps: float = 1e-5, conv_bf16: bool = False):
     """The cycle-invariant, t-only terms of algebraic_alignnet_body0: the
-    t-moments, IN(t), and the t-half of conv1."""
+    t-moments, IN(t), and the t-half of conv1 (on bfloat16 operands with
+    conv_bf16, as there)."""
     c = t.shape[1]
+    k1 = k1.to(torch.bfloat16 if conv_bf16 else t.dtype)
     t32 = t.float()
     et = _mean_hw(t32)
     vt = torch.clamp(_mean_hw(t32 * t32) - et * et, min=0.0)
     inv_t = torch.rsqrt(vt + eps)
     gb, bb = g1[c:].float(), b1[c:].float()
     r2 = torch.rsqrt(vt * inv_t * inv_t + eps)
-    x1b = (_cv(inv_t * r2 * gb) * t32 + _cv(-et * inv_t * r2 * gb + bb)).to(t.dtype)
+    x1b = (_cv(inv_t * r2 * gb) * t32 + _cv(-et * inv_t * r2 * gb + bb)).to(k1.dtype)
     zb = _conv(x1b, k1[:, c:])
     tn = ((t32 - _cv(et)) * _cv(inv_t)).to(t.dtype)
     return {"et": et, "vt": vt, "inv_t": inv_t, "tn": tn, "zb": zb}
@@ -121,13 +123,19 @@ def alignnet_t_context(t, g1, b1, k1, eps: float = 1e-5):
 
 def algebraic_alignnet_body0(s, t, g1, b1, k1, alpha, k2, g2, b2,
                              diff_f_and_g: bool = True, eps: float = 1e-5,
-                             t_ctx=None):
+                             t_ctx=None, conv_bf16: bool = False):
     """body0 from (s, t) by the folded coefficients. s: generator feature,
     t: encoder feature, both (B, C, H, W) before the entry IN; g1/b1 (2C,)
     norm1 affine, k1 (2C, 2C, 3, 3), alpha (2C,) PReLU slopes, k2
     (2C, 2C, 3, 3), g2/b2 (2C,) norm2 affine. t_ctx: alignnet_t_context(t)
-    for a t reused across calls."""
+    for a t reused across calls (made with the same conv_bf16). conv_bf16
+    (JAX's OGI_SAMM_CONV_BF16): the convs' operands x1a, x1b, z and the
+    kernels in bfloat16 (the kernels cast before they are sliced), each
+    conv summed in float32 and rounded to bfloat16; moments, coefficients
+    and the shortcut as without it."""
     c = s.shape[1]
+    cdt = torch.bfloat16 if conv_bf16 else s.dtype
+    k1, k2 = k1.to(cdt), k2.to(cdt)
     s32, t32 = s.float(), t.float()
     if t_ctx is not None:
         et, vt, inv_t = t_ctx["et"], t_ctx["vt"], t_ctx["inv_t"]
@@ -146,7 +154,7 @@ def algebraic_alignnet_body0(s, t, g1, b1, k1, alpha, k2, g2, b2,
             r1 = torch.rsqrt(vs * inv_s * inv_s + eps)
             as_, at_ = inv_s * r1 * ga, torch.zeros_like(inv_s)
             b1h = -es * inv_s * r1 * ga + ba
-        x1a = (_cv(as_) * s32 + _cv(at_) * t32 + _cv(b1h)).to(s.dtype)
+        x1a = (_cv(as_) * s32 + _cv(at_) * t32 + _cv(b1h)).to(cdt)
         z = _conv(x1a, k1[:, :c]) + t_ctx["zb"]
         sn = ((s32 - _cv(es)) * _cv(inv_s)).to(s.dtype)
         h1 = sn - t_ctx["tn"] if diff_f_and_g else sn
@@ -155,8 +163,8 @@ def algebraic_alignnet_body0(s, t, g1, b1, k1, alpha, k2, g2, b2,
         coeffs, h1, h2 = _alignnet_coeffs(s32, t32, g1, b1, diff_f_and_g, eps)
         h1, h2 = h1.to(s.dtype), h2.to(s.dtype)
         as_, at_, b1h, ct_, b2h = (_cv(coeffs[:, i]) for i in range(5))
-        x1a = (as_ * s32 + at_ * t32 + b1h).to(s.dtype)
-        x1b = (ct_ * t32 + b2h).to(s.dtype)
+        x1a = (as_ * s32 + at_ * t32 + b1h).to(cdt)
+        x1b = (ct_ * t32 + b2h).to(cdt)
         z = _conv(x1a, k1[:, :c]) + _conv(x1b, k1[:, c:])
     z = torch.where(z >= 0, z, _cv(alpha[None].to(z.dtype)) * z)
     y2f = _conv(z, k2).float()

@@ -5,7 +5,8 @@ python -m ood_gan_inversion_tpu_torch.run_inversion \
     [--out results/inversion] [--direction smile --intensity 1.5] \
     [--device cuda] [--dtype bfloat16] [--packed-tail] \
     [--tail-kernel none|pair|stage] [--samm-body0 algebraic|fused|literal] \
-    [--samm-conv-kernel] [--samm-fp32-infer]
+    [--samm-conv-kernel] [--samm-fp32-infer] [--samm-conv-bf16] \
+    [--samm-warp-bf16 off|fit|all] [--samm-gather-bf16]
 
 Inverts every image of each dataset's `dataroot_gt`, writes the inversion
 and the per-scale masks as PNG files and reports each `val.metrics` entry
@@ -89,6 +90,9 @@ def main(argv=None):
                     choices=("algebraic", "fused", "literal"))
     ap.add_argument("--samm-conv-kernel", action="store_true")
     ap.add_argument("--samm-fp32-infer", action="store_true")
+    ap.add_argument("--samm-conv-bf16", action="store_true")
+    ap.add_argument("--samm-warp-bf16", default="off", choices=("off", "fit", "all"))
+    ap.add_argument("--samm-gather-bf16", action="store_true")
     args = ap.parse_args(argv)
     with open(args.opt) as f:
         opt = load_yaml(f)
@@ -103,7 +107,9 @@ def main(argv=None):
                   params=params, device=args.device, packed_tail=args.packed_tail,
                   tail_kernel=args.tail_kernel, samm_body0=args.samm_body0,
                   samm_conv_kernel=args.samm_conv_kernel,
-                  samm_fp32_infer=args.samm_fp32_infer)
+                  samm_fp32_infer=args.samm_fp32_infer,
+                  samm_conv_bf16=args.samm_conv_bf16, samm_warp_bf16=args.samm_warp_bf16,
+                  samm_gather_bf16=args.samm_gather_bf16)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""The port's hand-written CUDA kernels (warp-blend, the packed conv B3, the
-packed stage B4, the AlignNet body0 kernels B2a and B2b, the conv3x3 +
-activation B5 and the halo probe) against their plain PyTorch versions on
+"""The port's hand-written CUDA kernels (warp-blend in its three
+instantiations, the packed conv B3, the packed stage B4, also on bands,
+the AlignNet body0 kernels B2a and B2b, the conv3x3 + activation B5 and
+the halo probe) against their plain PyTorch versions on
 the card, and their autograd Functions' gradients against the plain
 versions' own. Every test here needs a CUDA card and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -102,6 +103,74 @@ def test_warp_blend_kernel_bf16_target(cuda):
     assert out.dtype == torch.bfloat16
     ref = warp_blend_reference(xb.float(), grid, alpha)
     assert float((out.float() - ref).abs().max()) <= 2.0 ** -8 * float(x.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,c", [(256, 128), (128, 256), (64, 512), (32, 512), (19, 36)])
+def test_warp_blend_taps_bf16_kernel_on_card(cuda, size, c):
+    """B1's instantiation for samm_gather_bf16 (a float32 target sampled in
+    JAX's gather4bf16 arithmetic, everything of the bilinear sample rounded
+    to bfloat16) at the four SAMM scales and a ragged shape (19 x 17,
+    C = 36, one-element path, flow at the bound): within 1e-6 of
+    max|target| of its plain version (it computes the same roundings in
+    the same order, so bit for bit is expected), which lies further than
+    that from a sample that rounds only the taps and from the float32
+    warp-blend."""
+    from ood_gan_inversion_tpu_torch.ops.grid_sample import grid_sample_bilinear
+    from ood_gan_inversion_tpu_torch.ops.warp_blend import warp_blend_taps_bf16
+    x, grid, alpha = (torch.from_numpy(a).to(cuda) for a in
+                      warp_inputs(2, size, c, 0.08, seed=size + c, at_bound=size == 19))
+    if size == 19:
+        x, grid, alpha = (t[:, :, :17].contiguous() for t in (x, grid, alpha))
+    before = (warp_blend.launches, warp_blend_taps_bf16.launches)
+    out = warp_blend_taps_bf16(x, grid, alpha)
+    torch.cuda.synchronize()
+    assert (warp_blend.launches, warp_blend_taps_bf16.launches) == (before[0], before[1] + 1)
+    assert out.dtype == torch.float32
+    plain = warp_blend_reference(x, grid, alpha, taps_bf16=True)
+    taps_only = grid_sample_bilinear(x.bfloat16().float(), grid) * alpha + x * (1.0 - alpha)
+    tol = 1e-6 * float(x.abs().max())
+    assert float((out - plain).abs().max()) <= tol
+    assert float((plain - taps_only).abs().max()) > tol
+    assert float((plain - warp_blend_reference(x, grid, alpha)).abs().max()) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tail_kernel", ["pair", "stage"])
+def test_banded_packed_tail_on_card(cuda, tail_kernel, dtype):
+    """A 1024px generator (a quarter of the widths) with the packed tail,
+    banded at min_h 512 over 2 and 4 slots of the card, against its
+    unbanded decode: each band launches B3 twice ("pair") or B4 once
+    ("stage") per packed stage, on its window of coarse rows; within 1e-5
+    (float32) or 2^-7 (bfloat16) of max|ref|."""
+    from ood_gan_inversion_tpu_torch.nn.layers import init_weights
+    from ood_gan_inversion_tpu_torch.nn.stylegan2 import Generator, NoiseInjection
+    from ood_gan_inversion_tpu_torch.parallel import Replicas, make_mesh, spatial
+    with torch.device(cuda):
+        gen = init_weights(Generator(1024, 512, 2, 0.25, n_mlp=2, packed_tail=True,
+                                     tail_kernel=tail_kernel), 0).eval()
+    for m in gen.modules():
+        if isinstance(m, NoiseInjection):
+            m.weight.data.fill_(0.1)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    lat = (torch.randn(1, gen.n_latent, 512, generator=g, device=cuda) * 0.3).to(dtype)
+    noise = gen.make_noise(1, g, cuda)
+    counter = packed_conv.fused_conv3x3_act if tail_kernel == "pair" else \
+        packed_conv.fused_packed_stage
+    per_band = 2 if tail_kernel == "pair" else 1
+    with torch.no_grad():
+        before = counter.launches
+        ref = gen(lat, noise)
+        assert counter.launches - before == 2 * per_band
+        for n in (2, 4):
+            before = counter.launches
+            with spatial.banding(make_mesh([cuda] * n, axes=("sp",)), Replicas(gen, cuda), 512):
+                out = gen(lat, noise)
+            torch.cuda.synchronize()
+            assert counter.launches - before == 2 * per_band * n
+            tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            assert rel_err(out, ref.float()) <= tol, n
 
 
 def packed_operands(dev, b, h, w, c1, c4, dtype, seed=0, inputs=packed_stage_inputs):

@@ -11,7 +11,13 @@ same seeded weights (JAX's TrainState loaded into the port through the
 bridge) and the same global noise, path cotangent and z (JAX's noise fed
 to its forward as tests/test_torch_train.py feeds it). The cases: step 0
 with `net_d_reg_every = net_g_reg_every = 1` (R1 in the D phase, the
-path regularizer in the G phase) and a fused step.
+path regularizer in the G phase) and a fused step. The reg case also runs
+banded (parallel/spatial.py, min_h 16: the 16px stage banded, its output
+gathered into the 32px SAMM stage, whose output is banded again): on the
+2 ranks with 2 CPU slots each, the port's counterpart of JAX's hybrid
+("data", "sp") (2, 2) mesh step (tests/test_parallel.py), and in one
+process on the slots ["cpu", "cpu:0"], a second device whose bands must
+send their gradients to the trained parameters.
 
 Tolerances:
   * against JAX: every logged loss within 1e-4 relative (LOSS_RTOL; the
@@ -48,7 +54,8 @@ from test_torch_train import capture, equal_lr_fill, unflatten
 from torch_parity import fill_params
 
 from ood_gan_inversion_tpu.models import build_model
-from ood_gan_inversion_tpu.parallel import make_mesh, replicate_sharding, shard_batch
+from ood_gan_inversion_tpu.parallel import (make_mesh, replicate_sharding, shard_batch,
+                                            spatial_sharding)
 from ood_gan_inversion_tpu_torch.convert import flatten_tree, load_jax_train_state, port_key, \
     port_value
 from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
@@ -62,6 +69,7 @@ SELF_RTOL, SELF_ATOL = 1e-5, 1e-6
 LR = 2e-5
 B, SIZE = 4, 32
 LIMIT_S = 240          # a multi-process run's hard limit
+SP_MIN_H = 16          # the banded cases' min_h (tests/test_parallel.py's hybrid case)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
@@ -170,14 +178,17 @@ def runs(tmp_path_factory):
         ranks' mask means, so the hinge is active on one rank only), and
         "fused", a fused step 1; one seeded state for both;
       * "jax": {name: (JAX's state after, its logs)}, each step on a
-        2-device mesh;
-      * "two": both cases on 2 gloo ranks, [rank 0's, rank 1's]; the same
+        2-device mesh, and "hybrid", the reg case on a ("data", "sp")
+        (2, 2) mesh inside spatial_sharding(min_h 16);
+      * "two": both cases, then the reg case banded over 2 CPU slots per
+        rank ("hybrid"), on 2 gloo ranks, [rank 0's, rank 1's]; the same
         ranks then run "collectives" (workers.collectives), "broadcast"
         (workers.broadcast) and "pipeline" (workers.pipeline,
         pipeline_args), "pipeline_exp" its experiment directory;
       * "four": the reg case on 4 ranks (1 sample each), rank 0's;
       * "one": both cases' one-process steps on the global batch, then the
-        reg case on each of 2 shards alone;
+        reg case on each of 2 shards alone, then the reg case banded over
+        the slots ["cpu", "cpu:0"];
       * "means": the 2 ranks' mask means."""
     d = tmp_path_factory.mktemp("torch_parallel")
     batch, noise, cot, _ = draws(3)
@@ -195,12 +206,14 @@ def runs(tmp_path_factory):
         cases[name] = {"opt": opts[name], "state": path, "step": step, "batch": batch,
                        "noise": noise, "cot": cot, "z": z}
     both = [cases["reg"], cases["fused"]]
+    hybrid = dict(cases["reg"], sp=(["cpu", "cpu"], SP_MIN_H))
+    banded = dict(cases["reg"], sp=(["cpu", "cpu:0"], SP_MIN_H))
     exp = str(d / "exp")
-    started = {"two": Ranks(workers.two_ranks, 2, (both, pipeline_args(d, exp)),
+    started = {"two": Ranks(workers.two_ranks, 2, (both + [hybrid], pipeline_args(d, exp)),
                             workdir=d / "two"),
                "four": Ranks(workers.take_steps, 4, ([cases["reg"]],), workdir=d / "four"),
                "one": Ranks(workers.take_steps, 1,
-                            (both + [rows(cases["reg"], r, 2) for r in range(2)],),
+                            (both + [rows(cases["reg"], r, 2) for r in range(2)] + [banded],),
                             workdir=d / "one")}
     mesh = make_mesh(jax.devices()[:2])
     out = {"cases": cases, "means": means, "jax": {}}
@@ -212,6 +225,13 @@ def runs(tmp_path_factory):
         new, logs = jm.train_step(jstate, shard_batch(batch, mesh), rngs[name],
                                   cases[name]["step"])
         out["jax"][name] = (new, {k: float(v) for k, v in logs.items()})
+    mesh2d = make_mesh(jax.devices()[:4], axes=("data", "sp"), shape=(2, 2))
+    jstate = jax.device_put(jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True), state),
+                            replicate_sharding(mesh2d))
+    jm = jax_model(opts["reg"], noise, cot)
+    with spatial_sharding(mesh2d, min_h=SP_MIN_H):
+        new, logs = jm.train_step(jstate, shard_batch(batch, mesh2d), rngs["reg"], 0)
+    out["jax"]["hybrid"] = (new, {k: float(v) for k, v in logs.items()})
     got = {k: r.join(LIMIT_S) for k, r in started.items()}
     out.update(two=[r["steps"] for r in got["two"]], four=got["four"][0], one=got["one"][0],
                collectives=[r["collectives"] for r in got["two"]],
@@ -324,7 +344,7 @@ def test_per_rank_statistics_would_fail(runs):
     assert min(B, 4) > B // 2                      # the stddev group spans both ranks
     area = case["opt"]["train"]["mask_opt"]["loss_func"]["area"]["32"]
     assert min(runs["means"]) < area < max(runs["means"])   # active on one rank only
-    per_rank = runs["one"][2:]
+    per_rank = runs["one"][2:4]
     for k in ("l_area", "l_g_path"):
         mean = (per_rank[0]["logs"][k] + per_rank[1]["logs"][k]) / 2
         scale = max(abs(jlogs[k]), area_scale(case)) if k == "l_area" else abs(jlogs[k])
@@ -424,3 +444,44 @@ def test_train_pipeline_on_two_ranks(runs):
     assert num_devices({}) == 1 and num_devices({"num_devices": 1}) == 1
     with pytest.raises(ValueError, match="num_devices 2 but the world size is 1"):
         num_devices({"num_devices": 2})
+
+
+def test_hybrid_step_matches_jax_2d_mesh_step(runs):
+    """The reg case on 2 ranks x 2 CPU slots (each rank banding its rows'
+    decodes at min_h 16, step 0: R1 and the path regularizer's double
+    backward through the bands) against JAX's step on the ("data", "sp")
+    (2, 2) mesh inside spatial_sharding: the logs, the path mean, the
+    averaged gradients and the updates, at the 2-rank case's tolerances
+    (and, as the one-process comparisons hold them, the D scores, means of
+    unit-scale terms that cancel, within SELF_ATOL absolute: the bands
+    move the image by float32 rounding); the replicas bit for bit."""
+    case = runs["cases"]["reg"]
+    jnew, jlogs = runs["jax"]["hybrid"]
+    r0, r1 = runs["two"][0][2], runs["two"][1][2]
+    assert {"l_d_r1", "l_g_path", "path_length", "l_area"} <= set(r0["logs"])
+    check_logs(r0["logs"], jlogs, LOSS_RTOL, SELF_ATOL, area=area_scale(case))
+    assert abs(r0["mpl"] - float(jnew.mean_path_length)) <= LOSS_RTOL * abs(
+        float(jnew.mean_path_length))
+    before = before_of(case)
+    for net, which in (("net_g", "g"), ("net_d", "d")):
+        check_grads(r0["grads"][net], jax_grads(jnew, which), GRAD_RTOL)
+        check_updates(r0["after"][net], jax_after(jnew, which), before[which],
+                      r0["grads"][net], 1e-3)
+    assert r0["logs"] == r1["logs"]
+    assert r0["checksums"] == r1["checksums"] and len(set(r0["checksums"])) == 1
+
+
+def test_banded_step_equals_unbanded_step(runs):
+    """The reg case banded in one process over the slots ["cpu", "cpu:0"]
+    (the second a distinct device, whose bands compute with the trained
+    parameters moved into the graph) against the unbanded one-process step:
+    only the bands' sums differ."""
+    case = runs["cases"]["reg"]
+    got, ref = runs["one"][4], runs["one"][0]
+    check_logs(got["logs"], ref["logs"], SELF_RTOL, SELF_ATOL, area_scale(case))
+    assert abs(got["mpl"] - ref["mpl"]) <= SELF_RTOL * abs(ref["mpl"])
+    before = before_of(case)
+    for net, which in (("net_g", "g"), ("net_d", "d")):
+        check_grads(got["grads"][net], ref["grads"][net], 1e-4)
+        check_updates(got["after"][net], ref["after"][net], before[which],
+                      ref["grads"][net], 1e-4)

@@ -6,9 +6,11 @@ replicas (parallel/mesh.py), the H-banded decode (parallel/spatial.py,
 paths. A mesh's slots repeat the CPU, as JAX's tests use the session's
 virtual CPU devices.
 
-Tolerances: the banded decode against JAX's `spatial_sharding` output
-within JAX's own test's rtol / atol 2e-4 (tests/test_parallel.py), and
-against the port's unbanded forward within the same; `invert_batch_sharded`
+Tolerances: the banded decode (through a conditioned stage and through the
+packed tail too) against JAX's `spatial_sharding` output within JAX's own
+test's rtol / atol 2e-4 (tests/test_parallel.py), and against the port's
+unbanded forward within the same; band gradients against the unbanded ones
+within 1e-4 of max|ref|; `invert_batch_sharded`
 against JAX's within the slice's 1e-3 of max|ref| (tests/test_torch_arch.py);
 the per-key sharded entry and the server's replies bit for bit the
 unsharded ones (the port's contract, C2)."""
@@ -23,9 +25,11 @@ import torch
 from test_torch_serve import OPT, images, serve
 from torch_parity import (fill_params, init_shapes, jax_tree, load_port, max_rel_err,
                           with_style_mlp)
+from torch_parity import release_freed_memory  # noqa: F401 (autouse)
 
 from ood_gan_inversion_tpu.archs.ood_e4e import OODFaceGANE4E as JArch
 from ood_gan_inversion_tpu.infer import InversionEngine as JEngine
+from ood_gan_inversion_tpu.nn.stylegan2 import Generator as JGenerator
 from ood_gan_inversion_tpu.nn.stylegan2 import NoiseInjection as JNoiseInjection
 from ood_gan_inversion_tpu.parallel import make_mesh as j_make_mesh
 from ood_gan_inversion_tpu.parallel import replicate_sharding, spatial_sharding
@@ -33,7 +37,8 @@ from ood_gan_inversion_tpu_torch.archs.ood_e4e import OODFaceGANE4E
 from ood_gan_inversion_tpu_torch.convert import from_jax_params
 from ood_gan_inversion_tpu_torch.infer import InversionEngine
 from ood_gan_inversion_tpu_torch.nn.layers import init_weights
-from ood_gan_inversion_tpu_torch.nn.stylegan2 import ModulatedConv2d, NoiseInjection
+from ood_gan_inversion_tpu_torch.nn import stylegan2 as sg2
+from ood_gan_inversion_tpu_torch.nn.stylegan2 import Generator, ModulatedConv2d, NoiseInjection
 from ood_gan_inversion_tpu_torch.ops.upfirdn2d import make_kernel, upsample2x
 from ood_gan_inversion_tpu_torch.parallel import Replicas, make_mesh, spatial, split_batch
 from ood_gan_inversion_tpu_torch.serve import BatchingServer
@@ -125,8 +130,8 @@ def test_halo_rows_of_each_op(name):
 @pytest.fixture(scope="module")
 def sp_case():
     """The spatial case's seeded JAX tree, its input and noise, and JAX's
-    spatially sharded output (4 virtual devices, min_h 32; JAX's own test
-    holds it to its unsharded forward)."""
+    spatially sharded outputs (4 virtual devices, min_h 32 and 16; JAX's
+    own test holds the first to its unsharded forward)."""
     x = jnp.zeros((1, 64, 64, 3), jnp.float32)
     # traced at ModSize 64, so that the tree holds both SAMM blocks the port builds
     flat = fill_params(init_shapes(JArch(**SP_CFG), x, mod_size=64), seed=3)
@@ -142,11 +147,14 @@ def sp_case():
 
     params = jax_tree(flat)
     mesh = j_make_mesh(jax.devices()[:4], axes=("sp",))
-    with spatial_sharding(mesh, min_h=32):
-        out = np.asarray(jax.jit(fwd)(jax.device_put(params, replicate_sharding(mesh)),
-                                      jax.device_put(jnp.asarray(img), replicate_sharding(mesh))))
+    out = {}
+    for min_h in (32, 16):
+        with spatial_sharding(mesh, min_h=min_h):
+            out[min_h] = np.asarray(jax.jit(fwd)(
+                jax.device_put(params, replicate_sharding(mesh)),
+                jax.device_put(jnp.asarray(img), replicate_sharding(mesh))))
     full = with_style_mlp(flat, jarch, 512, seed=5)
-    return {"flat": full, "img": img, "noise": noise, "jax_sp": out}
+    return {"flat": full, "img": img, "noise": noise, "jax_sp": out[32], "jax_sp16": out[16]}
 
 
 def port_arch(case):
@@ -182,25 +190,143 @@ def test_spatial_decode_matches_jax(sp_case):
     np.testing.assert_allclose(banded, plain, rtol=SP_TOL, atol=SP_TOL)
 
 
-def test_invert_spatial_and_refusals(sp_case):
+def test_invert_spatial_and_refusals(sp_case, monkeypatch):
     """The engine's entry against its invert (the same seed's noise) on 2 and
-    4 slots; a conditioned stage that would take a banded input and the
-    packed tail are refused, naming ROADMAP A10b."""
+    4 slots. At min_h 16 the 16px stage is banded and the 32px stage, which
+    holds SAMM, takes its input gathered (it was refused before banding
+    reached conditioned stages): the arch's forward against JAX's
+    spatial_sharding output at min_h 16 and the unbanded forward, and the
+    engine's entry against invert. The phase-packed tail (refused before
+    too) runs banded: with the packing threshold lowered to 64px (as
+    tests/test_torch_packed.py lowers it), the 64px stage packed, each
+    tail_kernel's engine against its own invert."""
     state, _ = from_jax_params(sp_case["flat"])
     opt = {"network_g": {"type": "ood_faceGAN_e4e", **SP_CFG, "ModSize": 32}}
     eng = InversionEngine(opt, params=state, device="cpu")
     img = sp_case["img"][0] + 0.3
     ref = eng.invert(img, seed=2)
     for n in (2, 4):
-        out = eng.invert_spatial(img, seed=2, mesh=cpu_mesh(n, ("sp",)), min_h=32)
-        for k in ("image", "mask", "gen_image"):
-            assert out[k].device == eng.device
-            torch.testing.assert_close(out[k], ref[k], rtol=SP_TOL, atol=SP_TOL)
-    with pytest.raises(NotImplementedError, match="A10b"):     # the 32px stage holds SAMM
-        eng.invert_spatial(img, seed=2, mesh=cpu_mesh(2, ("sp",)), min_h=16)
-    packed = InversionEngine(opt, params=state, device="cpu", packed_tail=True)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        packed.invert_spatial(img, seed=2, mesh=cpu_mesh(2, ("sp",)), min_h=32)
+        for min_h in (32, 16):
+            out = eng.invert_spatial(img, seed=2, mesh=cpu_mesh(n, ("sp",)), min_h=min_h)
+            for k in ("image", "mask", "gen_image"):
+                assert out[k].device == eng.device
+                torch.testing.assert_close(out[k], ref[k], rtol=SP_TOL, atol=SP_TOL)
+    arch = port_arch(sp_case)
+    x = torch.from_numpy(sp_case["img"])
+    noise = [torch.from_numpy(n) for n in sp_case["noise"]]
+    with torch.no_grad():
+        plain = arch(x, mod_size=32, noise=noise)["image"].numpy()
+        with spatial.banding(cpu_mesh(4, ("sp",)), Replicas(arch, "cpu"), min_h=16):
+            banded = arch(x, mod_size=32, noise=noise)["image"].numpy()
+    np.testing.assert_allclose(banded, sp_case["jax_sp16"], rtol=SP_TOL, atol=SP_TOL)
+    np.testing.assert_allclose(banded, plain, rtol=SP_TOL, atol=SP_TOL)
+    monkeypatch.setattr(sg2, "_PACKED_MIN_RES", 64)
+    calls = []
+    stage = spatial.banded_packed_stage
+
+    def spy(gen, idx, *a):
+        calls.append(idx)
+        return stage(gen, idx, *a)
+
+    monkeypatch.setattr(spatial, "banded_packed_stage", spy)
+    for tail_kernel in ("none", "pair", "stage"):
+        packed = InversionEngine(opt, params=state, device="cpu", packed_tail=True,
+                                 tail_kernel=tail_kernel)
+        ref = packed.invert(img, seed=2)
+        for n in (2, 4):
+            out = packed.invert_spatial(img, seed=2, mesh=cpu_mesh(n, ("sp",)), min_h=32)
+            for k in ("image", "mask", "gen_image"):
+                torch.testing.assert_close(out[k], ref[k], rtol=SP_TOL, atol=SP_TOL)
+    assert calls == [3] * 6
+
+
+def test_band_gradients_reach_the_trained_parameters(sp_case, monkeypatch):
+    """Under grad mode a band on a second device (the slot "cpu:0", a
+    device of its own for the mesh, whose replica would be a deep copy)
+    computes with the arch's parameters moved into the graph: the
+    gradients of a loss of the banded forward, the path-length kind (a
+    gradient of the latents' gradient) included, equal the unbanded ones;
+    with the bands on the replicas instead, the stages' gradients miss."""
+    arch = port_arch(sp_case)
+    x = torch.from_numpy(sp_case["img"])
+    noise = [torch.from_numpy(n) for n in sp_case["noise"]]
+    lats = arch.encode(x.permute(0, 3, 1, 2), noise=arch.split_noise(noise)[0])[0]
+    lats = lats.detach().requires_grad_()
+    cot = torch.from_numpy(np.random.RandomState(9).randn(1, 3, 64, 64).astype(np.float32))
+    params = list(arch.generator.parameters())
+
+    def grads(mesh=None):
+        feats = [f.detach() for f in arch.encode(x.permute(0, 3, 1, 2),
+                                                 noise=arch.split_noise(noise)[0])[1]]
+
+        def decode():
+            return arch.decode_samm(lats, feats, x.permute(0, 3, 1, 2), 32,
+                                    arch.split_noise(noise)[1])["image"]
+
+        if mesh is None:
+            img = decode()
+        else:
+            with spatial.banding(mesh, Replicas(arch, "cpu"), min_h=32):
+                img = decode()
+        (gl,) = torch.autograd.grad(img, lats, cot, create_graph=True)
+        loss = (img * cot).sum() + gl.square().sum()
+        return torch.autograd.grad(loss, params, allow_unused=True)
+
+    ref = grads()
+    mesh = make_mesh(["cpu", "cpu:0"], axes=("sp",))
+    got = grads(mesh)
+    err = max(max_rel_err(g.numpy(), r.numpy()) for g, r in zip(got, ref) if r is not None)
+    assert err < 1e-4
+    monkeypatch.setattr(spatial._State, "twin", lambda st, m, dev: st.replicas.get(dev)
+                        .get_submodule(st._names[id(m)]))
+    on_copies = grads(mesh)
+    monkeypatch.undo()
+    err = max(max_rel_err(g.numpy(), r.numpy()) for g, r in zip(on_copies, ref)
+              if r is not None and r.abs().max() > 0)
+    assert err > 0.1
+
+
+def test_banded_packed_generator_matches_jax(monkeypatch):
+    """tests/test_parallel.py's packed-stage spatial case (512px
+    Generator, channel_multiplier 1, narrow 0.5, min_h 128, JAX's XLA
+    packed tail at 512px on 4 devices) through the port's packed tail with
+    each tail_kernel on 2 and 4 slots: the 128 and 256px stages banded,
+    the 512px stage packed and banded (its bands' windows 2 coarse rows
+    past their own, clipped at the image's border), against JAX's
+    spatial_sharding output and the port's unbanded packed decode."""
+    jgen = JGenerator(size=512, style_dim=512, n_mlp=2, channel_multiplier=1, narrow=0.5)
+    rs = np.random.RandomState(11)
+    lat = (rs.randn(1, 16, 512) * 0.3).astype(np.float32)
+    gen = Generator(512, 512, 1, 0.5, n_mlp=2)
+    noise = [rs.randn(*s).astype(np.float32) for s in gen.noise_shapes(1)]
+    flat = with_style_mlp(fill_params(init_shapes(jgen, jnp.asarray(lat)), seed=12), jgen, 512,
+                          seed=13)
+    mesh = j_make_mesh(jax.devices()[:4], axes=("sp",))
+    jnoise = [jnp.asarray(n.transpose(0, 2, 3, 1)) for n in noise]
+    with spatial_sharding(mesh, min_h=128):
+        ref = np.asarray(jax.jit(lambda p, l: jgen.apply({"params": p}, l, noise=jnoise))(
+            jax.device_put(jax_tree(flat), replicate_sharding(mesh)),
+            jax.device_put(jnp.asarray(lat), replicate_sharding(mesh))))
+    calls = []
+    stage = spatial.banded_packed_stage
+
+    def spy(g, idx, *a):
+        calls.append(idx)
+        return stage(g, idx, *a)
+
+    monkeypatch.setattr(spatial, "banded_packed_stage", spy)
+    tn = [torch.from_numpy(n) for n in noise]
+    for tail_kernel in ("none", "pair", "stage"):
+        gen = load_port(Generator(512, 512, 1, 0.5, n_mlp=2, packed_tail=True,
+                                  tail_kernel=tail_kernel), flat, prefix="generator/")
+        with torch.no_grad():
+            plain = gen(torch.from_numpy(lat), tn).permute(0, 2, 3, 1).numpy()
+            for n in (2, 4):
+                with spatial.banding(cpu_mesh(n, ("sp",)), Replicas(gen, "cpu"), min_h=128):
+                    got = gen(torch.from_numpy(lat), tn).permute(0, 2, 3, 1).numpy()
+                np.testing.assert_allclose(got, ref, rtol=SP_TOL, atol=SP_TOL)
+                np.testing.assert_allclose(got, plain, rtol=SP_TOL, atol=SP_TOL)
+    assert calls == [6] * 6
 
 
 # ------------------------------------------------------------- data-sharded entries

@@ -7,6 +7,7 @@ one-process reference.
 This module imports no JAX, so that the spawned ranks do not load it.
 """
 
+import contextlib
 import copy
 import logging
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from ood_gan_inversion_tpu_torch.models import OODFaceGANModel
-from ood_gan_inversion_tpu_torch.parallel import dist
+from ood_gan_inversion_tpu_torch.parallel import Replicas, dist, make_mesh, spatial
 
 CPU = torch.device("cpu")
 NETS = ("net_g", "net_d", "net_d2")
@@ -28,7 +29,9 @@ def take_step(case):
     """One train step of a port model on the case's state, as this rank
     takes it. case: {"opt", "state" (a path of OODFaceGANModel.state_dict()),
     "step", "batch" (the global batch, numpy), "noise" (the global
-    per-layer list, NCHW), "cot", "z" (global, or None: drawn)}. Returns
+    per-layer list, NCHW), "cot", "z" (global, or None: drawn), and
+    optionally "sp": (slots, min_h), the step then taken inside
+    `spatial.banding` over a mesh of those slots}. Returns
     the logs, the gradients the optimizers were given ({net: {name:
     tensor}}, averaged over the ranks), those parameters after the step,
     the path mean, and every rank's checksum of its nets' state."""
@@ -49,9 +52,14 @@ def take_step(case):
 
     model._grads = record
     opt = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
-    logs = model.train_step({k: _rows(v) for k, v in case["batch"].items()}, case["step"],
-                            noise=None if case["noise"] is None else [opt(n) for n in case["noise"]],
-                            path_cot=opt(case["cot"]), z=opt(case["z"]))
+    sp = case.get("sp")
+    banding = (spatial.banding(make_mesh(sp[0], axes=("sp",)), Replicas(model.net_g, CPU), sp[1])
+               if sp else contextlib.nullcontext())
+    with banding:
+        logs = model.train_step({k: _rows(v) for k, v in case["batch"].items()}, case["step"],
+                                noise=None if case["noise"] is None
+                                else [opt(n) for n in case["noise"]],
+                                path_cot=opt(case["cot"]), z=opt(case["z"]))
     # the trainable parameters only (those the optimizers were given): the
     # frozen encoder's full-width style heads would multiply what every
     # rank sends back
