@@ -5,8 +5,10 @@
    process per source, all at once.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (plus border-pinned flows, ragged tiles
-   and bfloat16), and times the kernel, the plain version and the closest
-   PyTorch library call with CUDA events.
+   and bfloat16: B1's bit for bit; B5's and B2b's through the TMA kernel of
+   csrc/tma_conv.cuh, one launch of it per call, its repack pass and its
+   host-side tensor-map encoding timed apart), and times the kernel, the
+   plain version and the closest PyTorch library call with CUDA events.
 3. Drives the main path -- E4E inversion at 1024px with the IR-SE-50
    encoder, cycle_align 2, warp_scale 0.08, ModSize 256, float32, seeded
    random weights -- through `InversionEngine.invert`, the batched
@@ -26,7 +28,9 @@
    requests, with its ms/img curve; the bfloat16 engine behind
    `BatchingServer` (in process and over HTTP), every reply against the
    direct per-seed inversion, then requests/s and reply latency at 1, 4
-   and 8 clients. Then times every configuration in interleaved rounds.
+   and 8 clients. Then times every configuration in interleaved rounds,
+   the float32 engine with samm_conv_bf16 (body0's convs on cuDNN in
+   bfloat16) among them.
    Then holds the slice on the card against the same slice on the CPU at a
    small width, unpacked, with the whole-stage kernel, in both body0 modes
    and in bfloat16. Then runs the halo probe, the box-sum kernel's own
@@ -109,6 +113,7 @@ line. It needs CUDA and refuses to run on the CPU.
 
 import contextlib
 import copy
+import ctypes
 import json
 import math
 import subprocess
@@ -254,6 +259,8 @@ def phase_build():
                 log(f"[build] {name}:   {line.strip()}")
             if "C7517" in line:
                 hazards.append(f"{name}: {line.strip()}")
+            elif "C7514" in line:        # wgmmas serialised: a cost, not a hazard
+                log(f"[build] {name}: {line.strip()}")
     if hazards:
         raise AssertionError("ptxas injected warpgroup waits:\n" + "\n".join(hazards))
 
@@ -261,7 +268,8 @@ def phase_build():
 def phase_kernels():
     """warp_blend against warp_blend_reference at the main-path shapes;
     timed beside a plain copy of the same target and on a zero flow, with
-    the bfloat16 target's bound and its library call (F.grid_sample in
+    a bfloat16 target (bit for bit its plain version, which samples in
+    bfloat16 arithmetic), its bound and its library call (F.grid_sample in
     bfloat16 + the blend). Then its instantiation for samm_gather_bf16
     (warp_blend_taps_bf16: a float32 target sampled in JAX's gather4bf16
     bfloat16 arithmetic) at the same shapes: within TAPS_BF16_RTOL of
@@ -294,15 +302,15 @@ def phase_kernels():
                 log(f"[kernel] warp_blend b={b} {size}px C={c} flow at +-bound: "
                     f"max|err| {err:.3e} <= {tol:.3e}")
                 continue
-            # bfloat16 target, float32 math: within one bf16 step at max|x|
+            # bfloat16 target (dtype code 1): bit for bit its plain version on
+            # the same target, which samples in bfloat16 arithmetic
             xb = x.to(torch.bfloat16)
-            outb = warp_blend(xb, grid, alpha).float()
-            refb = warp_blend_reference(xb.float(), grid, alpha)
-            errb = float((outb - refb).abs().max())
-            tolb = 2.0 ** -8 * float(x.abs().max())
-            if not errb <= tolb:
-                raise AssertionError(f"warp_blend bf16 {b}x{size}x{c}: "
-                                     f"err {errb} > {tolb}")
+            outb = warp_blend(xb, grid, alpha)
+            refb = warp_blend_reference(xb, grid, alpha)
+            if not torch.equal(outb, refb):
+                raise AssertionError(f"warp_blend bf16 {b}x{size}x{c}: max|err| "
+                                     f"{float((outb.float() - refb.float()).abs().max())}, "
+                                     "not bit for bit its plain version")
             xn = x.permute(0, 3, 1, 2).contiguous()
             an = alpha.permute(0, 3, 1, 2).contiguous()
 
@@ -334,8 +342,8 @@ def phase_kernels():
             bound, bound_by = warp_bound_ms(b, size, c, 4)
             nbytes = 2 * x.numel() * 4 + 12 * b * size * size
             log(f"[kernel] warp_blend b={b} {size}px C={c} fp32: max|err| "
-                f"{err:.3e} <= {tol:.3e}; bf16 max|err| {errb:.3e} <= "
-                f"{tolb:.3e}; kernel {ms:.5f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                f"{err:.3e} <= {tol:.3e}; bf16 bit for bit its plain version; "
+                f"kernel {ms:.5f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
                 f"{bound / ms:.0%} of the bound), bf16 kernel {msb:.5f} ms (bound "
                 f"{warp_bound_ms(b, size, c, 2)[0]:.5f}), zero flow {zero_ms:.5f} ms, "
                 f"copy of the target {copy:.5f} ms (kernel / copy {ms / copy:.2f}), "
@@ -686,6 +694,33 @@ def conv_moments(z, k):
     return y, torch.stack([y.sum((2, 3)), (y * y).sum((2, 3))], 1)
 
 
+def tma_launches(lib):
+    """ogi_tma_conv_launches of csrc/<lib>.cu: its bfloat16 conv launches."""
+    from ood_gan_inversion_tpu_torch import build
+    fn = build.load(lib).ogi_tma_conv_launches
+    fn.restype = ctypes.c_longlong
+    return fn()
+
+
+def tma_repack_costs(x, k):
+    """(ms of the bfloat16 conv's repack pass alone on x, k, host us of
+    encoding one launch's two tensor maps): csrc/tma_conv.cuh."""
+    from ood_gan_inversion_tpu_torch import build
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    from ood_gan_inversion_tpu_torch.ops.samm_conv import tma_scratch
+    b, c, h, w = x.shape
+    co = k.shape[0]
+    xr, wr = tma_scratch(x, k)
+    repack = entry("samm_conv", "ogi_tma_repack", 4, 6)
+    ms = time_ms(lambda: repack(x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), b, c,
+                                h, w, co, xr.shape[3], torch.cuda.current_stream().cuda_stream),
+                 iters=10)
+    enc = build.load("samm_conv").ogi_tma_encode_us
+    enc.restype = ctypes.c_double
+    enc.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+    return ms, enc(xr.data_ptr(), wr.data_ptr(), b, h, w, xr.shape[3], co, 1000)
+
+
 def phase_samm_kernels():
     """B2a (alignnet_conv1), B2b (alignnet_conv2) and B5 (conv3x3_act)
     against their plain versions at AlignNet body0's launch shapes at the
@@ -703,6 +738,7 @@ def phase_samm_kernels():
     ids = ("B2a", "B2b", "B5")
     per_image = {k: dict.fromkeys(keys, 0.0) for k in ids}
     max_err = dict.fromkeys(ids, 0.0)
+    repack_per_image = dict.fromkeys(ids, 0.0)
     bound_by = {k: {} for k in ids}
     body0 = {"fused": 0.0, "algebraic": 0.0}
     bf16 = lambda v: v.to(torch.bfloat16)
@@ -720,6 +756,8 @@ def phase_samm_kernels():
                 "B2b": lambda: conv_moments(z_b, k2_b),
                 "B5 conv1": lambda: F.prelu(F.conv2d(x1_b, k1_b, padding=1), alpha_b),
                 "B5 conv2": lambda: F.conv2d(z_b, k2_b, padding=1)}
+            # the bfloat16 operands of the TMA kernel's calls
+            tma_inputs = {"B2b": (z_b, k2_b), "B5 conv1": (x1_b, k1_b), "B5 conv2": (z_b, k2_b)}
             runs = {
                 # id: (kernel, plain, library, bf16 kernel, bf16 plain on the
                 # same rounded operands, flops, bytes at an itemsize)
@@ -764,9 +802,22 @@ def phase_samm_kernels():
                                        SAMM_TOL) for m in range(2) if name == "B2b"]
                 moment_text = "".join(f", sum y{'^2' if m else ''} rel err {e / l * SAMM_TOL:.2e}"
                                       for m, (e, l) in enumerate(moments))
-                # B2b's bfloat16 run reads the same operands as its plain version
-                errb, limb = check_close(f"{what} bf16", first(kern_b()), first(plain_b()),
+                # the bfloat16 run: one TMA kernel launch (tma_conv.cuh); B2b's
+                # reads the same operands as its plain version, its moments too
+                lib_name = "alignnet_conv2" if name == "B2b" else "samm_conv"
+                tma_before = tma_launches(lib_name)
+                got_b, ref_b = kern_b(), plain_b()
+                torch.cuda.synchronize()
+                if tma_launches(lib_name) != tma_before + (name != "B2a"):
+                    raise AssertionError(f"{what} bf16: {tma_launches(lib_name) - tma_before} "
+                                         "TMA kernel launches")
+                errb, limb = check_close(f"{what} bf16", first(got_b), first(ref_b),
                                          SAMM_TOL if name == "B2b" else SAMM_TOL_BF16)
+                moments_b = [check_close(f"{what} bf16 moments {m}", got_b[1][:, m],
+                                         ref_b[1][:, m], SAMM_TOL)
+                             for m in range(2) if name == "B2b"]
+                moment_text += "".join(f", bf16 sum y{'^2' if m else ''} rel err "
+                                       f"{e / l * SAMM_TOL:.2e}" for m, (e, l) in enumerate(moments_b))
                 lib_diff = float((first(lib()) - first(ref)).abs().max())
                 t = {"ms": time_ms(kern, iters=10), "plain_ms": time_ms(plain, iters=10),
                      "library_ms": time_ms(lib, iters=10)}
@@ -777,6 +828,13 @@ def phase_samm_kernels():
                 t["cc_bound_ms"] = cc_ms
                 bf16_ms, bf16_by = tc_bound_ms(flops, nbytes(2), 2)
                 t["bf16_bound_ms"] = bf16_ms
+                tma_text = ""
+                if name in tma_inputs:
+                    # the repack pass alone, and the host cost of the two
+                    # tensor maps that every launch encodes
+                    t["bf16_repack_ms"], enc_us = tma_repack_costs(*tma_inputs[name])
+                    tma_text = (f" (of which the repack pass {t['bf16_repack_ms']:.4f} ms; "
+                                f"tensor maps {enc_us:.2f} us of host time per launch)")
                 log(f"[kernel] {what}: fp32 max|err| {err:.3e} (<= {SAMM_TOL:.0e} of max|ref|)"
                     f"{moment_text}, "
                     f"bf16 {errb:.3e} <= {limb:.3e}; kernel {t['ms']:.4f} ms "
@@ -784,15 +842,18 @@ def phase_samm_kernels():
                     f"cudnn+epilogue {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); bound: "
                     f"tensor cores {t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms "
                     f"({cc_by}: {bound_parts(flops, nbytes(4), FP32_FLOPS)}; "
-                    f"{flops / 1e9:.2f} GFLOP); bf16 kernel {msb:.4f} ms "
-                    f"({flops / msb / 1e9:.1f} TFLOP/s), bound {bf16_ms:.4f} ms ({bf16_by}), "
-                    f"cudnn+epilogue in bf16 {t['bf16_library_ms']:.4f} ms")
+                    f"{flops / 1e9:.2f} GFLOP); bf16 kernel {msb:.4f} ms{tma_text} "
+                    f"({flops / msb / 1e9:.1f} TFLOP/s, {bf16_ms / msb:.0%} of its bound), "
+                    f"bound {bf16_ms:.4f} ms ({bf16_by}), "
+                    f"cudnn+epilogue in bf16 {t['bf16_library_ms']:.4f} ms "
+                    f"(kernel / cudnn {msb / t['bf16_library_ms']:.2f})")
                 kid = name.split()[0]
                 max_err[kid] = max(max_err[kid], err)
                 if b == 1:      # the main path: 2 align cycles per scale per image
                     bound_by[kid][by] = bound_by[kid].get(by, 0.0) + 2 * t["bound_ms"]
                     for key in keys:
                         per_image[kid][key] += 2 * t[key]
+                    repack_per_image[kid] += 2 * t.get("bf16_repack_ms", 0.0)
             args = [a[k] for k in ("s", "t", "g1", "b1", "k1", "alpha", "k2", "g2", "b2")]
             fused = an.fused_alignnet_body0(*args, True)
             alg = an.algebraic_alignnet_body0(*args, True)
@@ -810,13 +871,19 @@ def phase_samm_kernels():
     for kid, name, line, src in (("B2a", "alignnet_conv1", 982, "alignnet_conv1.cu"),
                                  ("B2b", "alignnet_conv2", 1005, "alignnet_conv2.cu"),
                                  ("B5", "conv3x3_act", 517, "samm_conv.cu")):
+        pi = per_image[kid]
         log(f"[kernel] {kid} {name} per image (b=1): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in per_image[kid].items()))
+            + ", ".join(f"{k} {v:.4f}" for k, v in pi.items())
+            + f"; bf16: {pi['bf16_bound_ms'] / pi['bf16_ms']:.0%} of its bound, kernel / "
+            f"cudnn {pi['bf16_ms'] / pi['bf16_library_ms']:.2f}"
+            + (f", the repack pass {repack_per_image[kid]:.4f}" if kid != "B2a" else ""))
         entries.append({"name": name, "route": "cuda",
                         "source": f"ood_gan_inversion_tpu_torch/csrc/{src}",
                         "replaces": f"ood_gan_inversion_tpu/ops/pallas_kernels.py:{line}",
                         "max_abs_err": max_err[kid],
                         "bound_by": max(bound_by[kid], key=bound_by[kid].get),
+                        **({"bf16_source": "ood_gan_inversion_tpu_torch/csrc/tma_conv.cuh"}
+                           if kid != "B2a" else {}),
                         **per_image[kid]})
     return entries
 
@@ -3297,10 +3364,11 @@ def fit_conditioning():
     configuration (tests/test_torch_samm_bf16.py: 64px, ModSize 64) and at
     the small slice's (512px, ModSize 256, where the 64px block casts too).
     Each reading is max|diff| / max|ref| of image, gen_image and mask: the
-    card against the CPU; the card against the CPU with B1's bfloat16
-    sample computed in float32 on the bfloat16 taps, as the card's kernel
-    computes it (the plain version rounds the weights, products and sums
-    to bfloat16, as JAX's reference does); and how far each device's own
+    card against the CPU; the card against a CPU whose B1 computes the
+    bilinear sample of a bfloat16 target in float32 on the bfloat16 taps,
+    as JAX's TPU kernel does (the card's kernel and its plain version round
+    the weights, products and sums to bfloat16, as JAX's reference does);
+    and how far each device's own
     output moves when its input moves by NUDGE of itself, the most over
     NUDGE_SEEDS. Holds the outputs finite; the caller lowers the cast's
     floor to 32px."""
@@ -3310,7 +3378,7 @@ def fit_conditioning():
     keys = ("image", "gen_image", "mask")
     real = samm.warp_blend
 
-    def kernel_arithmetic(target, grid, alpha):
+    def tpu_arithmetic(target, grid, alpha):
         if target.dtype == torch.bfloat16:
             return warp_blend_reference(target.float(), grid, alpha).to(target.dtype)
         return real(target, grid, alpha)
@@ -3346,9 +3414,9 @@ def fit_conditioning():
             return out
 
         base = {d: run(d, x) for d in ("cuda", "cpu")}
-        samm.warp_blend = kernel_arithmetic
+        samm.warp_blend = tpu_arithmetic
         try:
-            cpu_kernel = run("cpu", x)
+            cpu_tpu = run("cpu", x)
         finally:
             samm.warp_blend = real
         spread = {}
@@ -3361,8 +3429,8 @@ def fit_conditioning():
             spread[d] = worst(nudged)
         log(f"[samm bf16] fit conditioning ({size}px, ModSize {mod_size}, narrow 0.25, "
             f"warp_scale 0.75), max|diff| / max|ref|: card vs CPU {text(rel(base['cuda'], base['cpu']))}; "
-            f"card vs CPU with B1's bfloat16 sample in float32 as the kernel computes it "
-            f"{text(rel(base['cuda'], cpu_kernel))}; card's own output under a {NUDGE:g} nudge "
+            f"card vs CPU with B1's bfloat16 sample in float32 (JAX's TPU kernel's "
+            f"arithmetic) {text(rel(base['cuda'], cpu_tpu))}; card's own output under a {NUDGE:g} nudge "
             f"of the input (worst of {len(NUDGE_SEEDS)} seeds) {text(spread['cuda'])}; the "
             f"CPU's {text(spread['cpu'])}; took {time.time() - t0:.1f} s")
 
@@ -3428,8 +3496,13 @@ def main():
     entries[0]["train_launches_per_step"] = {
         yml.split("_")[0]: {"step0": train_b1(c)[0], "fused": train_b1(c)[FUSED_STEP]}
         for yml, c in TRAIN_FAMILIES}
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    conv_bf16 = InversionEngine(e4e_opt(), params=engine.net.state_dict(), device="cuda",
+                                samm_conv_bf16=True)
     phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s,
-                      **bf16s}, imgs)
+                      **bf16s, "samm_conv_bf16 (body0 convs on cuDNN in bf16)": conv_bf16},
+                     imgs)
+    del conv_bf16
     launches["warp_blend_taps_bf16"] = taps_launches
     for e in entries[1:]:
         e["launches"] = launches[e["name"]]
@@ -3448,7 +3521,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cc_bound_ms")
     for e in entries:
         e.setdefault("cc_bound_ms", e["bound_ms"])
-    extra = ("bf16_ms", "bf16_bound_ms", "bf16_library_ms", "serves", "test_launches",
+    extra = ("bf16_ms", "bf16_bound_ms", "bf16_library_ms", "bf16_source", "serves",
+             "test_launches",
              "train_launches", "pipeline_launches", "train_launches_per_step", "dp_launches",
              "pipeline_dp_launches", "sharded_launches", "spatial_launches",
              "inventory_launches")

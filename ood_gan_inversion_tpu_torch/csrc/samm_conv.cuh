@@ -31,6 +31,10 @@
 // flops per pixel (Ci = Co = 256 to 1024) against 4 * (Ci + Co) bytes in
 // float32, thousands of flops per byte.
 //
+// The bfloat16 operands of ogi_conv3x3_act and ogi_alignnet_conv2 run the
+// TMA kernel of tma_conv.cuh instead (their _tma entry points); this kernel
+// serves their float32 operands and alignnet_conv1 in both types.
+//
 // All three run one kernel, tc_conv_kernel, on the tensor cores: the
 // implicit GEMM of tc_conv.cuh (wgmma; 3xTF32 for float32 operands, one
 // bf16 pass for bfloat16; each chunk's products in fresh fragments), with
@@ -80,9 +84,6 @@ using namespace tc;
 enum Act { ACT_NONE = 0, ACT_PRELU = 1, ACT_LRELU = 2 };
 // what an instantiation of tc_conv_kernel computes
 enum Mode { CONV_ACT = 0, AN_CONV2 = 1, AN_CONV1 = 2 };
-
-// the least grid per sample: a block on all but 4 of the H100's 132 SMs
-constexpr int FILL_BLOCKS = 128;
 
 __device__ __forceinline__ float activate(float v, int act, float slope) {
   if (act != ACT_NONE) v = v >= 0.0f ? v : slope * v;
@@ -338,21 +339,6 @@ __global__ void __launch_bounds__(THREADS, 1) tc_conv_kernel(const Args a) {
   }
 }
 
-// The tile's rows for an (H, W, Co) launch: 4, halved while the grid of one
-// sample has fewer than FILL_BLOCKS blocks. A function of the sample's
-// shape alone, never of the batch size.
-inline int tile_rows(int H, int W, int Co) {
-  const int blocks_per_row = ((W + 31) / 32) * ((Co + TN - 1) / TN);
-  int r = 4;
-  while (r > 1 && blocks_per_row * ((H + r - 1) / r) < FILL_BLOCKS) r /= 2;
-  return r;
-}
-
-inline int tc_n_tiles(int H, int W, int Co) {
-  const int r = tile_rows(H, W, Co);
-  return ((W + 31) / 32) * ((H + r - 1) / r);
-}
-
 template <typename T, int MODE, class C>
 int launch_tc_cfg(Args a, int B, cudaStream_t stream) {
   a.tiles_w = (a.W + C::TW - 1) / C::TW;
@@ -377,8 +363,11 @@ int launch_tc_type(Args a, int B, cudaStream_t stream) {
   return launch_tc_cfg<T, MODE, Tile<1>>(a, B, stream);
 }
 
+// B2a in either dtype; B5 and B2b call launch_tc_type<float, ...>: their
+// bfloat16 operands run tma_conv.cuh
 template <int MODE>
 int launch_tc(Args a, int B, int dtype, cudaStream_t stream) {
+  static_assert(MODE == AN_CONV1, "bfloat16 B5 and B2b run tma_conv.cuh");
   return dtype == 0 ? launch_tc_type<float, MODE>(a, B, stream)
                     : launch_tc_type<__nv_bfloat16, MODE>(a, B, stream);
 }

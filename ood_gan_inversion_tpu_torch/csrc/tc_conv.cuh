@@ -366,6 +366,26 @@ __device__ __forceinline__ void conv_loop(float (&acc)[C::N / 2], int nchunks, u
   __syncthreads();
 }
 
+// the least grid per sample: a block on all but 4 of the H100's 132 SMs
+constexpr int FILL_BLOCKS = 128;
+
+// The rows of a SAMM conv's pixel tile of 32 columns for an (H, W, Co)
+// launch (samm_conv.cuh, tma_conv.cuh): 4, halved while the grid of one
+// sample, in blocks of TN channels, has fewer than FILL_BLOCKS blocks. A
+// function of the sample's shape alone, never of the batch size.
+inline int tile_rows(int H, int W, int Co) {
+  const int blocks_per_row = ((W + 31) / 32) * ((Co + TN - 1) / TN);
+  int r = 4;
+  while (r > 1 && blocks_per_row * ((H + r - 1) / r) < FILL_BLOCKS) r /= 2;
+  return r;
+}
+
+// the pixel tiles of such a launch
+inline int tc_n_tiles(int H, int W, int Co) {
+  const int r = tile_rows(H, W, Co);
+  return ((W + 31) / 32) * ((H + r - 1) / r);
+}
+
 // the widest copy (bytes: 16, 8 or 4; else the element size) that every
 // row of `row_bytes` bytes from p allows
 inline int copy_width(const void* p, int64_t row_bytes, int esize) {

@@ -42,13 +42,16 @@
 // depends on its own pixel's inputs only, so a sample's output is the same
 // bits in any batch slot.
 //
-// A third instantiation serves the SAMM option samm_gather_bf16 (JAX's
-// OGI_GRIDSAMPLE=gather4bf16): a float32 target and output, the bilinear
-// sample computed in JAX's bfloat16 arithmetic (TAPS_BF16): each tap, wx,
-// wy, 1 - wx, 1 - wy, each weight, each product and each partial sum
-// rounded to bfloat16 (round to nearest even), in the plain version's
-// order; then the float32 blend with the unrounded centre. So it is its
-// plain version bit for bit.
+// The bilinear sample of a bfloat16 target (dtype 1) is computed in
+// bfloat16 arithmetic (TAPS_BF16), as its plain version and JAX's XLA
+// grid sample compute it on a bfloat16 x: wx, wy, 1 - wx, 1 - wy, each
+// weight, each product and each partial sum rounded to bfloat16 (round to
+// nearest even), in the plain version's order; then the blend in float32
+// (alpha is float32), rounded to bfloat16 once. A third instantiation
+// serves the SAMM option samm_gather_bf16 (JAX's
+// OGI_GRIDSAMPLE=gather4bf16): a float32 target and output, each tap
+// rounded to bfloat16 and the same bfloat16 sample, then the float32 blend
+// with the unrounded centre. Both are their plain versions bit for bit.
 //
 // Plain C interface (bound with ctypes): launches on the given stream and
 // returns cudaGetLastError().
@@ -130,6 +133,22 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// a * b and a + b on two bfloat16 pairs, each result rounded once to
+// bfloat16 (nearest even): the plain version's float32 op rounded to
+// bfloat16, since a product of two bfloat16 is exact in float32 and so is
+// their sum, unless one term lies under 2^-16 of the other, which then
+// leaves the bfloat16 result the larger term either way
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // Block (strip, slice, sample): warp w takes pixel w of the strip, lane l
 // the vector slice * 32 + l of that pixel.
 template <typename T, int N, bool TAPS_BF16>
@@ -172,6 +191,24 @@ warp_blend_kernel(const T* __restrict__ target, const float* __restrict__ grid,
   const typename V::Raw cen = V::load(src + pix * C);
   const float ia = 1.0f - a;
   float o[N];
+  if constexpr (TAPS_BF16 && sizeof(T) == 2 && N == 8) {
+    // a bfloat16 target, 8 channels: the bilinear sample a channel pair
+    // per instruction, then the float32 blend
+    uint32_t w2[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) w2[t] = pack2(w[t], w[t]);     // exact: w is bfloat16
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t s = mul_bf16x2(word(tap[0], q), w2[0]);
+#pragma unroll
+      for (int t = 1; t < 4; ++t) s = add_bf16x2(s, mul_bf16x2(word(tap[t], q), w2[t]));
+      const float s0 = __uint_as_float(s << 16), s1 = __uint_as_float(s & 0xffff0000u);
+      o[2 * q] = __fadd_rn(__fmul_rn(s0, a), __fmul_rn(V::at(cen, 2 * q), ia));
+      o[2 * q + 1] = __fadd_rn(__fmul_rn(s1, a), __fmul_rn(V::at(cen, 2 * q + 1), ia));
+    }
+    V::store(out + first * C + v * N + pix * C, o);
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     float s;
@@ -203,7 +240,8 @@ void launch(const void* target, const float* grid, const float* alpha, void* out
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float32 sampled in bfloat16. All
+// dtype: 0 = float32, 1 = bfloat16 (sampled in bfloat16), 2 = float32
+// sampled in bfloat16. All
 // tensors NHWC-contiguous:
 // target/out (B, H, W, C), grid (B, H, W, 2) float32, alpha (B, H, W, 1) float32.
 // Returns cudaGetLastError() after the launch (0 = success); 1000 for an
@@ -229,8 +267,8 @@ extern "C" int ogi_warp_blend(const void* target, const void* grid,
     if (vec) launch<float, 4, true>(target, g, a, out, B, H, W, C, s);
     else     launch<float, 1, true>(target, g, a, out, B, H, W, C, s);
   } else {
-    if (vec) launch<__nv_bfloat16, 8>(target, g, a, out, B, H, W, C, s);
-    else     launch<__nv_bfloat16, 1>(target, g, a, out, B, H, W, C, s);
+    if (vec) launch<__nv_bfloat16, 8, true>(target, g, a, out, B, H, W, C, s);
+    else     launch<__nv_bfloat16, 1, true>(target, g, a, out, B, H, W, C, s);
   }
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,9 @@ across align cycles, so `alignnet_t_context` computes the t-only half once.
 `algebraic_alignnet_body0` is plain PyTorch, the JAX package's default path.
 
 `fused_alignnet_body0` computes the same body0 with two hand-written CUDA
-kernels (csrc/alignnet_conv1.cu, csrc/alignnet_conv2.cu, both the
-tensor-core conv of csrc/samm_conv.cuh) between plain PyTorch passes: the
+kernels (csrc/alignnet_conv1.cu, csrc/alignnet_conv2.cu: the tensor-core
+conv of csrc/samm_conv.cuh, and for alignnet_conv2's bfloat16 operands the
+TMA kernel of csrc/tma_conv.cuh) between plain PyTorch passes: the
 coefficients, then `alignnet_conv1` (x1 built on chip, conv1, PReLU), then
 `alignnet_conv2` (conv2 and norm2's moments), then the norm2 affine and the
 shortcut. Each wrapper launches its kernel for CUDA tensors and runs its
@@ -31,6 +32,7 @@ import torch
 
 from . import batch_invariant as bi
 from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function
+from .samm_conv import tma_scratch
 
 # the channel floor of the fused path (C, as in JAX); tests lower it to run
 # narrow widths through the kernels
@@ -238,7 +240,9 @@ alignnet_conv1.launches = 0
 
 
 def _conv2_run(z, k2):
-    """B2b's kernel for CUDA tensors, its plain version for CPU tensors."""
+    """B2b's kernel for CUDA tensors, its plain version for CPU tensors:
+    float32 operands as they lie, bfloat16 ones through the TMA kernel's
+    repack pass into scratch (samm_conv.tma_scratch)."""
     if not on_card("alignnet_conv2", (z, k2)):
         return alignnet_conv2_reference(z, k2)
     b, c2, h, w = z.shape
@@ -246,10 +250,15 @@ def _conv2_run(z, k2):
     y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)
     tile_part = z.new_empty((b, n_tiles, 2, c2), dtype=torch.float32)
     part = z.new_empty((b, 2, c2), dtype=torch.float32)
-    launch(alignnet_conv2, "alignnet_conv2",
-           entry("alignnet_conv2", "ogi_alignnet_conv2", 5, 5), z,
-           *(v.data_ptr() for v in (z, k2, y2, tile_part, part)), b, h, w, c2,
-           activation(z, "alignnet_conv2"))
+    if z.dtype == torch.bfloat16:
+        zr, wr = tma_scratch(z, k2)
+        launch(alignnet_conv2, "alignnet_conv2",
+               entry("alignnet_conv2", "ogi_alignnet_conv2_tma", 7, 4), z,
+               *(v.data_ptr() for v in (z, k2, zr, wr, y2, tile_part, part)), b, h, w, c2)
+    else:
+        launch(alignnet_conv2, "alignnet_conv2",
+               entry("alignnet_conv2", "ogi_alignnet_conv2", 5, 4), z,
+               *(v.data_ptr() for v in (z, k2, y2, tile_part, part)), b, h, w, c2)
     return y2, part
 
 

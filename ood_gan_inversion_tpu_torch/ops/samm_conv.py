@@ -7,9 +7,12 @@ kernels as everywhere in the port's SAMM.
 CUDA tensors and runs the plain version for CPU tensors; there is no
 fallback between the two. `.launches` counts kernel launches. Operands are
 float32 or bfloat16 (x and k alike), PReLU slopes float32; the kernel
-multiplies on the tensor cores (float32 operands as three TF32 products,
-hi*hi + hi*lo + lo*hi, for float32 accuracy), sums in float32 and writes
-the output in x's dtype. Its backward (the Function `Conv3x3Act`)
+multiplies on the tensor cores, sums in float32 and writes the output in
+x's dtype. float32 operands run the NCHW/OIHW core of csrc/samm_conv.cuh
+as three TF32 products (hi*hi + hi*lo + lo*hi, for float32 accuracy);
+bfloat16 operands run the TMA kernel of csrc/tma_conv.cuh, after a repack
+pass into NHWC input and tap-major weights at every call (`tma_operands`
+is its plain version). Its backward (the Function `Conv3x3Act`)
 differentiates the plain version, as JAX's custom_vjp does.
 """
 
@@ -25,6 +28,9 @@ ACTS = {"none": 0, "prelu": 1, "lrelu": 2}
 # the channel floor of the conv3x3_act path (as in JAX); tests lower it to
 # run narrow widths through the kernel path
 CONV_ACT_MIN_CHANNELS = 64
+# the bfloat16 kernel's channel granule: its NHWC / tap-major copies are
+# padded with zero channels to a multiple of it
+TMA_CHANNELS = 8
 
 
 def conv3x3_act_reference(x, k, alpha, act: str = "prelu"):
@@ -47,6 +53,35 @@ def conv3x3_act_supported(ci: int, co: int) -> bool:
     return ci >= CONV_ACT_MIN_CHANNELS and co >= CONV_ACT_MIN_CHANNELS
 
 
+def tma_channels(c: int) -> int:
+    """c rounded up to a multiple of TMA_CHANNELS."""
+    return -(-c // TMA_CHANNELS) * TMA_CHANNELS
+
+
+def tma_operands(x, k):
+    """The operands of the bfloat16 kernel (csrc/tma_conv.cuh) from x (B, C,
+    H, W) and k (Co, C, 3, 3): x as NHWC (B, H, W, Cp) and k as (3, 3, Co,
+    Cp) indexed [dx, dy, co, ci], so that [dx, dy] = k[:, :, dy, dx]; Cp =
+    tma_channels(C), the channels past C zero (a TMA stride is a multiple of
+    16 bytes). Layout copies, no arithmetic: the plain version of the
+    kernel's repack pass (tma_conv.cuh:repack_kernel)."""
+    b, c, h, w = x.shape
+    cp = tma_channels(c)
+    xr = x.new_zeros((b, h, w, cp))
+    xr[..., :c] = x.permute(0, 2, 3, 1)
+    wr = k.new_zeros((3, 3, k.shape[0], cp))
+    wr[..., :c] = k.permute(3, 2, 0, 1)
+    return xr, wr
+
+
+def tma_scratch(x, k):
+    """Uninitialised tensors of tma_operands' shapes, which the repack pass
+    fills."""
+    b, c, h, w = x.shape
+    cp = tma_channels(c)
+    return x.new_empty((b, h, w, cp)), k.new_empty((3, 3, k.shape[0], cp))
+
+
 def _run(x, k, alpha, act):
     """B5's kernel for CUDA tensors, its plain version for CPU tensors."""
     operands = [x, k] + ([alpha] if act == "prelu" else [])
@@ -55,9 +90,15 @@ def _run(x, k, alpha, act):
     b, ci, h, w = x.shape
     co = k.shape[0]
     out = x.new_empty((b, co, h, w))
-    launch(conv3x3_act, "conv3x3_act", entry("samm_conv", "ogi_conv3x3_act", 4, 7), x,
-           x.data_ptr(), k.data_ptr(), alpha.data_ptr() if act == "prelu" else None,
-           out.data_ptr(), b, h, w, ci, co, ACTS[act], activation(x, "conv3x3_act"))
+    slopes = alpha.data_ptr() if act == "prelu" else None
+    if x.dtype == torch.bfloat16:
+        xr, wr = tma_scratch(x, k)
+        launch(conv3x3_act, "conv3x3_act", entry("samm_conv", "ogi_conv3x3_act_tma", 6, 6), x,
+               x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), slopes, out.data_ptr(),
+               b, h, w, ci, co, ACTS[act])
+    else:
+        launch(conv3x3_act, "conv3x3_act", entry("samm_conv", "ogi_conv3x3_act", 4, 6), x,
+               x.data_ptr(), k.data_ptr(), slopes, out.data_ptr(), b, h, w, ci, co, ACTS[act])
     return out
 
 

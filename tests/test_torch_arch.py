@@ -136,7 +136,8 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "ood_gan_inversion_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "prof_torch_inversion.py",
-              ROOT / "tools" / "prof_torch_train.py", ROOT / "tools" / "prof_torch_pipeline.py"]
+              ROOT / "tools" / "prof_torch_train.py", ROOT / "tools" / "prof_torch_pipeline.py",
+              ROOT / "tools" / "prof_tma_conv.py"]
     assert len(files) > 20
     for f in files:
         for name in _imports(f):

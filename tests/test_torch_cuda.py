@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels (warp-blend in its three
 instantiations, the packed conv B3, the packed stage B4, also on bands,
-the AlignNet body0 kernels B2a and B2b, the conv3x3 + activation B5 and
-the halo probe) against their plain PyTorch versions on
+the AlignNet body0 kernels B2a and B2b, the conv3x3 + activation B5 (the
+bfloat16 B2b and B5 through the TMA kernel and its repack pass) and the
+halo probe) against their plain PyTorch versions on
 the card, and their autograd Functions' gradients against the plain
 versions' own. Every test here needs a CUDA card and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -65,19 +66,22 @@ def test_warp_blend_kernel_ragged_on_card(cuda, dtype, c):
     """H and W off the 2 x 8 pixel tile, C = 36 (9 float32 vectors of 16
     bytes; not a multiple of 8, so bfloat16 takes the one-element path) and
     C = 40 in bfloat16 (5 vectors), the flow pinned at the bound so that
-    taps fall outside the image: float32 within 1e-5 of max|target|,
-    bfloat16 within one bf16 step of the plain version on the same target."""
+    taps fall outside the image: float32 within 1e-5 of max|target| of the
+    plain version, bfloat16 bit for bit the plain version on the same
+    bfloat16 target (it samples in bfloat16 arithmetic, as that does)."""
     x, grid, alpha = (torch.from_numpy(a).to(cuda) for a in
                       warp_inputs(3, 19, c, 0.08, seed=c, at_bound=True))
     x, grid, alpha = x[:, :, :17].contiguous(), grid[:, :, :17].contiguous(), \
         alpha[:, :, :17].contiguous()
     xt = x.to(dtype)
     out = warp_blend(xt, grid, alpha)
-    ref = warp_blend_reference(xt.float(), grid, alpha)
+    ref = warp_blend_reference(xt, grid, alpha)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (3, 19, 17, c)
-    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
-    assert float((out.float() - ref).abs().max()) <= tol * float(x.abs().max())
+    if dtype == torch.bfloat16:
+        assert torch.equal(out, ref)
+    else:
+        assert float((out - ref).abs().max()) <= 1e-5 * float(x.abs().max())
 
 
 @pytest.mark.cuda
@@ -93,16 +97,25 @@ def test_warp_blend_kernel_slot_bitwise(cuda, dtype):
 
 
 @pytest.mark.cuda
-def test_warp_blend_kernel_bf16_target(cuda):
-    """A bfloat16 target with float32 math: within one bf16 step of
-    max|target| of the plain version on the same (rounded) target."""
+@pytest.mark.parametrize("size,c", [(256, 128), (128, 256), (64, 512), (32, 512), (19, 36)])
+def test_warp_blend_kernel_bf16_target(cuda, size, c):
+    """A bfloat16 target (B1's dtype code 1) at the four SAMM scales and a
+    ragged shape (19 x 17, C = 36, one-element path, flow at the bound): bit
+    for bit its plain version, warp_blend_reference on the same bfloat16
+    target, which samples in bfloat16 arithmetic as JAX's XLA grid sample
+    does on a bfloat16 x."""
     x, grid, alpha = (torch.from_numpy(a).to(cuda) for a in
-                      warp_inputs(2, 64, 512, 0.08, seed=6))
+                      warp_inputs(2, size, c, 0.08, seed=size + c, at_bound=size == 19))
+    if size == 19:
+        x, grid, alpha = (t[:, :, :17].contiguous() for t in (x, grid, alpha))
     xb = x.to(torch.bfloat16)
+    before = warp_blend.launches
     out = warp_blend(xb, grid, alpha)
-    assert out.dtype == torch.bfloat16
-    ref = warp_blend_reference(xb.float(), grid, alpha)
-    assert float((out.float() - ref).abs().max()) <= 2.0 ** -8 * float(x.abs().max())
+    ref = warp_blend_reference(xb, grid, alpha)
+    torch.cuda.synchronize()
+    assert warp_blend.launches == before + 1
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda
@@ -493,6 +506,83 @@ def test_samm_kernels_ragged_on_card(cuda, b, ci, co, h, w, dtype):
     for name, (outs, refs) in b5_and_b2b(x, k, alpha, "prelu").items():
         for got, ref in zip(outs, refs):
             assert rel_err(got, ref) <= tol[name], name
+
+
+# the SAMM scales' body0 convs: (H = W, 2C)
+SAMM_SCALES = [(32, 1024), (64, 1024), (128, 512), (256, 256)]
+
+
+def tma_launches(lib):
+    """ogi_tma_conv_launches of csrc/<lib>.cu: its bfloat16 conv launches."""
+    import ctypes
+    from ood_gan_inversion_tpu_torch import build
+    fn = build.load(lib).ogi_tma_conv_launches
+    fn.restype = ctypes.c_longlong
+    return fn()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c2", SAMM_SCALES)
+def test_samm_kernels_bf16_slot_bitwise_at_every_scale(cuda, h, c2):
+    """bfloat16 B5 (PReLU) and B2b (y2 and both moments) at each SAMM
+    scale, b = 3: each slot is bit-identical to that sample alone, and the
+    batch is within tolerance of the plain version on the same rounded
+    operands (B5 2^-7, B2b 1e-4 of max|ref|, each moment row against its
+    own max)."""
+    x, k, alpha = (torch.from_numpy(v).to(cuda)
+                   for v in conv_act_inputs(3, c2, c2, h, h, seed=h + c2))
+    x, k = x.bfloat16(), k.bfloat16()
+    batch = b5_and_b2b(x, k, alpha, "prelu")
+    for s in range(3):
+        alone = b5_and_b2b(x[s:s + 1].contiguous(), k, alpha, "prelu")
+        for name in batch:
+            for got, one in zip(batch[name][0], alone[name][0]):
+                assert torch.equal(got[s:s + 1], one), (name, s)
+    tol = {"B5": SAMM_TOL[torch.bfloat16], "B2b": SAMM_TOL[torch.float32]}
+    for name, (outs, refs) in batch.items():
+        for got, ref in zip(outs, refs):
+            assert rel_err(got, ref) <= tol[name], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,co,h,w", [(2, 37, 136, 19, 27), (1, 1024, 1024, 32, 32),
+                                        (2, 36, 36, 19, 27), (1, 40, 100, 16, 16)])
+def test_tma_repack_on_card(cuda, b, c, co, h, w):
+    """The bfloat16 kernels' repack pass (NHWC input, tap-major weights,
+    channels padded with zeros to a multiple of 8) is bit for bit its plain
+    version, samm_conv.tma_operands: odd C, an odd H * W (the one-element
+    path), C a multiple of 8 and a full SAMM weight."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    x, k, _ = (torch.from_numpy(v).to(cuda) for v in conv_act_inputs(b, c, co, h, w, seed=c))
+    x, k = x.bfloat16(), k.bfloat16()
+    xr, wr = samm_conv.tma_scratch(x, k)
+    xr.fill_(1.0)
+    wr.fill_(1.0)
+    err = entry("samm_conv", "ogi_tma_repack", 4, 6)(
+        x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), b, c, h, w, co, xr.shape[3],
+        torch.cuda.current_stream().cuda_stream)
+    xr_ref, wr_ref = samm_conv.tma_operands(x, k)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(xr, xr_ref) and torch.equal(wr, wr_ref)
+
+
+@pytest.mark.cuda
+def test_bf16_calls_reach_the_tma_kernel_once(cuda):
+    """A bfloat16 conv3x3_act or alignnet_conv2 call launches the TMA kernel
+    of its library once and counts one launch on its wrapper; a float32
+    call launches the other core and no TMA kernel."""
+    x, k, alpha = (torch.from_numpy(v).to(cuda) for v in conv_act_inputs(1, 64, 64, 16, 16, 9))
+    for lib, call, counter in (
+            ("samm_conv", lambda v, w: samm_conv.conv3x3_act(v, w, alpha, "prelu"),
+             samm_conv.conv3x3_act),
+            ("alignnet_conv2", alignnet.alignnet_conv2, alignnet.alignnet_conv2)):
+        for dtype, tma in ((torch.bfloat16, 1), (torch.float32, 0)):
+            before = (counter.launches, tma_launches(lib))
+            call(x.to(dtype), k.to(dtype))
+            torch.cuda.synchronize()
+            assert (counter.launches, tma_launches(lib)) == (before[0] + 1, before[1] + tma), \
+                (lib, dtype)
 
 
 @pytest.mark.cuda

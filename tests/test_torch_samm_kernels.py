@@ -11,6 +11,7 @@ The kernels themselves are held against these plain versions on the card
 import importlib
 import pathlib
 import runpy
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -386,3 +387,16 @@ def test_library_hash_covers_shared_headers(tmp_path, monkeypatch):
     assert build.library_path("a") == first
     (tmp_path / "common.cuh").write_text("// v2\n")
     assert build.library_path("a") != first
+    # csrc/tma_conv.cuh, the bfloat16 core of B5 and B2b: an edit rebuilds
+    # both, and B2a, which does not include it, is rebuilt too (every
+    # library hashes every shared header)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ROOT / "ood_gan_inversion_tpu_torch" / "csrc", csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    for name in ("samm_conv", "alignnet_conv2"):
+        assert '#include "tma_conv.cuh"' in (csrc / f"{name}.cu").read_text()
+    names = ("samm_conv", "alignnet_conv2", "alignnet_conv1")
+    before = {n: build.library_path(n) for n in names}
+    header = csrc / "tma_conv.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert all(build.library_path(n) != before[n] for n in names)
