@@ -5,10 +5,12 @@
    process per source, all at once.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (plus border-pinned flows, ragged tiles
-   and bfloat16: B1's bit for bit; B5's and B2b's through the TMA kernel of
-   csrc/tma_conv.cuh, one launch of it per call, its repack pass and its
-   host-side tensor-map encoding timed apart), and times the kernel, the
-   plain version and the closest PyTorch library call with CUDA events.
+   and bfloat16: B1's bit for bit; B5's, B2a's and B2b's through the TMA
+   kernel of csrc/tma_conv.cuh, one launch of it per call, its repack pass
+   (B2a's builds x1) and its host-side tensor-map encoding timed apart;
+   bfloat16 against the kernel's plain version on the same operands), and
+   times the kernel, the plain version and the closest PyTorch library
+   call with CUDA events.
 3. Drives the main path -- E4E inversion at 1024px with the IR-SE-50
    encoder, cycle_align 2, warp_scale 0.08, ModSize 256, float32, seeded
    random weights -- through `InversionEngine.invert`, the batched
@@ -74,7 +76,8 @@
    1024px with the SAMM bottleneck (`mod_btn: style_bottleneck_IR`), with
    it and `modulation_type: ADD` in float32 and bfloat16, and bfloat16
    with the float32 SAMM island, each timed, with B1's 8 launches per
-   forward, and held against the CPU at 256px; E4E_Face.yml's train step
+   forward, and held against the CPU at 256px (in bfloat16 beside each
+   device's own move under a 1e-6 nudge of the input); E4E_Face.yml's train step
    with the bottleneck (step 0 and a fused step, B1 4 and 8); and one
    call each of GPENGenerator and GCFSRGenerator at 1024px, pSp's and the
    single-W encoder, ResNetArcFace, deform_conv2d and LPIPS_Loss against
@@ -151,9 +154,10 @@ TAIL_RTOL = 1e-4
 SAMM_SCALES = [(32, 512), (64, 512), (128, 256), (256, 128)]
 # body0 kernels against their plain versions: float32 within 1e-4 of
 # max|ref| (sums over up to K = 9 * 1024 terms in another order than
-# cuDNN); bfloat16 operands within 2^-7 of max|ref| of the plain version on
-# the same rounded operands in float32 (the kernels round x1 and their
-# output to bfloat16)
+# cuDNN); bfloat16 operands within 2^-7 of max|ref| of the kernel's plain
+# version on the same operands (`*_kernel_reference`: float32 sums, one
+# rounding; a value near a rounding boundary may round the other way, one
+# bfloat16 step, at most 2^-7 of max|ref|)
 SAMM_TOL, SAMM_TOL_BF16 = 1e-4, 2.0 ** -7
 # the body0-mode engines against the default engine: SAMM moves the flows,
 # so a float32 difference in body0 moves sample positions
@@ -702,19 +706,26 @@ def tma_launches(lib):
     return fn()
 
 
-def tma_repack_costs(x, k):
-    """(ms of the bfloat16 conv's repack pass alone on x, k, host us of
-    encoding one launch's two tensor maps): csrc/tma_conv.cuh."""
+def tma_repack_costs(x, k, t=None, coeffs=None):
+    """(ms of the bfloat16 conv's repack pass alone on x, k -- with t and
+    coeffs, B2a's x1 mode on s = x, t -- host us of encoding one launch's
+    two tensor maps): csrc/tma_conv.cuh."""
     from ood_gan_inversion_tpu_torch import build
     from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
     from ood_gan_inversion_tpu_torch.ops.samm_conv import tma_scratch
     b, c, h, w = x.shape
     co = k.shape[0]
     xr, wr = tma_scratch(x, k)
-    repack = entry("samm_conv", "ogi_tma_repack", 4, 6)
-    ms = time_ms(lambda: repack(x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), b, c,
-                                h, w, co, xr.shape[3], torch.cuda.current_stream().cuda_stream),
-                 iters=10)
+    stream = torch.cuda.current_stream().cuda_stream
+    if t is None:
+        repack = entry("samm_conv", "ogi_tma_repack", 4, 6)
+        ms = time_ms(lambda: repack(x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), b,
+                                    c, h, w, co, xr.shape[3], stream), iters=10)
+    else:
+        repack = entry("alignnet_conv1", "ogi_tma_repack_x1", 6, 5)
+        ms = time_ms(lambda: repack(x.data_ptr(), t.data_ptr(), coeffs.data_ptr(), k.data_ptr(),
+                                    xr.data_ptr(), wr.data_ptr(), b, c, h, w, xr.shape[3], stream),
+                     iters=10)
     enc = build.load("samm_conv").ogi_tma_encode_us
     enc.restype = ctypes.c_double
     enc.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
@@ -730,7 +741,8 @@ def phase_samm_kernels():
     cycles per scale: B2a 8 launches, B2b 8, B5 16 (conv1 + PReLU and
     conv2 in each cycle)."""
     from ood_gan_inversion_tpu_torch.ops import alignnet as an
-    from ood_gan_inversion_tpu_torch.ops.samm_conv import conv3x3_act, conv3x3_act_reference
+    from ood_gan_inversion_tpu_torch.ops.samm_conv import (conv3x3_act, conv3x3_act_kernel_reference,
+                                                          conv3x3_act_reference)
     # bound_ms: the tensor-core bound; cc_bound_ms: the CUDA-core one;
     # bf16_*: the bfloat16 operands' bound and library call
     keys = ("ms", "plain_ms", "bound_ms", "cc_bound_ms", "library_ms", "bf16_ms",
@@ -751,22 +763,26 @@ def phase_samm_kernels():
             z = an.alignnet_conv1_reference(*conv1)
             s_b, t_b, k1_b, k2_b, z_b = map(bf16, (a["s"], a["t"], a["k1"], a["k2"], z))
             x1_b, alpha_b = bf16(a["x1"]), bf16(a["alpha"])
+            # B2a's slopes as alignnet_conv1 reads them: rounded to bfloat16
+            alpha_r = alpha_b.float()
             libs_b = {   # the library calls on bfloat16 operands
                 "B2a": lambda: F.prelu(F.conv2d(bf16(body0_x1(a)), k1_b, padding=1), alpha_b),
                 "B2b": lambda: conv_moments(z_b, k2_b),
                 "B5 conv1": lambda: F.prelu(F.conv2d(x1_b, k1_b, padding=1), alpha_b),
                 "B5 conv2": lambda: F.conv2d(z_b, k2_b, padding=1)}
             # the bfloat16 operands of the TMA kernel's calls
-            tma_inputs = {"B2b": (z_b, k2_b), "B5 conv1": (x1_b, k1_b), "B5 conv2": (z_b, k2_b)}
+            tma_inputs = {"B2a": (s_b, k1_b, t_b, a["coeffs"]), "B2b": (z_b, k2_b),
+                          "B5 conv1": (x1_b, k1_b), "B5 conv2": (z_b, k2_b)}
             runs = {
-                # id: (kernel, plain, library, bf16 kernel, bf16 plain on the
-                # same rounded operands, flops, bytes at an itemsize)
+                # id: (kernel, plain, library, bf16 kernel, the kernel's bf16
+                # plain version on the same operands, flops, bytes at an
+                # itemsize)
                 "B2a": (lambda: an.alignnet_conv1(*conv1),
                         lambda: an.alignnet_conv1_reference(*conv1),
                         lambda: F.prelu(F.conv2d(body0_x1(a), a["k1"], padding=1), a["alpha"]),
                         lambda: an.alignnet_conv1(s_b, t_b, a["coeffs"], k1_b, a["alpha"]),
-                        lambda: an.alignnet_conv1_reference(s_b.float(), t_b.float(), a["coeffs"],
-                                                            k1_b.float(), a["alpha"]),
+                        lambda: an.alignnet_conv1_kernel_reference(s_b, t_b, a["coeffs"], k1_b,
+                                                                   alpha_r),
                         conv_flops + 6 * px * c2,
                         lambda isz: (2 * px * c + 9 * c2 * c2 + px * c2) * isz
                         + 4 * (5 * b * c + c2)),
@@ -774,22 +790,22 @@ def phase_samm_kernels():
                         lambda: an.alignnet_conv2_reference(z, a["k2"]),
                         lambda: conv_moments(z, a["k2"]),
                         lambda: an.alignnet_conv2(z_b, k2_b),
-                        lambda: an.alignnet_conv2_reference(z_b.float(), k2_b.float()),
+                        lambda: an.alignnet_conv2_kernel_reference(z_b, k2_b),
                         conv_flops + 3 * px * c2,
                         lambda isz: (px * c2 + 9 * c2 * c2) * isz + 4 * (px * c2 + 2 * b * c2)),
                 "B5 conv1": (lambda: conv3x3_act(a["x1"], a["k1"], a["alpha"], "prelu"),
                              lambda: conv3x3_act_reference(a["x1"], a["k1"], a["alpha"], "prelu"),
                              lambda: F.prelu(F.conv2d(a["x1"], a["k1"], padding=1), a["alpha"]),
                              lambda: conv3x3_act(bf16(a["x1"]), k1_b, a["alpha"], "prelu"),
-                             lambda: conv3x3_act_reference(bf16(a["x1"]).float(), k1_b.float(),
-                                                           a["alpha"], "prelu"),
+                             lambda: conv3x3_act_kernel_reference(x1_b, k1_b, a["alpha"],
+                                                                  "prelu"),
                              conv_flops + 2 * px * c2,
                              lambda isz: (2 * px * c2 + 9 * c2 * c2) * isz + 4 * c2),
                 "B5 conv2": (lambda: conv3x3_act(z, a["k2"], None, "none"),
                              lambda: conv3x3_act_reference(z, a["k2"], None, "none"),
                              lambda: F.conv2d(z, a["k2"], padding=1),
                              lambda: conv3x3_act(z_b, k2_b, None, "none"),
-                             lambda: conv3x3_act_reference(z_b.float(), k2_b.float(), None, "none"),
+                             lambda: conv3x3_act_kernel_reference(z_b, k2_b, None, "none"),
                              conv_flops,
                              lambda isz: (2 * px * c2 + 9 * c2 * c2) * isz),
             }
@@ -802,13 +818,13 @@ def phase_samm_kernels():
                                        SAMM_TOL) for m in range(2) if name == "B2b"]
                 moment_text = "".join(f", sum y{'^2' if m else ''} rel err {e / l * SAMM_TOL:.2e}"
                                       for m, (e, l) in enumerate(moments))
-                # the bfloat16 run: one TMA kernel launch (tma_conv.cuh); B2b's
-                # reads the same operands as its plain version, its moments too
-                lib_name = "alignnet_conv2" if name == "B2b" else "samm_conv"
+                # the bfloat16 run: one TMA kernel launch (tma_conv.cuh),
+                # against the kernel's plain version on the same operands
+                lib_name = {"B2a": "alignnet_conv1", "B2b": "alignnet_conv2"}.get(name, "samm_conv")
                 tma_before = tma_launches(lib_name)
                 got_b, ref_b = kern_b(), plain_b()
                 torch.cuda.synchronize()
-                if tma_launches(lib_name) != tma_before + (name != "B2a"):
+                if tma_launches(lib_name) != tma_before + 1:
                     raise AssertionError(f"{what} bf16: {tma_launches(lib_name) - tma_before} "
                                          "TMA kernel launches")
                 errb, limb = check_close(f"{what} bf16", first(got_b), first(ref_b),
@@ -828,13 +844,11 @@ def phase_samm_kernels():
                 t["cc_bound_ms"] = cc_ms
                 bf16_ms, bf16_by = tc_bound_ms(flops, nbytes(2), 2)
                 t["bf16_bound_ms"] = bf16_ms
-                tma_text = ""
-                if name in tma_inputs:
-                    # the repack pass alone, and the host cost of the two
-                    # tensor maps that every launch encodes
-                    t["bf16_repack_ms"], enc_us = tma_repack_costs(*tma_inputs[name])
-                    tma_text = (f" (of which the repack pass {t['bf16_repack_ms']:.4f} ms; "
-                                f"tensor maps {enc_us:.2f} us of host time per launch)")
+                # the repack pass alone (B2a's builds x1), and the host cost
+                # of the two tensor maps that every launch encodes
+                t["bf16_repack_ms"], enc_us = tma_repack_costs(*tma_inputs[name])
+                tma_text = (f" (of which the repack pass {t['bf16_repack_ms']:.4f} ms; "
+                            f"tensor maps {enc_us:.2f} us of host time per launch)")
                 log(f"[kernel] {what}: fp32 max|err| {err:.3e} (<= {SAMM_TOL:.0e} of max|ref|)"
                     f"{moment_text}, "
                     f"bf16 {errb:.3e} <= {limb:.3e}; kernel {t['ms']:.4f} ms "
@@ -875,15 +889,14 @@ def phase_samm_kernels():
         log(f"[kernel] {kid} {name} per image (b=1): "
             + ", ".join(f"{k} {v:.4f}" for k, v in pi.items())
             + f"; bf16: {pi['bf16_bound_ms'] / pi['bf16_ms']:.0%} of its bound, kernel / "
-            f"cudnn {pi['bf16_ms'] / pi['bf16_library_ms']:.2f}"
-            + (f", the repack pass {repack_per_image[kid]:.4f}" if kid != "B2a" else ""))
+            f"cudnn {pi['bf16_ms'] / pi['bf16_library_ms']:.2f}, the repack pass "
+            f"{repack_per_image[kid]:.4f} ({repack_per_image[kid] / pi['bf16_ms']:.1%})")
         entries.append({"name": name, "route": "cuda",
                         "source": f"ood_gan_inversion_tpu_torch/csrc/{src}",
                         "replaces": f"ood_gan_inversion_tpu/ops/pallas_kernels.py:{line}",
                         "max_abs_err": max_err[kid],
                         "bound_by": max(bound_by[kid], key=bound_by[kid].get),
-                        **({"bf16_source": "ood_gan_inversion_tpu_torch/csrc/tma_conv.cuh"}
-                           if kid != "B2a" else {}),
+                        "bf16_source": "ood_gan_inversion_tpu_torch/csrc/tma_conv.cuh",
                         **per_image[kid]})
     return entries
 
@@ -1239,17 +1252,24 @@ def phase_samm_body0(engine, imgs, replies):
     return launches, engines
 
 
+def span_errs(got, ref):
+    """bf16_compare's readings of got against ref: image, gen_image and lats
+    as max|diff| over the reference's range, mask as max|diff|."""
+    errs = {}
+    for k in ("image", "gen_image", "lats"):
+        r = ref[k].float()
+        errs[k] = float((got[k].float() - r).abs().max() / (r.max() - r.min()))
+    errs["mask"] = float((got["mask"].float() - ref["mask"].float()).abs().max())
+    return errs
+
+
 def bf16_compare(what, got, ref, held=("image", "gen_image", "mask")):
     """A bfloat16 path's replies against a reference path's on the same
     image and seed, against JAX's island bound: image, gen_image and lats
     as a share of the reference's range (under BF16_SPAN), mask as max|diff|
     (under BF16_MASK). Raises if the latents or a key in `held` miss it;
     reports the rest. Returns (errors, text)."""
-    errs = {}
-    for k in ("image", "gen_image", "lats"):
-        r = ref[k].float()
-        errs[k] = float((got[k].float() - r).abs().max() / (r.max() - r.min()))
-    errs["mask"] = float((got["mask"].float() - ref["mask"].float()).abs().max())
+    errs = span_errs(got, ref)
     beyond = [k for k, v in errs.items() if not v < (BF16_MASK if k == "mask" else BF16_SPAN)]
     if set(beyond) & {"lats", *held}:
         raise AssertionError(f"{what}: {beyond} beyond JAX's island bound "
@@ -2466,9 +2486,13 @@ INVENTORY_ENGINES = (
     ("(c) mod_btn + ADD, bfloat16", {"mod_btn": BTN, "modulation_type": "ADD",
                                      "dtype": "bfloat16"}, {}),
     ("(d) bfloat16, float32 SAMM island", {"dtype": "bfloat16"}, {"samm_fp32_infer": True}))
-# in bfloat16 the card's forward is held against the CPU's on what JAX's
-# island test holds, image and mask (bf16_compare), gen_image reported: with
-# ADD and the bottleneck at 256px it read 2.2% of the range (PERF.md)
+# in bfloat16 the card's forward is held against the CPU's by bf16_compare
+# on image, gen_image and mask. With ADD and the bottleneck at 256px,
+# gen_image read 2.2% of the range before B1's bfloat16 sampling matched its
+# plain version, and 1.87% after (PERF.md); the log prints beside it how far
+# each device's own output moves under a NUDGE of its input, which reaches
+# that size there
+INVENTORY_BF16_HELD = ("image", "gen_image", "mask")
 # the card's call against the CPU's on the same weights and inputs, float32
 # without TF32: a deep net (generators, encoders, the ArcFace trunk)
 # within the slice's 1e-3 of max|ref|, as phase_small_reference holds the
@@ -2518,36 +2542,63 @@ def inventory_engine_checks():
             raise AssertionError(f"inventory {what}: image shape {tuple(out['image'].shape)}")
         del engine
         torch.cuda.empty_cache()
-        small = e4e_opt(out_size=256, channel_multiplier=1, narrow=0.25, encoder_num_layers=4,
-                        **g)
-        params = noisy(InversionEngine(small, seed=SEED + 6, device="cuda", **kw)).net.state_dict()
-        gpu = InversionEngine(small, params=params, device="cuda", **kw)
-        cpu = InversionEngine(small, params=params, device="cpu", **kw)
-        noise = cpu.net.make_noise(1, torch.Generator().manual_seed(8), torch.device("cpu"))
-        xs = torch.from_numpy(img[None, ::4, ::4] * 2.0 - 1.0)
-        with torch.inference_mode():
-            ref = cpu.net(xs, mod_size=256, noise=noise)
-            reset_counts()
-            got = gpu.net(xs.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
-            torch.cuda.synchronize()
-        if read_counts() != expected_counts(warp_blend=8):
-            raise AssertionError(f"inventory {what} at 256px: launched {read_counts()}")
-        if gpu.dtype == torch.bfloat16:
-            text = bf16_compare(f"inventory {what} 256px, card vs CPU", got,
-                                {k: ref[k].cuda() for k in ("image", "gen_image", "mask",
-                                                            "lats")},
-                                held=("image", "mask"))[1]
-        else:
-            errs = {k: rel_err(got[k].cpu(), ref[k]) for k in ("image", "gen_image", "mask")}
-            bad = {k: v for k, v in errs.items() if not v <= INVENTORY_NET_RTOL}
-            if bad:
-                raise AssertionError(f"inventory {what} 256px: card vs CPU rel err {bad}")
-            text = (", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-                    + f" (max rel err, <= {INVENTORY_NET_RTOL})")
+        text = inventory_small_reference(what, g, kw, img)
         log(f"[inventory] {what}: {ms:.2f} ms/img (1024px, b = 1, CUDA events, median of 5); "
-            f"B1 {counts['warp_blend']} launches per forward; image {out['image'].dtype}; "
-            f"card vs CPU at 256px ({len(noise)} noise tensors): {text}")
+            f"B1 {counts['warp_blend']} launches per forward; image {out['image'].dtype}; {text}")
     return launches
+
+
+def inventory_small_reference(what, g, kw, img):
+    """One of INVENTORY_ENGINES at 256px (narrow 0.25, a 4-unit trunk) on
+    the card against the CPU on the same weights and noise, B1's 8 launches
+    counted. float32: within INVENTORY_NET_RTOL of max|ref|. bfloat16:
+    bf16_compare, held on INVENTORY_BF16_HELD; beside it each device's own
+    move under a NUDGE of the input (the worst of NUDGE_SEEDS), read as
+    bf16_compare reads the difference (a share of the range, the mask's
+    max|diff|). Returns the log text."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    keys = ("image", "gen_image", "mask", "lats")
+    small = e4e_opt(out_size=256, channel_multiplier=1, narrow=0.25, encoder_num_layers=4, **g)
+    params = noisy(InversionEngine(small, seed=SEED + 6, device="cuda", **kw)).net.state_dict()
+    engines = {d: InversionEngine(small, params=params, device=d, **kw) for d in ("cuda", "cpu")}
+    noise = engines["cpu"].net.make_noise(1, torch.Generator().manual_seed(8), torch.device("cpu"))
+    xs = torch.from_numpy(img[None, ::4, ::4] * 2.0 - 1.0)
+
+    def run(dev, x):
+        with torch.inference_mode():
+            out = engines[dev].net(x.to(dev), mod_size=256, noise=[n.to(dev) for n in noise])
+        return {k: out[k].float().cpu() for k in keys}
+
+    ref = run("cpu", xs)
+    reset_counts()
+    got = run("cuda", xs)
+    torch.cuda.synchronize()
+    if read_counts() != expected_counts(warp_blend=8):
+        raise AssertionError(f"inventory {what} at 256px: launched {read_counts()}")
+    if engines["cuda"].dtype != torch.bfloat16:
+        errs = {k: rel_err(got[k], ref[k]) for k in ("image", "gen_image", "mask")}
+        bad = {k: v for k, v in errs.items() if not v <= INVENTORY_NET_RTOL}
+        if bad:
+            raise AssertionError(f"inventory {what} 256px: card vs CPU rel err {bad}")
+        return (f"card vs CPU at 256px ({len(noise)} noise tensors): "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                + f" (max rel err, <= {INVENTORY_NET_RTOL})")
+    text = bf16_compare(f"inventory {what} 256px, card vs CPU", got, ref,
+                        held=INVENTORY_BF16_HELD)[1]
+    moves = {}
+    for dev in ("cuda", "cpu"):
+        base = got if dev == "cuda" else ref
+        readings = []
+        for seed in NUDGE_SEEDS:
+            gen = torch.Generator().manual_seed(seed)
+            readings.append(span_errs(run(dev, xs * (1.0 + NUDGE * torch.randn(
+                xs.shape, generator=gen))), base))
+        moves[dev] = {k: max(r[k] for r in readings) for k in readings[0]}
+    return (f"card vs CPU at 256px ({len(noise)} noise tensors): {text}; each device's own "
+            f"output under a {NUDGE:g} nudge of the input (worst of {len(NUDGE_SEEDS)} seeds, "
+            "the same reading): " + "; ".join(
+                f"{dev} " + ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+                for dev, m in moves.items()))
 
 
 def hold_on_card(what, fn_cpu, fn_gpu, rtol):

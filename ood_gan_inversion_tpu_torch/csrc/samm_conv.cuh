@@ -31,18 +31,16 @@
 // flops per pixel (Ci = Co = 256 to 1024) against 4 * (Ci + Co) bytes in
 // float32, thousands of flops per byte.
 //
-// The bfloat16 operands of ogi_conv3x3_act and ogi_alignnet_conv2 run the
-// TMA kernel of tma_conv.cuh instead (their _tma entry points); this kernel
-// serves their float32 operands and alignnet_conv1 in both types.
+// This kernel serves their float32 operands; their bfloat16 operands run
+// the TMA kernel of tma_conv.cuh (their _tma entry points).
 //
 // All three run one kernel, tc_conv_kernel, on the tensor cores: the
-// implicit GEMM of tc_conv.cuh (wgmma; 3xTF32 for float32 operands, one
-// bf16 pass for bfloat16; each chunk's products in fresh fragments), with
-// a template mode for what differs. In OIHW a chunk's weight slab
-// k[n0:n0+128, c0:c0+KC, :, :] is 128 rows of KC * 9 contiguous values,
-// copied as it lies; 16-byte copies where the row stride Ci * 9 *
-// sizeof(T) allows, else 8 or 4 bytes, else (bfloat16 with an odd Ci)
-// plain loads; rows beyond Co and channels beyond Ci are zero-filled. The
+// implicit GEMM of tc_conv.cuh (wgmma, 3xTF32; each chunk's products in
+// fresh fragments), with a template mode for what differs. In OIHW a
+// chunk's weight slab k[n0:n0+128, c0:c0+KC, :, :] is 128 rows of KC * 9
+// contiguous values, copied as it lies; 16-byte copies where the row
+// stride Ci * 9 * 4 bytes allows, else 8 or 4 bytes; rows beyond Co and
+// channels beyond Ci are zero-filled. The
 // input chunk with its 1-pixel halo is loaded one chunk ahead into
 // registers while the current chunk computes, 0 outside the image and
 // beyond Ci, then stored in wgmma's B layout.
@@ -105,7 +103,7 @@ struct Args {
   void* out;              // (B, Co, H, W): x's type; float32 for conv2
   float* tile_part;       // conv2: (B, n_tiles, 2, Co)
   int H, W, Ci, Co, act, tiles_w, n_tiles;
-  int vec;                // bytes per weight copy (16, 8, 4; 2 = plain loads)
+  int vec;                // bytes per weight copy (16, 8 or 4)
 };
 
 // The row stride of a weight slab in elements: the slab's KC * 9 values and
@@ -135,6 +133,7 @@ __global__ void __launch_bounds__(THREADS, 1) tc_conv_kernel(const Args a) {
   constexpr int LD = (XELEMS + THREADS - 1) / THREADS;   // input values per thread
   constexpr int ND = C::N / 2;                            // accumulators
   constexpr bool CONV1 = MODE == AN_CONV1, CONV2 = MODE == AN_CONV2;
+  static_assert(std::is_same<T, float>::value, "bfloat16 operands run tma_conv.cuh");
   static_assert(LD <= 32, "one bit per input value in `inside`");
   T* ws = reinterpret_cast<T*>(smem);
   unsigned char* xs = smem + xs_offset<T, C>();
@@ -170,7 +169,7 @@ __global__ void __launch_bounds__(THREADS, 1) tc_conv_kernel(const Args a) {
     const int c0 = chunk * KC;
     const int len = min(KC, Ci - c0) * 9;
     T* dst = ws + stage * TN * WS;
-    // a row is 18, 36 or 72 copies for every width and type: loops with
+    // a row is 18, 36 or 72 copies of 16, 8 or 4 bytes: loops with
     // constant divisors
     auto copies = [&](auto per_row_c) {
       constexpr int PER_ROW = decltype(per_row_c)::value, E_PER = KC * 9 / PER_ROW;
@@ -183,17 +182,10 @@ __global__ void __launch_bounds__(THREADS, 1) tc_conv_kernel(const Args a) {
         cp_async(dst + n * WS + e, src, E_PER * (int)sizeof(T), valid * (int)sizeof(T));
       }
     };
-    const int per_row = a.vec >= 4 ? KC * 9 * (int)sizeof(T) / a.vec : 0;
+    const int per_row = KC * 9 * (int)sizeof(T) / a.vec;
     if (per_row == 18) copies(std::integral_constant<int, 18>());
     else if (per_row == 36) copies(std::integral_constant<int, 36>());
-    else if (per_row == 72) copies(std::integral_constant<int, 72>());
-    else {
-      for (int p = tid; p < TN * KC * 9; p += THREADS) {
-        const int n = p / (KC * 9), e = p - n * (KC * 9);
-        const int co = n0 + n;
-        dst[n * WS + e] = co < Co && e < len ? k[((int64_t)co * Ci + c0) * 9 + e] : from_f<T>(0.0f);
-      }
-    }
+    else copies(std::integral_constant<int, 72>());
   };
 
   // the input chunk with its halo: into registers, then into xs buffer
@@ -203,10 +195,7 @@ __global__ void __launch_bounds__(THREADS, 1) tc_conv_kernel(const Args a) {
   constexpr int QK = KC / 2;
   static_assert(THREADS % QK == 0, "a thread stores one channel of each K half");
   T xr[CONV1 ? 1 : LD];
-  // conv1: (s, t) of each value, float32 in two registers, bfloat16 packed
-  // in one (s in the low half)
-  using Pair = std::conditional_t<sizeof(T) == 4, float2, uint32_t>;
-  Pair st2[CONV1 ? LD : 1];
+  float2 st2[CONV1 ? LD : 1];    // conv1: (s, t) of each value
   uint32_t inside = 0;       // conv1: bit j set where value j lies in the image and below Ci
   auto fetch_x = [&](int chunk) {
     const int c0 = chunk * KC;
@@ -222,8 +211,7 @@ __global__ void __launch_bounds__(THREADS, 1) tc_conv_kernel(const Args a) {
         const int64_t i = (int64_t)(ci < Cs ? ci : ci - Cs) * HW + gy * W + gx;
         const T sv = in && ci < Cs ? x[i] : from_f<T>(0.0f);
         const T tv = in ? tx[i] : from_f<T>(0.0f);
-        if constexpr (sizeof(T) == 4) st2[j] = make_float2(sv, tv);
-        else st2[j] = (uint32_t)__bfloat16_as_ushort(sv) | (uint32_t)__bfloat16_as_ushort(tv) << 16;
+        st2[j] = make_float2(sv, tv);
         inside |= (uint32_t)in << j;
       } else {
         xr[j] = in ? x[(int64_t)ci * HW + gy * W + gx] : from_f<T>(0.0f);
@@ -247,27 +235,15 @@ __global__ void __launch_bounds__(THREADS, 1) tc_conv_kernel(const Args a) {
       unsigned char* dst = base + half * C::HALF + pix * 16 + q * (int)sizeof(T);
       T v;
       if constexpr (CONV1) {
-        float sv, tv;
-        if constexpr (sizeof(T) == 4) {
-          sv = st2[j].x;
-          tv = st2[j].y;
-        } else {
-          sv = __uint_as_float(st2[j] << 16);
-          tv = __uint_as_float(st2[j] & 0xffff0000u);
-        }
-        const float x1 = x1_of(half ? cf1 : cf0, sv, tv);
+        const float x1 = x1_of(half ? cf1 : cf0, st2[j].x, st2[j].y);
         v = from_f<T>((inside >> j) & 1 ? x1 : 0.0f);
       } else {
         v = xr[j];
       }
-      if constexpr (sizeof(T) == 4) {
-        uint32_t hi, lo;
-        split_tf32(to_f(v), hi, lo);
-        *reinterpret_cast<uint32_t*>(dst) = hi;
-        *reinterpret_cast<uint32_t*>(dst + C::PLANE) = lo;
-      } else {
-        *reinterpret_cast<T*>(dst) = v;
-      }
+      uint32_t hi, lo;
+      split_tf32(to_f(v), hi, lo);
+      *reinterpret_cast<uint32_t*>(dst) = hi;
+      *reinterpret_cast<uint32_t*>(dst + C::PLANE) = lo;
     }
     // these generic-proxy stores are read by wgmma through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -276,19 +252,11 @@ __global__ void __launch_bounds__(THREADS, 1) tc_conv_kernel(const Args a) {
   // A-fragments from the OIHW slab: row = channel, k = input channel at
   // stride 9 within the row, the tap's column
   auto frag = [&](int stage, int tap, uint32_t (&w)[4]) {
-    const T* wp = ws + stage * TN * WS + (m0 + gid) * WS + tap;
-    if constexpr (sizeof(T) == 4) {
-      const float* fp = reinterpret_cast<const float*>(wp);
-      w[0] = __float_as_uint(fp[tig * 9]);                  // (channel gid, k tig)
-      w[1] = __float_as_uint(fp[8 * WS + tig * 9]);         // (gid + 8, tig)
-      w[2] = __float_as_uint(fp[(tig + 4) * 9]);            // (gid, tig + 4)
-      w[3] = __float_as_uint(fp[8 * WS + (tig + 4) * 9]);   // (gid + 8, tig + 4)
-    } else {
-      w[0] = pack_bf16(wp[2 * tig * 9], wp[(2 * tig + 1) * 9]);
-      w[1] = pack_bf16(wp[8 * WS + 2 * tig * 9], wp[8 * WS + (2 * tig + 1) * 9]);
-      w[2] = pack_bf16(wp[(2 * tig + 8) * 9], wp[(2 * tig + 9) * 9]);
-      w[3] = pack_bf16(wp[8 * WS + (2 * tig + 8) * 9], wp[8 * WS + (2 * tig + 9) * 9]);
-    }
+    const float* fp = ws + stage * TN * WS + (m0 + gid) * WS + tap;
+    w[0] = __float_as_uint(fp[tig * 9]);                  // (channel gid, k tig)
+    w[1] = __float_as_uint(fp[8 * WS + tig * 9]);         // (gid + 8, tig)
+    w[2] = __float_as_uint(fp[(tig + 4) * 9]);            // (gid, tig + 4)
+    w[3] = __float_as_uint(fp[8 * WS + (tig + 4) * 9]);   // (gid + 8, tig + 4)
   };
 
   float acc[ND];
@@ -361,15 +329,6 @@ int launch_tc_type(Args a, int B, cudaStream_t stream) {
   if (r == 4) return launch_tc_cfg<T, MODE, Tile<4>>(a, B, stream);
   if (r == 2) return launch_tc_cfg<T, MODE, Tile<2>>(a, B, stream);
   return launch_tc_cfg<T, MODE, Tile<1>>(a, B, stream);
-}
-
-// B2a in either dtype; B5 and B2b call launch_tc_type<float, ...>: their
-// bfloat16 operands run tma_conv.cuh
-template <int MODE>
-int launch_tc(Args a, int B, int dtype, cudaStream_t stream) {
-  static_assert(MODE == AN_CONV1, "bfloat16 B5 and B2b run tma_conv.cuh");
-  return dtype == 0 ? launch_tc_type<float, MODE>(a, B, stream)
-                    : launch_tc_type<__nv_bfloat16, MODE>(a, B, stream);
 }
 
 // the tensor-core core indexes one sample's input with 32-bit offsets

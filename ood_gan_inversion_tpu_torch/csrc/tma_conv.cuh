@@ -1,13 +1,16 @@
-// The bfloat16 path of two SAMM AlignNet convolutions, for Hopper (sm_90a):
-// B5 (samm_conv.cu: ogi_conv3x3_act_tma, out = act(conv3x3(x, k)) in
-// bfloat16) and B2b (alignnet_conv2.cu: ogi_alignnet_conv2_tma, y2 =
-// conv3x3(z, k2) in float32 and the tiles' moments of y2). Their float32
-// path and B2a stay on the core of samm_conv.cuh / tc_conv.cuh.
+// The bfloat16 path of the three SAMM AlignNet convolutions, for Hopper
+// (sm_90a): B5 (samm_conv.cu: ogi_conv3x3_act_tma, out = act(conv3x3(x, k))
+// in bfloat16), B2a (alignnet_conv1.cu: ogi_alignnet_conv1_tma, z =
+// prelu(conv3x3(x1, k1)) in bfloat16, x1 built from s, t and the
+// coefficients by the repack pass) and B2b (alignnet_conv2.cu:
+// ogi_alignnet_conv2_tma, y2 = conv3x3(z, k2) in float32 and the tiles'
+// moments of y2). Their float32 operands run the core of samm_conv.cuh /
+// tc_conv.cuh.
 //
 // Replaces, for bfloat16 operands, the TPU kernels
-// ops/pallas_kernels.py:_conv_act_band_kernel (via conv3x3_act) and
-// _an_conv2_kernel (via fused_alignnet_body0). Bound by operations: 2 * 9 *
-// Ci * Co flops per pixel against 2 * (Ci + Co) bytes.
+// ops/pallas_kernels.py:_conv_act_band_kernel (via conv3x3_act),
+// _an_conv1_kernel and _an_conv2_kernel (via fused_alignnet_body0). Bound by
+// operations: 2 * 9 * Ci * Co flops per pixel against 2 * (Ci + Co) bytes.
 //
 // Operands. Both wgmma operands come from shared memory, K-major with the
 // 128-byte swizzle, loaded by TMA. A K-block is one tap x 64 input channels,
@@ -30,7 +33,13 @@
 //     Its channels are padded with zeros to a multiple of 8, since a TMA
 //     stride is a multiple of 16 bytes; channels and output channels past
 //     the end of a box are TMA zero fill. ops/samm_conv.py:tma_operands is
-//     its plain version.
+//     its plain version. For B2a it writes x1 = [as*s + at*t + b1, ct*t +
+//     b2] (its x1 mode): read from s and t, computed in float32 with the
+//     plain version's roundings (two products, two sums, no FMA
+//     contraction), rounded once; ops/alignnet.py:tma_x1_operands is that
+//     mode's plain version. TMA's zero fill outside the image is then
+//     conv1's padding of x1, as the TPU kernel masks it, and not the affine
+//     image of zero-padded s and t. B2a then runs B5's mode, PReLU.
 // A stage of the ring is one (64-channel chunk, dx): 3 K-blocks, 48 KB of
 // weights and (TH + 2) * 4 KB of input, completed on one mbarrier. At Ci =
 // 1024 the K loop has 16 * 3 stages and no block-wide barrier.
@@ -413,13 +422,17 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
 
 // The layout pass ahead of the conv: xr (B, H * W, Cp) from x (B, C, H * W)
 // and wr (3 [dx], 3 [dy], Co, Cp) from k (Co, C, 3, 3), channels C..Cp-1
-// zero. It moves bytes only: each transpose goes through shared memory so
-// that reads and writes both run along contiguous rows, two bfloat16 (4
-// bytes) a thread where the layout allows. Blocks [0, xblocks) transpose
-// 64 channels x 64 pixels of x each (grid.y: the sample); blocks from
-// xblocks on take 512 channels of one output channel of k (grid.y 0).
+// zero. It moves bytes only, but in its x1 mode (X1, B2a) computes the
+// input's values from s = x and t (B, C / 2, H * W) and the coefficients
+// (x1_bits). Each transpose goes through shared memory so that reads and
+// writes both run along contiguous rows, two bfloat16 (4 bytes) a thread
+// where the layout allows. Blocks [0, xblocks) transpose 64 channels x 64
+// pixels of x each (grid.y: the sample); blocks from xblocks on take 512
+// channels of one output channel of k (grid.y 0).
 struct Repack {
-  const unsigned short* x;
+  const unsigned short* x;    // x, or s (X1)
+  const unsigned short* t;    // X1: t
+  const float* coeffs;        // X1: (B, 5, C / 2) [as, at, b1, ct, b2]
   const unsigned short* k;
   unsigned short* xr;
   unsigned short* wr;
@@ -428,20 +441,64 @@ struct Repack {
 
 constexpr int WCHUNK = 512;      // channels of k per block
 
+// x1 of one value, as bfloat16 bits: (as*s + at*t) + b1 in the s half,
+// ct*t + b2 in the t half, each product and sum rounded to float32 as the
+// plain version's (ops/alignnet.py:alignnet_x1), then rounded once. cf
+// points at the channel's as, the other coefficients C apart (C = x1's
+// channels / 2); s and t are float32 bit patterns.
+__device__ __forceinline__ uint32_t x1_bits(const float* cf, int C, bool s_half, uint32_t s,
+                                            uint32_t t) {
+  const float sv = __uint_as_float(s), tv = __uint_as_float(t);
+  const float v = s_half ? __fadd_rn(__fadd_rn(__fmul_rn(cf[0], sv), __fmul_rn(cf[C], tv)), cf[2 * C])
+                         : __fadd_rn(__fmul_rn(cf[3 * C], tv), cf[4 * C]);
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// the input's channel c (< r.C) of sample b at pixels p and p + 1 (p even,
+// H * W even) as two bfloat16 in one word, p's in the low half; X1: x1's
+template <bool X1>
+__device__ __forceinline__ uint32_t input_pair(const Repack& r, int b, int c, int p) {
+  if constexpr (!X1) {
+    return *reinterpret_cast<const uint32_t*>(r.x + ((int64_t)b * r.C + c) * r.HW + p);
+  } else {
+    const int C = r.C / 2, cs = c < C ? c : c - C;
+    const float* cf = r.coeffs + (int64_t)b * 5 * C + cs;
+    const int64_t i = ((int64_t)b * C + cs) * r.HW + p;
+    const uint32_t t = *reinterpret_cast<const uint32_t*>(r.t + i);
+    const uint32_t s = c < C ? *reinterpret_cast<const uint32_t*>(r.x + i) : 0u;
+    return x1_bits(cf, C, c < C, s << 16, t << 16) |
+           x1_bits(cf, C, c < C, s & 0xffff0000u, t & 0xffff0000u) << 16;
+  }
+}
+
+// the same at one pixel p
+template <bool X1>
+__device__ __forceinline__ unsigned short input_at(const Repack& r, int b, int c, int p) {
+  if constexpr (!X1) {
+    return r.x[((int64_t)b * r.C + c) * r.HW + p];
+  } else {
+    const int C = r.C / 2, cs = c < C ? c : c - C;
+    const int64_t i = ((int64_t)b * C + cs) * r.HW + p;
+    const uint32_t s = c < C ? (uint32_t)r.x[i] << 16 : 0u;
+    return (unsigned short)x1_bits(r.coeffs + (int64_t)b * 5 * C + cs, C, c < C, s,
+                                   (uint32_t)r.t[i] << 16);
+  }
+}
+
+template <bool X1>
 __global__ void __launch_bounds__(256) repack_kernel(const Repack r) {
   __shared__ __align__(16) unsigned short sm[WCHUNK * 9];
   const int tid = threadIdx.x, lane = tid & 31, row = tid >> 5;
   if ((int)blockIdx.x < r.xblocks) {
     constexpr int LD = 66;       // tile row stride: [64 channels][64 pixels + 2]
     const int b = blockIdx.y, p0 = blockIdx.x % r.xtiles_p * 64, c0 = blockIdx.x / r.xtiles_p * 64;
-    const unsigned short* src = r.x + (int64_t)b * r.C * r.HW;
     unsigned short* dst = r.xr + (int64_t)b * r.HW * r.Cp;
     if (r.HW % 2 == 0) {         // pixel pairs in, channel pairs out (Cp is even)
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int c = c0 + row + 8 * i, p = p0 + 2 * lane;
         uint32_t v = 0;
-        if (c < r.C && p < r.HW) v = *reinterpret_cast<const uint32_t*>(src + (int64_t)c * r.HW + p);
+        if (c < r.C && p < r.HW) v = input_pair<X1>(r, b, c, p);
         *reinterpret_cast<uint32_t*>(sm + (row + 8 * i) * LD + 2 * lane) = v;
       }
       __syncthreads();
@@ -458,7 +515,7 @@ __global__ void __launch_bounds__(256) repack_kernel(const Repack r) {
       const int tx = tid & 63, ty = tid >> 6;
       for (int i = ty; i < 64; i += 4) {
         const int c = c0 + i, p = p0 + tx;
-        sm[i * LD + tx] = c < r.C && p < r.HW ? src[(int64_t)c * r.HW + p] : 0;
+        sm[i * LD + tx] = c < r.C && p < r.HW ? input_at<X1>(r, b, c, p) : 0;
       }
       __syncthreads();
       for (int i = ty; i < 64; i += 4) {
@@ -494,15 +551,19 @@ __global__ void __launch_bounds__(256) repack_kernel(const Repack r) {
 // ---------------------------------------------------------------- host
 
 // the repack of x (B, C, H, W) and k (Co, C, 3, 3) into xr (B, H, W, Cp)
-// and wr (3, 3, Co, Cp), all bfloat16
-inline int repack(const void* x, const void* k, void* xr, void* wr, int B, int C, int H, int W,
-                  int Co, int Cp, cudaStream_t stream) {
-  Repack r{static_cast<const unsigned short*>(x), static_cast<const unsigned short*>(k),
+// and wr (3, 3, Co, Cp), all bfloat16; with t (nullptr otherwise), its x1
+// mode: xr holds x1 built from s = x and t (B, C / 2, H, W) bfloat16 and
+// coeffs (B, 5, C / 2) float32
+inline int repack(const void* x, const void* t, const float* coeffs, const void* k, void* xr,
+                  void* wr, int B, int C, int H, int W, int Co, int Cp, cudaStream_t stream) {
+  using U = const unsigned short*;
+  Repack r{static_cast<U>(x), static_cast<U>(t), coeffs, static_cast<U>(k),
            static_cast<unsigned short*>(xr), static_cast<unsigned short*>(wr), C, H * W, Cp, Co,
            (H * W + 63) / 64, 0};
   r.xblocks = r.xtiles_p * ((Cp + 63) / 64);
   const dim3 grid(r.xblocks + Co * ((Cp + WCHUNK - 1) / WCHUNK), B);
-  repack_kernel<<<grid, 256, 0, stream>>>(r);
+  if (t == nullptr) repack_kernel<false><<<grid, 256, 0, stream>>>(r);
+  else repack_kernel<true><<<grid, 256, 0, stream>>>(r);
   return (int)cudaGetLastError();
 }
 
@@ -582,23 +643,45 @@ int launch_cfg(const void* x, const void* w, Args a, int B, int Ci, cudaStream_t
   return (int)e;
 }
 
-// The repack, then the conv: x (B, Ci, H, W) and k (Co, Ci, 3, 3)
+// the arguments a launch does not take (scratch not 16-byte aligned)
+inline bool bad_args(const Args& a, int B, int Ci, const void* xr, const void* wr) {
+  return B <= 0 || B > 65535 || a.H <= 0 || a.W <= 0 || Ci <= 0 || a.Co <= 0 ||
+         reinterpret_cast<uintptr_t>(xr) % 16 != 0 || reinterpret_cast<uintptr_t>(wr) % 16 != 0;
+}
+
+// the repack (x1 mode with t), then the conv on xr, wr at the tiles of
+// tile_rows(H, W, Co); Ci the conv's input channels, Cp = Ci rounded up to
+// a multiple of 8
+template <int MODE>
+int repack_and_conv(const void* x, const void* t, const float* coeffs, const void* k, void* xr,
+                    void* wr, Args a, int B, int Ci, cudaStream_t stream) {
+  if (bad_args(a, B, Ci, xr, wr)) return 1000;
+  const int Cp = (Ci + 7) / 8 * 8;
+  const int err = repack(x, t, coeffs, k, xr, wr, B, Ci, a.H, a.W, a.Co, Cp, stream);
+  if (err != 0) return err;
+  const int r = tile_rows(a.H, a.W, a.Co);
+  if (r == 4) return launch_cfg<MODE, 4>(xr, wr, a, B, Cp, stream);
+  if (r == 2) return launch_cfg<MODE, 2>(xr, wr, a, B, Cp, stream);
+  return launch_cfg<MODE, 1>(xr, wr, a, B, Cp, stream);
+}
+
+// The repack, then the conv (B5, B2b): x (B, Ci, H, W) and k (Co, Ci, 3, 3)
 // bfloat16; xr (B, H, W, Cp) and wr (3, 3, Co, Cp) bfloat16 scratch, Cp =
 // Ci rounded up to a multiple of 8, both 16-byte aligned; the rest of a as
 // Args says.
 template <int MODE>
 int launch(const void* x, const void* k, void* xr, void* wr, Args a, int B, int Ci,
            cudaStream_t stream) {
-  const int Cp = (Ci + 7) / 8 * 8;
-  if (B <= 0 || B > 65535 || a.H <= 0 || a.W <= 0 || Ci <= 0 || a.Co <= 0 ||
-      reinterpret_cast<uintptr_t>(xr) % 16 != 0 || reinterpret_cast<uintptr_t>(wr) % 16 != 0)
-    return 1000;
-  const int err = repack(x, k, xr, wr, B, Ci, a.H, a.W, a.Co, Cp, stream);
-  if (err != 0) return err;
-  const int r = tile_rows(a.H, a.W, a.Co);
-  if (r == 4) return launch_cfg<MODE, 4>(xr, wr, a, B, Cp, stream);
-  if (r == 2) return launch_cfg<MODE, 2>(xr, wr, a, B, Cp, stream);
-  return launch_cfg<MODE, 1>(xr, wr, a, B, Cp, stream);
+  return repack_and_conv<MODE>(x, nullptr, nullptr, k, xr, wr, a, B, Ci, stream);
+}
+
+// B2a: the repack's x1 mode from s, t (B, C, H, W) bfloat16 and coeffs (B,
+// 5, C) float32, then B5's conv (act as a says: PReLU) with Ci = Co = 2C =
+// a.Co; k (2C, 2C, 3, 3), xr (B, H, W, Cp), wr (3, 3, 2C, Cp) as above.
+inline int launch_x1(const void* s, const void* t, const float* coeffs, const void* k, void* xr,
+                     void* wr, Args a, int B, cudaStream_t stream) {
+  if (a.Co % 2 != 0 || t == nullptr || coeffs == nullptr) return 1000;
+  return repack_and_conv<CONV_ACT>(s, t, coeffs, k, xr, wr, a, B, a.Co, stream);
 }
 
 // the mean host time in microseconds of encoding one launch's two tensor
@@ -622,5 +705,17 @@ extern "C" long long ogi_tma_conv_launches() { return tma::launches().load(); }
 extern "C" int ogi_tma_repack(const void* x, const void* k, void* xr, void* wr, int B, int C,
                               int H, int W, int Co, int Cp, void* stream) {
   if (B <= 0 || B > 65535 || C <= 0 || Co <= 0 || Cp < C || Cp % 8 != 0) return 1000;
-  return tma::repack(x, k, xr, wr, B, C, H, W, Co, Cp, static_cast<cudaStream_t>(stream));
+  return tma::repack(x, nullptr, nullptr, k, xr, wr, B, C, H, W, Co, Cp,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The repack pass's x1 mode alone (B2a): s, t (B, C, H, W) bfloat16, coeffs
+// (B, 5, C) float32, k (2C, 2C, 3, 3) bfloat16 into xr (B, H, W, Cp) and wr
+// (3, 3, 2C, Cp); 0 or a CUDA error.
+extern "C" int ogi_tma_repack_x1(const void* s, const void* t, const void* coeffs, const void* k,
+                                 void* xr, void* wr, int B, int C, int H, int W, int Cp,
+                                 void* stream) {
+  if (B <= 0 || B > 65535 || C <= 0 || Cp < 2 * C || Cp % 8 != 0) return 1000;
+  return tma::repack(s, t, static_cast<const float*>(coeffs), k, xr, wr, B, 2 * C, H, W, 2 * C,
+                     Cp, static_cast<cudaStream_t>(stream));
 }

@@ -15,24 +15,36 @@ across align cycles, so `alignnet_t_context` computes the t-only half once.
 `algebraic_alignnet_body0` is plain PyTorch, the JAX package's default path.
 
 `fused_alignnet_body0` computes the same body0 with two hand-written CUDA
-kernels (csrc/alignnet_conv1.cu, csrc/alignnet_conv2.cu: the tensor-core
-conv of csrc/samm_conv.cuh, and for alignnet_conv2's bfloat16 operands the
-TMA kernel of csrc/tma_conv.cuh) between plain PyTorch passes: the
-coefficients, then `alignnet_conv1` (x1 built on chip, conv1, PReLU), then
-`alignnet_conv2` (conv2 and norm2's moments), then the norm2 affine and the
-shortcut. Each wrapper launches its kernel for CUDA tensors and runs its
-plain version (`alignnet_conv1_reference`, `alignnet_conv2_reference`) for
-CPU tensors, and counts its launches in `.launches`. Their backwards (the
-Functions `AlignNetConv1`, `AlignNetConv2`) differentiate the plain
-versions, so `fused_alignnet_body0`, which composes them, differentiates
-as JAX's custom_vjp does: through the reference.
+kernels between plain PyTorch passes: the coefficients, then
+`alignnet_conv1` (B2a: x1 built from (s, t) and the coefficients, conv1,
+PReLU), then `alignnet_conv2` (B2b: conv2 and norm2's moments), then the
+norm2 affine and the shortcut. csrc/alignnet_conv1.cu and
+csrc/alignnet_conv2.cu run float32 operands on the tensor-core conv of
+csrc/samm_conv.cuh and bfloat16 operands on the TMA kernel of
+csrc/tma_conv.cuh, after a repack pass into NHWC input and tap-major
+weights (B2a's builds x1 in that pass; `tma_x1_operands` is its plain
+version). Each wrapper launches its kernel for CUDA tensors and counts its
+launches in `.launches`.
+
+Two plain versions of each kernel: `alignnet_conv1_kernel_reference` and
+`alignnet_conv2_kernel_reference` are the kernels' functions (the convs of
+the operands widened to float32, PReLU in float32, z rounded once to the
+operand dtype, y2 and its moments in float32), which the wrappers run for
+CPU tensors, as JAX's Pallas kernels compute them; `alignnet_conv1_reference`
+and `alignnet_conv2_reference` compute in the operand dtype, as JAX's XLA
+oracle does, and are what the backwards (the Functions `AlignNetConv1`,
+`AlignNetConv2`) differentiate, so `fused_alignnet_body0`, which composes
+them, differentiates as JAX's custom_vjp does: through the reference. On
+float32 operands the two are the same ops, bit for bit. B2a's PReLU slopes
+are rounded to the operand dtype in the wrapper, as JAX's kernel reads
+them, so the kernel and both plain versions read the same values.
 """
 
 import torch
 
 from . import batch_invariant as bi
-from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function
-from .samm_conv import tma_scratch
+from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function, widen
+from .samm_conv import conv3x3_act_kernel_reference, tma_operands, tma_scratch
 
 # the channel floor of the fused path (C, as in JAX); tests lower it to run
 # narrow widths through the kernels
@@ -189,35 +201,74 @@ def alignnet_body0_supported(c: int) -> bool:
     return c >= FUSED_MIN_CHANNELS
 
 
-def alignnet_conv1_reference(s, t, coeffs, k1, alpha):
-    """The plain version of the first fused kernel: x1 = [as*s + at*t + b1,
-    ct*t + b2] (coeffs (B, 5, C) float32), in s.dtype, zero outside the
-    image; z = prelu(conv3x3(x1, k1)). s, t (B, C, H, W); k1 (2C, 2C, 3, 3);
-    alpha (2C,). Returns z (B, 2C, H, W) in s.dtype."""
+def alignnet_x1(s, t, coeffs):
+    """conv1's input x1 = [as*s + at*t + b1, ct*t + b2] from s, t (B, C, H,
+    W) and coeffs (B, 5, C) float32: computed in float32 in this order,
+    rounded once to s.dtype. (B, 2C, H, W)."""
     s32, t32 = s.float(), t.float()
     as_, at_, b1h, ct_, b2h = (_cv(coeffs[:, i]) for i in range(5))
-    x1 = torch.cat([as_ * s32 + at_ * t32 + b1h, ct_ * t32 + b2h], dim=1).to(s.dtype)
-    z = _conv(x1, k1)
+    return torch.cat([as_ * s32 + at_ * t32 + b1h, ct_ * t32 + b2h], dim=1).to(s.dtype)
+
+
+def alignnet_conv1_reference(s, t, coeffs, k1, alpha):
+    """The plain version of the first fused kernel that its backward
+    differentiates: x1 = alignnet_x1(s, t, coeffs), zero outside the image;
+    z = prelu(conv3x3(x1, k1)) in s.dtype. s, t (B, C, H, W); k1 (2C, 2C,
+    3, 3); alpha (2C,). Returns z (B, 2C, H, W) in s.dtype."""
+    z = _conv(alignnet_x1(s, t, coeffs), k1)
     return torch.where(z >= 0, z, _cv(alpha[None].to(z.dtype)) * z)
 
 
+def alignnet_conv1_kernel_reference(s, t, coeffs, k1, alpha):
+    """The first fused kernel's function, arguments as
+    alignnet_conv1_reference: x1 as there, then conv1 and PReLU as B5's
+    kernel computes them (samm_conv.conv3x3_act_kernel_reference): the conv
+    in float32, PReLU with the float32 slopes as given, one rounding."""
+    return conv3x3_act_kernel_reference(alignnet_x1(s, t, coeffs), k1, alpha, "prelu")
+
+
 def alignnet_conv2_reference(z, k2):
-    """The plain version of the second fused kernel: y2 = conv3x3(z, k2) in
-    float32 and part (B, 2, 2C) = [sum y2, sum y2^2] over H, W."""
+    """The plain version of the second fused kernel that its backward
+    differentiates: y2 = conv3x3(z, k2) in z.dtype, then as float32, and
+    part (B, 2, 2C) = [sum y2, sum y2^2] over H, W in float32."""
     y2 = _conv(z, k2).float()
     return y2, torch.stack([bi.sum_hw(y2), bi.sum_hw(y2 * y2)], dim=1)
 
 
+def alignnet_conv2_kernel_reference(z, k2):
+    """The second fused kernel's function: as alignnet_conv2_reference on z
+    and k2 widened to float32, so that y2 and its moments are never rounded
+    to bfloat16."""
+    return alignnet_conv2_reference(widen(z), widen(k2))
+
+
+def tma_x1_operands(s, t, coeffs, k1):
+    """The operands of the bfloat16 B2a kernel (csrc/tma_conv.cuh) from s, t
+    (B, C, H, W), coeffs (B, 5, C) and k1 (2C, 2C, 3, 3): x1 =
+    alignnet_x1(s, t, coeffs) as NHWC (B, H, W, Cp) and k1 as (3, 3, 2C, Cp),
+    Cp = tma_channels(2C), the channels past 2C zero. The plain version of
+    the repack pass's x1 mode: x1's arithmetic, then layout copies
+    (samm_conv.tma_operands)."""
+    return tma_operands(alignnet_x1(s, t, coeffs), k1)
+
+
 def _conv1_run(s, t, coeffs, k1, alpha):
-    """B2a's kernel for CUDA tensors, its plain version for CPU tensors."""
+    """B2a's kernel for CUDA tensors, its plain version for CPU tensors:
+    float32 operands as they lie, bfloat16 ones through the TMA kernel's
+    repack pass, which builds x1, into scratch (samm_conv.tma_scratch)."""
     if not on_card("alignnet_conv1", (s, t, coeffs, k1, alpha)):
-        return alignnet_conv1_reference(s, t, coeffs, k1, alpha)
+        return alignnet_conv1_kernel_reference(s, t, coeffs, k1, alpha)
     b, c, h, w = s.shape
     z = s.new_empty((b, 2 * c, h, w))
-    launch(alignnet_conv1, "alignnet_conv1",
-           entry("alignnet_conv1", "ogi_alignnet_conv1", 6, 5), s,
-           *(v.data_ptr() for v in (s, t, coeffs, k1, alpha, z)), b, h, w, c,
-           activation(s, "alignnet_conv1"))
+    if s.dtype == torch.bfloat16:
+        xr, wr = tma_scratch(s, k1)
+        launch(alignnet_conv1, "alignnet_conv1",
+               entry("alignnet_conv1", "ogi_alignnet_conv1_tma", 8, 4), s,
+               *(v.data_ptr() for v in (s, t, coeffs, k1, xr, wr, alpha, z)), b, h, w, c)
+    else:
+        launch(alignnet_conv1, "alignnet_conv1",
+               entry("alignnet_conv1", "ogi_alignnet_conv1", 6, 4), s,
+               *(v.data_ptr() for v in (s, t, coeffs, k1, alpha, z)), b, h, w, c)
     return z
 
 
@@ -226,14 +277,15 @@ AlignNetConv1 = twin_function("AlignNetConv1", _conv1_run, alignnet_conv1_refere
 
 def alignnet_conv1(s, t, coeffs, k1, alpha):
     """B2a: arguments and result as alignnet_conv1_reference; s, t and k1
-    float32 or bfloat16 (the same), coeffs and alpha float32."""
+    float32 or bfloat16 (the same), coeffs and alpha float32. The slopes
+    are rounded to s.dtype first, as JAX's kernel reads them."""
     activation(s, "alignnet_conv1")
     b, c, h, w = s.shape
     expect("t", t, s.shape, s.dtype)
     expect("coeffs", coeffs, (b, 5, c), torch.float32)
     expect("k1", k1, (2 * c, 2 * c, 3, 3), s.dtype)
     expect("alpha", alpha, (2 * c,), torch.float32)
-    return dispatch(AlignNetConv1, s, t, coeffs, k1, alpha)
+    return dispatch(AlignNetConv1, s, t, coeffs, k1, alpha.to(s.dtype).float())
 
 
 alignnet_conv1.launches = 0
@@ -244,7 +296,7 @@ def _conv2_run(z, k2):
     float32 operands as they lie, bfloat16 ones through the TMA kernel's
     repack pass into scratch (samm_conv.tma_scratch)."""
     if not on_card("alignnet_conv2", (z, k2)):
-        return alignnet_conv2_reference(z, k2)
+        return alignnet_conv2_kernel_reference(z, k2)
     b, c2, h, w = z.shape
     n_tiles = entry("alignnet_conv2", "ogi_samm_conv_tiles", 0, 3, stream=False)(h, w, c2)
     y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)

@@ -33,6 +33,13 @@ def expect(name, t, shape, dtype):
         raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got {got}")
 
 
+def widen(v):
+    """A bfloat16 operand as float32 (exact), any other as it is: the
+    operands of a kernel's plain version, which multiplies them exactly and
+    sums in float32 as the kernel's tensor cores do."""
+    return v.float() if v.dtype == torch.bfloat16 else v
+
+
 def activation(x, what):
     """The dtype code of x, a float32 or bfloat16 (B, C, H, W) operand."""
     if x.dim() != 4 or x.dtype not in DTYPES:

@@ -12,11 +12,21 @@ tensor cores (the `wgmma` conv of csrc/tc_conv.cuh):
   * `fused_packed_stage` (B4) computes a whole packed stage: the pair, then
     toRGB and the packed skip upsample.
 
-Each wrapper launches its kernel for CUDA tensors and runs the plain
-version for CPU tensors; there is no fallback between the two. `.launches`
-on `fused_conv3x3_act` and `fused_packed_stage` counts kernel launches.
-Their backwards (the Functions `PackedConv3x3Act`, `PackedStage`)
-differentiate the plain versions, as JAX's custom_vjp rules do.
+Each wrapper launches its kernel for CUDA tensors and runs the kernel's
+plain version for CPU tensors; there is no fallback between the two.
+`.launches` on `fused_conv3x3_act` and `fused_packed_stage` counts kernel
+launches.
+
+Two plain versions of each kernel: `packed_conv3x3_act_kernel_reference`
+and `packed_stage_kernel_reference` are the kernels' functions, which the
+wrappers run for CPU tensors: the convs of the operands widened to float32,
+the epilogues in float32, each output rounded once to x's dtype (B4's conv1
+activation after its s2 factor), as JAX's Pallas kernels compute them.
+`packed_conv3x3_act_reference`, `packed_pair_reference` and
+`packed_stage_reference` compute in x's dtype, as JAX's XLA oracles do, and
+are what the backwards (the Functions `PackedConv3x3Act`, `PackedStage`)
+differentiate, as JAX's custom_vjp rules do. On float32 operands the two
+are the same ops, bit for bit.
 
 Operands: x and the conv kernels (and skip, k3sr, k4) in float32 or
 bfloat16; noise, style scales, demodulation and biases in float32. The
@@ -28,7 +38,7 @@ import math
 import torch
 
 from . import batch_invariant as bi
-from .cuda_call import DTYPES, dispatch, entry, expect, launch, on_card, twin_function
+from .cuda_call import DTYPES, dispatch, entry, expect, launch, on_card, twin_function, widen
 from .polyphase import conv_packed
 
 SQRT2 = math.sqrt(2.0)
@@ -39,17 +49,50 @@ def _per_sample(v: torch.Tensor, b: int) -> torch.Tensor:
     return v.expand(b, -1)[:, None, None, :]
 
 
-def packed_conv3x3_act_reference(x, noise4, k, s_in, d_out, bias):
-    """The plain version of one fused conv: x (B, H, W, Ci); noise4
-    (B, H, W, 4) phase-packed, pre-scaled; k (3, 3, Ci, Co); s_in (B, Ci);
-    d_out (B, Co); bias (Co,) or (B, Co). Returns (B, H, W, Co) in x.dtype."""
-    b, h, w, _ = x.shape
-    co = k.shape[-1]
-    z = conv_packed(x * _per_sample(s_in.to(x.dtype), b), k)
+def _scaled(x, s_in):
+    """x * s_in in x.dtype, s_in rounded to it first, as JAX's kernels read
+    their input."""
+    return x * _per_sample(s_in.to(x.dtype), x.shape[0])
+
+
+def _epilogue(z, noise4, d_out, bias):
+    """lrelu(z * d_out + noise4[phase] + bias) * sqrt(2), in z's dtype (or
+    float32 where an operand promotes it)."""
+    b, h, w, co = z.shape
     z = z * _per_sample(d_out.to(z.dtype), b)
     z = (z.reshape(b, h, w, 4, co // 4) + noise4[..., None]).reshape(b, h, w, co)
     z = z + _per_sample(bias, b)
-    return (SQRT2 * torch.where(z >= 0, z, 0.2 * z)).to(x.dtype)
+    return SQRT2 * torch.where(z >= 0, z, 0.2 * z)
+
+
+def _rgb(z2, k3sr, b3, skip, k4):
+    """toRGB of z2 with the per-sample k3sr, + b3, + the packed skip
+    upsample, in z2's dtype."""
+    rgb = bi.per_sample(lambda z, k: torch.einsum("bhwc,bco->bhwo", z, k),
+                        z2, k3sr.to(z2.dtype))
+    rgb = rgb + _per_sample(b3.to(rgb.dtype), z2.shape[0])
+    return rgb + conv_packed(skip, k4)
+
+
+def packed_conv3x3_act_reference(x, noise4, k, s_in, d_out, bias):
+    """The plain version of one fused conv that its backward
+    differentiates: x (B, H, W, Ci); noise4 (B, H, W, 4) phase-packed,
+    pre-scaled; k (3, 3, Ci, Co); s_in (B, Ci); d_out (B, Co); bias (Co,)
+    or (B, Co). Returns (B, H, W, Co) in x.dtype."""
+    return _epilogue(conv_packed(_scaled(x, s_in), k), noise4, d_out, bias).to(x.dtype)
+
+
+def _kernel_conv_act(xs, noise4, k, d_out, bias):
+    """B3's and B4's conv and epilogue on the scaled input xs: the conv of
+    xs and k widened to float32, the epilogue in float32; not rounded."""
+    return _epilogue(conv_packed(widen(xs), widen(k)), noise4, d_out, bias)
+
+
+def packed_conv3x3_act_kernel_reference(x, noise4, k, s_in, d_out, bias):
+    """B3's kernel's function, arguments as packed_conv3x3_act_reference:
+    x * s_in rounded to x.dtype (s_in first), then the conv and epilogue in
+    float32, one rounding to x.dtype."""
+    return _kernel_conv_act(_scaled(x, s_in), noise4, k, d_out, bias).to(x.dtype)
 
 
 def packed_pair_reference(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2):
@@ -67,11 +110,20 @@ def packed_stage_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
     bias b3 ((12,) or (B, 12)) and the packed skip upsample k4 (3, 3, 3, 12).
     Returns (rgb (B, H, W, 12), z2 (B, H, W, C4))."""
     z2 = packed_pair_reference(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2)
-    rgb = bi.per_sample(lambda z, k: torch.einsum("bhwc,bco->bhwo", z, k),
-                        z2, k3sr.to(z2.dtype))
-    rgb = rgb + _per_sample(b3.to(rgb.dtype), x.shape[0])
-    rgb = rgb + conv_packed(skip, k4)
-    return rgb, z2
+    return _rgb(z2, k3sr, b3, skip, k4), z2
+
+
+def packed_stage_kernel_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
+                                  k3sr, b3, k4):
+    """B4's kernels' function, arguments and results as
+    packed_stage_reference: conv1 as B3's kernel computes it, its activation
+    times s2 in float32 rounded once to x.dtype (z); conv2 on z, rounded
+    once (z2); toRGB of z2 as stored, b3 and the skip upsample summed in
+    float32, rounded once (rgb)."""
+    z = (_kernel_conv_act(_scaled(x, s1), n1, k1, d1, b1)
+         * _per_sample(s2, x.shape[0])).to(x.dtype)
+    z2 = _kernel_conv_act(z, n2, k2, d2, b2).to(x.dtype)
+    return _rgb(widen(z2), widen(k3sr), b3, widen(skip), widen(k4)).to(x.dtype), z2
 
 
 # ------------------------------------------------------------- CUDA kernels
@@ -86,7 +138,7 @@ def _vec(v, b, c):
 def _conv3x3_act_run(x, noise4, k, s_in, d_out, bias):
     """B3's kernel for CUDA tensors, its plain version for CPU tensors."""
     if not on_card("fused_conv3x3_act", (x, noise4, k, s_in, d_out, bias)):
-        return packed_conv3x3_act_reference(x, noise4, k, s_in, d_out, bias)
+        return packed_conv3x3_act_kernel_reference(x, noise4, k, s_in, d_out, bias)
     b, h, w, ci = x.shape
     co = k.shape[-1]
     s_in, d_out, bias = _vec(s_in, b, ci), _vec(d_out, b, co), _vec(bias, b, co)
@@ -136,7 +188,7 @@ def fused_packed_pair(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2):
 def _stage_run(*args):
     """B4's kernels for CUDA tensors, its plain version for CPU tensors."""
     if not on_card("fused_packed_stage", args):
-        return packed_stage_reference(*args)
+        return packed_stage_kernel_reference(*args)
     x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4 = args
     b, h, w, c1 = x.shape
     c4 = k1.shape[-1]

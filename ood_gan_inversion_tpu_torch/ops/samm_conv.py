@@ -12,8 +12,15 @@ x's dtype. float32 operands run the NCHW/OIHW core of csrc/samm_conv.cuh
 as three TF32 products (hi*hi + hi*lo + lo*hi, for float32 accuracy);
 bfloat16 operands run the TMA kernel of csrc/tma_conv.cuh, after a repack
 pass into NHWC input and tap-major weights at every call (`tma_operands`
-is its plain version). Its backward (the Function `Conv3x3Act`)
-differentiates the plain version, as JAX's custom_vjp does.
+is its plain version).
+
+Two plain versions: `conv3x3_act_kernel_reference` is the kernel's
+function (the conv of the operands widened to float32, the activation in
+float32, one rounding to x's dtype, as JAX's Pallas kernel computes it) and
+is what the wrapper runs for CPU tensors; `conv3x3_act_reference` computes
+in x's dtype throughout, as JAX's XLA oracle does, and is what the backward
+(the Function `Conv3x3Act`) differentiates, as JAX's custom_vjp does. On
+float32 operands the two are the same ops, bit for bit.
 """
 
 import math
@@ -21,7 +28,7 @@ import math
 import torch
 
 from . import batch_invariant as bi
-from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function
+from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function, widen
 
 SQRT2 = math.sqrt(2.0)
 ACTS = {"none": 0, "prelu": 1, "lrelu": 2}
@@ -33,16 +40,28 @@ CONV_ACT_MIN_CHANNELS = 64
 TMA_CHANNELS = 8
 
 
-def conv3x3_act_reference(x, k, alpha, act: str = "prelu"):
-    """The plain version: x (B, Ci, H, W), k (Co, Ci, 3, 3), alpha (Co,)
-    PReLU slopes (read only for act="prelu"). Returns (B, Co, H, W) in
-    x.dtype."""
-    y = bi.conv2d(x, k.to(x.dtype), padding=1)
+def _activate(y, alpha, act):
     if act == "prelu":
         return torch.where(y >= 0, y, alpha.to(y.dtype)[:, None, None] * y)
     if act == "lrelu":
         return SQRT2 * torch.where(y >= 0, y, 0.2 * y)
     return y
+
+
+def conv3x3_act_reference(x, k, alpha, act: str = "prelu"):
+    """The plain version that the backward differentiates: x (B, Ci, H, W),
+    k (Co, Ci, 3, 3), alpha (Co,) PReLU slopes (read only for act="prelu").
+    Returns (B, Co, H, W) in x.dtype, every step in x.dtype."""
+    return _activate(bi.conv2d(x, k.to(x.dtype), padding=1), alpha, act)
+
+
+def conv3x3_act_kernel_reference(x, k, alpha, act: str = "prelu"):
+    """The kernel's function, arguments as conv3x3_act_reference: the conv
+    of x and k widened to float32 (bfloat16 products are exact there),
+    the activation in float32, the slopes unrounded, one rounding to
+    x.dtype."""
+    xw = widen(x)
+    return _activate(bi.conv2d(xw, k.to(xw.dtype), padding=1), alpha, act).to(x.dtype)
 
 
 def conv3x3_act_supported(ci: int, co: int) -> bool:
@@ -75,10 +94,11 @@ def tma_operands(x, k):
 
 
 def tma_scratch(x, k):
-    """Uninitialised tensors of tma_operands' shapes, which the repack pass
-    fills."""
-    b, c, h, w = x.shape
-    cp = tma_channels(c)
+    """Uninitialised tensors of tma_operands' shapes for the input of x's
+    batch and image size and the weights k (Co, Ci, 3, 3), which the repack
+    pass fills."""
+    b, _, h, w = x.shape
+    cp = tma_channels(k.shape[1])
     return x.new_empty((b, h, w, cp)), k.new_empty((3, 3, k.shape[0], cp))
 
 
@@ -86,7 +106,7 @@ def _run(x, k, alpha, act):
     """B5's kernel for CUDA tensors, its plain version for CPU tensors."""
     operands = [x, k] + ([alpha] if act == "prelu" else [])
     if not on_card("conv3x3_act", operands):
-        return conv3x3_act_reference(x, k, alpha, act)
+        return conv3x3_act_kernel_reference(x, k, alpha, act)
     b, ci, h, w = x.shape
     co = k.shape[0]
     out = x.new_empty((b, co, h, w))

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels (warp-blend in its three
 instantiations, the packed conv B3, the packed stage B4, also on bands,
 the AlignNet body0 kernels B2a and B2b, the conv3x3 + activation B5 (the
-bfloat16 B2b and B5 through the TMA kernel and its repack pass) and the
-halo probe) against their plain PyTorch versions on
+bfloat16 B2a, B2b and B5 through the TMA kernel and its repack pass, B2a's
+in its x1 mode) and the halo probe) against their plain PyTorch versions on
 the card, and their autograd Functions' gradients against the plain
 versions' own. Every test here needs a CUDA card and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -329,21 +329,29 @@ def test_packed_kernels_give_each_batch_slot_its_own_result(cuda):
 SAMM_CASES = [(1, 512, 32, 32), (1, 512, 64, 64), (1, 256, 128, 128),
               (1, 128, 256, 256), (2, 48, 19, 27), (2, 37, 19, 27), (1, 12, 100, 90)]
 # float32: sums over up to K = 9 * 1024 terms in another order than cuDNN's
-# -> 1e-4 of max|ref|; bfloat16 operands against the plain version on the
-# same rounded operands in float32 -> 2^-7 of max|ref| (the kernels round
-# x1 and their output to bfloat16)
+# -> 1e-4 of max|ref|; bfloat16 operands against the kernel's plain version
+# on the same operands (`*_kernel_reference`: float32 sums, one rounding)
+# -> 2^-7 of max|ref| (a value whose sum lies near a rounding boundary may
+# round the other way: one bfloat16 step, at most 2^-7 of max|ref|)
 SAMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
+def bf16_step(ref):
+    """One bfloat16 step at max|ref|: the spacing of bfloat16 values there,
+    2^(floor(log2 max|ref|) - 7), between 2^-8 and 2^-7 of max|ref|."""
+    return 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+
+
 def samm_operands(dev, b, c, h, w, dtype, seed=0):
-    """(kernel operands, float32 operands of the plain versions): s, t and
-    the conv kernels rounded to `dtype`; the coefficients of (s, t) and the
-    PReLU slopes float32."""
+    """(kernel operands, float32 operands): s, t and the conv kernels
+    rounded to `dtype`; the coefficients of (s, t) float32; the PReLU slopes
+    float32, rounded to `dtype` first, as alignnet_conv1 reads them."""
     a = {k: torch.from_numpy(v).to(dev)
          for k, v in samm_body0_inputs(b, c, h, w, seed).items()}
     a["coeffs"] = alignnet._alignnet_coeffs(a["s"], a["t"], a["g1"], a["b1"], True, 1e-5)[0]
     for k in ("s", "t", "k1", "k2"):
         a[k] = a[k].to(dtype)
+    a["alpha"] = a["alpha"].to(dtype).float()
     return a, {k: v.float() for k, v in a.items()}
 
 
@@ -352,13 +360,14 @@ def samm_operands(dev, b, c, h, w, dtype, seed=0):
 @pytest.mark.parametrize("b,c,h,w", SAMM_CASES)
 def test_alignnet_conv_kernels_on_card(cuda, b, c, h, w, dtype):
     """B2a against its plain version; B2b on B2a's output against its plain
-    version (y2 and both moments), twice, bit-identical."""
-    a, r = samm_operands(cuda, b, c, h, w, dtype, seed=c + h)
+    version (y2 and both moments), twice, bit-identical. The plain versions
+    are the kernels' (`*_kernel_reference`) on the same operands."""
+    a, _ = samm_operands(cuda, b, c, h, w, dtype, seed=c + h)
     before = (alignnet.alignnet_conv1.launches, alignnet.alignnet_conv2.launches)
     z = alignnet.alignnet_conv1(a["s"], a["t"], a["coeffs"], a["k1"], a["alpha"])
-    z_ref = alignnet.alignnet_conv1_reference(r["s"], r["t"], r["coeffs"], r["k1"], r["alpha"])
+    z_ref = alignnet.alignnet_conv1_kernel_reference(*conv1_ops(a))
     y2, part = alignnet.alignnet_conv2(z, a["k2"])
-    y2_ref, part_ref = alignnet.alignnet_conv2_reference(z.float(), r["k2"])
+    y2_ref, part_ref = alignnet.alignnet_conv2_kernel_reference(z, a["k2"])
     y2_again, part_again = alignnet.alignnet_conv2(z, a["k2"])
     torch.cuda.synchronize()
     assert (alignnet.alignnet_conv1.launches, alignnet.alignnet_conv2.launches) == \
@@ -384,13 +393,13 @@ def test_alignnet_conv1_at_32px_slot_bitwise(cuda, dtype):
     """B2a at 32px, C = 512 (the grid of small tiles), b = 3: each slot is
     bit-identical to that sample alone, and within tolerance of the plain
     version."""
-    a, r = samm_operands(cuda, 3, 512, 32, 32, dtype, seed=3)
+    a, _ = samm_operands(cuda, 3, 512, 32, 32, dtype, seed=3)
     z = alignnet.alignnet_conv1(*conv1_ops(a))
     for s in range(3):
         one = {k: (v[s:s + 1].contiguous() if k in ("s", "t", "coeffs") else v)
                for k, v in a.items()}
         assert torch.equal(z[s:s + 1], alignnet.alignnet_conv1(*conv1_ops(one))), s
-    assert rel_err(z, alignnet.alignnet_conv1_reference(*conv1_ops(r))) <= SAMM_TOL[dtype]
+    assert rel_err(z, alignnet.alignnet_conv1_kernel_reference(*conv1_ops(a))) <= SAMM_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -400,13 +409,13 @@ def test_alignnet_conv1_at_32px_slot_bitwise(cuda, dtype):
     (1, 512, 512, 128, 128, "prelu"), (1, 256, 256, 256, 256, "none"),
     (2, 40, 136, 19, 27, "lrelu")])
 def test_conv3x3_act_kernel_on_card(cuda, b, ci, co, h, w, act, dtype):
-    """B5 against its plain version on the same (rounded) operands."""
+    """B5 against its kernel's plain version on the same operands."""
     x, k, alpha = (torch.from_numpy(v).to(cuda)
                    for v in conv_act_inputs(b, ci, co, h, w, seed=ci + h))
     x, k = x.to(dtype), k.to(dtype)
     before = samm_conv.conv3x3_act.launches
     out = samm_conv.conv3x3_act(x, k, alpha, act)
-    ref = samm_conv.conv3x3_act_reference(x.float(), k.float(), alpha, act)
+    ref = samm_conv.conv3x3_act_kernel_reference(x, k, alpha, act)
     torch.cuda.synchronize()
     assert samm_conv.conv3x3_act.launches == before + 1
     assert out.dtype == dtype and out.shape == (b, co, h, w)
@@ -432,12 +441,12 @@ def test_samm_kernels_give_each_batch_slot_its_own_result(cuda):
 
 
 def b5_and_b2b(x, k, alpha, act):
-    """{kernel: (its output, the plain version's)} for B5 and B2b on the same
-    operands: B5's output, and B2b's y2 with its two moments."""
+    """{kernel: (its output, its kernel's plain version's)} for B5 and B2b
+    on the same operands: B5's output, and B2b's y2 with its two moments."""
     y2, part = alignnet.alignnet_conv2(x, k)
-    y2_ref, part_ref = alignnet.alignnet_conv2_reference(x.float(), k.float())
+    y2_ref, part_ref = alignnet.alignnet_conv2_kernel_reference(x, k)
     return {"B5": ([samm_conv.conv3x3_act(x, k, alpha, act)],
-                   [samm_conv.conv3x3_act_reference(x.float(), k.float(), alpha, act)]),
+                   [samm_conv.conv3x3_act_kernel_reference(x, k, alpha, act)]),
             "B2b": ([y2, part[:, 0], part[:, 1]], [y2_ref, part_ref[:, 0], part_ref[:, 1]])}
 
 
@@ -498,7 +507,7 @@ def test_samm_kernels_ragged_on_card(cuda, b, ci, co, h, w, dtype):
     x, k = x.to(dtype), k.to(dtype)
     if ci != co:
         out = samm_conv.conv3x3_act(x, k, alpha, "lrelu")
-        ref = samm_conv.conv3x3_act_reference(x.float(), k.float(), alpha, "lrelu")
+        ref = samm_conv.conv3x3_act_kernel_reference(x, k, alpha, "lrelu")
         assert out.dtype == dtype and out.shape == (b, co, h, w)
         assert rel_err(out, ref) <= SAMM_TOL[dtype]
         return
@@ -568,14 +577,61 @@ def test_tma_repack_on_card(cuda, b, c, co, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,c2", SAMM_SCALES)
+def test_alignnet_conv1_bf16_slot_bitwise_at_every_scale(cuda, h, c2):
+    """bfloat16 B2a (the x1 repack, then the TMA kernel in B5's mode) at
+    each SAMM scale, b = 3: each slot is bit-identical to that sample
+    alone, and the batch is within one bfloat16 step of max|ref| of its
+    kernel's plain version on the same operands."""
+    a, _ = samm_operands(cuda, 3, c2 // 2, h, h, torch.bfloat16, seed=h + c2)
+    z = alignnet.alignnet_conv1(*conv1_ops(a))
+    for s in range(3):
+        one = {k: (v[s:s + 1].contiguous() if k in ("s", "t", "coeffs") else v)
+               for k, v in a.items()}
+        assert torch.equal(z[s:s + 1], alignnet.alignnet_conv1(*conv1_ops(one))), s
+    ref = alignnet.alignnet_conv1_kernel_reference(*conv1_ops(a))
+    assert z.dtype == ref.dtype == torch.bfloat16
+    assert float((z.float() - ref.float()).abs().max()) <= bf16_step(ref.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w", [(2, 37, 19, 27), (1, 512, 32, 32), (2, 12, 16, 16),
+                                     (1, 20, 7, 9)])
+def test_tma_x1_repack_on_card(cuda, b, c, h, w):
+    """B2a's repack pass in its x1 mode is bit for bit its plain version,
+    alignnet.tma_x1_operands: odd C (2C off the 8-channel granule) with an
+    odd H * W (the one-element path), a full SAMM weight, 2C a multiple of
+    8, and an odd H * W with 2C on the granule."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    a, _ = samm_operands(cuda, b, c, h, w, torch.bfloat16, seed=c)
+    xr, wr = samm_conv.tma_scratch(a["s"], a["k1"])
+    xr.fill_(1.0)
+    wr.fill_(1.0)
+    err = entry("alignnet_conv1", "ogi_tma_repack_x1", 6, 5)(
+        *(a[k].data_ptr() for k in ("s", "t", "coeffs", "k1")), xr.data_ptr(), wr.data_ptr(),
+        b, c, h, w, xr.shape[3], torch.cuda.current_stream().cuda_stream)
+    xr_ref, wr_ref = alignnet.tma_x1_operands(a["s"], a["t"], a["coeffs"], a["k1"])
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(xr, xr_ref) and torch.equal(wr, wr_ref)
+
+
+@pytest.mark.cuda
 def test_bf16_calls_reach_the_tma_kernel_once(cuda):
-    """A bfloat16 conv3x3_act or alignnet_conv2 call launches the TMA kernel
-    of its library once and counts one launch on its wrapper; a float32
-    call launches the other core and no TMA kernel."""
+    """A bfloat16 conv3x3_act, alignnet_conv1 or alignnet_conv2 call
+    launches the TMA kernel of its library once and counts one launch on its
+    wrapper; a float32 call launches the other core and no TMA kernel."""
     x, k, alpha = (torch.from_numpy(v).to(cuda) for v in conv_act_inputs(1, 64, 64, 16, 16, 9))
+    coeffs = torch.rand(1, 5, 32, device=cuda)
+
+    def conv1(v, w):
+        return alignnet.alignnet_conv1(v[:, :32].contiguous(), v[:, 32:].contiguous(), coeffs, w,
+                                       alpha)
+
     for lib, call, counter in (
             ("samm_conv", lambda v, w: samm_conv.conv3x3_act(v, w, alpha, "prelu"),
              samm_conv.conv3x3_act),
+            ("alignnet_conv1", conv1, alignnet.alignnet_conv1),
             ("alignnet_conv2", alignnet.alignnet_conv2, alignnet.alignnet_conv2)):
         for dtype, tma in ((torch.bfloat16, 1), (torch.float32, 0)):
             before = (counter.launches, tma_launches(lib))

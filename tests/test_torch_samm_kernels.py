@@ -387,13 +387,12 @@ def test_library_hash_covers_shared_headers(tmp_path, monkeypatch):
     assert build.library_path("a") == first
     (tmp_path / "common.cuh").write_text("// v2\n")
     assert build.library_path("a") != first
-    # csrc/tma_conv.cuh, the bfloat16 core of B5 and B2b: an edit rebuilds
-    # both, and B2a, which does not include it, is rebuilt too (every
-    # library hashes every shared header)
+    # csrc/tma_conv.cuh, the bfloat16 core of B5, B2a and B2b: an edit
+    # rebuilds all three
     csrc = tmp_path / "csrc"
     shutil.copytree(ROOT / "ood_gan_inversion_tpu_torch" / "csrc", csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    for name in ("samm_conv", "alignnet_conv2"):
+    for name in ("samm_conv", "alignnet_conv2", "alignnet_conv1"):
         assert '#include "tma_conv.cuh"' in (csrc / f"{name}.cu").read_text()
     names = ("samm_conv", "alignnet_conv2", "alignnet_conv1")
     before = {n: build.library_path(n) for n in names}

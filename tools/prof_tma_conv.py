@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""What B2b's drain buys, on a CUDA card: python3 tools/prof_tma_conv.py
+"""What B2b's drain buys, and bfloat16 B2a on the TMA kernel, on a CUDA
+card: python3 tools/prof_tma_conv.py
 
 The bfloat16 path of B2b (csrc/tma_conv.cuh, `ogi_alignnet_conv2_tma`)
 adds its products to its accumulator on the CUDA cores every DRAIN_STAGES
@@ -11,7 +12,11 @@ csrc/alignnet_conv2.cu under build/tma_conv_variants/ that drain every
 and both moments' max|err| / max|ref| against the plain version on the
 same bfloat16 operands, the mean signed relative error of sum y2^2 (the
 truncation's bias), and each one's time (L2 flushed, median of 10), beside
-B5's on the same operands.
+B5's on the same operands. Then, at each scale, bfloat16 B2a
+(`alignnet_conv1`: the repack pass's x1 mode, then the TMA kernel in B5's
+mode) on seeded s, t (b = 1, C = 2C / 2): its max|err| / max|ref| against
+its kernel's plain version, its time, its x1 repack's alone, and cuDNN's
+bfloat16 conv + PReLU on the same x1.
 """
 
 import ctypes
@@ -21,6 +26,7 @@ import subprocess
 import sys
 
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -85,7 +91,7 @@ def main():
     for h, c in SCALES:
         z = torch.randn(1, c, h, h, device="cuda", generator=g).bfloat16()
         k = (torch.randn(c, c, 3, 3, device="cuda", generator=g) / (9 * c) ** 0.5).bfloat16()
-        y2_ref, part_ref = alignnet.alignnet_conv2_reference(z.float(), k.float())
+        y2_ref, part_ref = alignnet.alignnet_conv2_kernel_reference(z, k)
         zr, wr = samm_conv.tma_scratch(z, k)
         runs = {f"shipped (drain period {period})": lambda: alignnet.alignnet_conv2(z, k)}
         for label, lib in libs.items():
@@ -116,7 +122,37 @@ def main():
         print(f"{h}px {c}->{c} ms (L2 flushed, two readings in turns): "
               + ", ".join(f"B2b {label} {t[0]:.4f} / {t[1]:.4f}" for label, t in times.items())
               + f", B5 (bfloat16 out) {b5:.4f}", flush=True)
+        b2a(h, c, k, g)
     return 0
+
+
+def b2a(h, c2, k1, g):
+    """bfloat16 B2a at (h, 2C = c2) with the weights k1: its error against
+    its kernel's plain version, and the times of it, of its x1 repack alone
+    and of cuDNN's conv + PReLU on the same x1."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    c = c2 // 2
+    s = torch.randn(1, c, h, h, device="cuda", generator=g).bfloat16()
+    t = (2.0 * torch.randn(1, c, h, h, device="cuda", generator=g) + 0.3).bfloat16()
+    coeffs = alignnet._alignnet_coeffs(s.float(), t.float(),
+                                       1.0 + 0.1 * torch.randn(c2, device="cuda", generator=g),
+                                       0.1 * torch.randn(c2, device="cuda", generator=g),
+                                       True, 1e-5)[0]
+    alpha = (0.25 + 0.05 * torch.randn(c2, device="cuda", generator=g)).bfloat16().float()
+    z = alignnet.alignnet_conv1(s, t, coeffs, k1, alpha)
+    ref = alignnet.alignnet_conv1_kernel_reference(s, t, coeffs, k1, alpha)
+    x1 = alignnet.alignnet_x1(s, t, coeffs)
+    xr, wr = samm_conv.tma_scratch(s, k1)
+    repack = entry("alignnet_conv1", "ogi_tma_repack_x1", 6, 5)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = {"B2a": time_ms(lambda: alignnet.alignnet_conv1(s, t, coeffs, k1, alpha), iters=10),
+          "x1 repack": time_ms(lambda: repack(s.data_ptr(), t.data_ptr(), coeffs.data_ptr(),
+                                              k1.data_ptr(), xr.data_ptr(), wr.data_ptr(), 1, c,
+                                              h, h, xr.shape[3], stream), iters=10),
+          "cudnn conv + prelu": time_ms(lambda: F.prelu(F.conv2d(x1, k1, padding=1),
+                                                        alpha.bfloat16()), iters=10)}
+    print(f"{h}px {c2}->{c2} B2a bfloat16: max|err| {rel(z, ref):.3e} of max|ref|; ms (L2 "
+          "flushed): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
 
 
 if __name__ == "__main__":
