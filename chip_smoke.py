@@ -699,7 +699,7 @@ def conv_moments(z, k):
 
 
 def tma_launches(lib):
-    """ogi_tma_conv_launches of csrc/<lib>.cu: its bfloat16 conv launches."""
+    """ogi_tma_conv_launches of csrc/<lib>.cu: its TMA conv launches."""
     from ood_gan_inversion_tpu_torch import build
     fn = build.load(lib).ogi_tma_conv_launches
     fn.restype = ctypes.c_longlong
@@ -707,25 +707,29 @@ def tma_launches(lib):
 
 
 def tma_repack_costs(x, k, t=None, coeffs=None):
-    """(ms of the bfloat16 conv's repack pass alone on x, k -- with t and
-    coeffs, B2a's x1 mode on s = x, t -- host us of encoding one launch's
-    two tensor maps): csrc/tma_conv.cuh."""
+    """(ms of the TMA conv's repack pass alone on x, k -- with t and coeffs,
+    B2a's x1 mode on s = x, t; float32 operands: the pass's float32 form,
+    which splits them -- host us of encoding one bfloat16 launch's two
+    tensor maps): csrc/tma_conv.cuh."""
     from ood_gan_inversion_tpu_torch import build
     from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
     from ood_gan_inversion_tpu_torch.ops.samm_conv import tma_scratch
     b, c, h, w = x.shape
     co = k.shape[0]
     xr, wr = tma_scratch(x, k)
+    suffix, cp = ("_tf32", xr.shape[3] // 2) if x.dtype == torch.float32 else ("", xr.shape[3])
     stream = torch.cuda.current_stream().cuda_stream
     if t is None:
-        repack = entry("samm_conv", "ogi_tma_repack", 4, 6)
+        repack = entry("samm_conv", "ogi_tma_repack" + suffix, 4, 6)
         ms = time_ms(lambda: repack(x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), b,
-                                    c, h, w, co, xr.shape[3], stream), iters=10)
+                                    c, h, w, co, cp, stream), iters=10)
     else:
-        repack = entry("alignnet_conv1", "ogi_tma_repack_x1", 6, 5)
+        repack = entry("alignnet_conv1", "ogi_tma_repack_x1" + suffix, 6, 5)
         ms = time_ms(lambda: repack(x.data_ptr(), t.data_ptr(), coeffs.data_ptr(), k.data_ptr(),
-                                    xr.data_ptr(), wr.data_ptr(), b, c, h, w, xr.shape[3], stream),
+                                    xr.data_ptr(), wr.data_ptr(), b, c, h, w, cp, stream),
                      iters=10)
+    if x.dtype == torch.float32:
+        xr, wr = tma_scratch(x.bfloat16(), k.bfloat16())
     enc = build.load("samm_conv").ogi_tma_encode_us
     enc.restype = ctypes.c_double
     enc.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
@@ -739,7 +743,9 @@ def phase_samm_kernels():
     float32 and bfloat16 operands; times and bounds; and the whole body0
     fused against the port's algebraic body0. Per image = b = 1, 2 align
     cycles per scale: B2a 8 launches, B2b 8, B5 16 (conv1 + PReLU and
-    conv2 in each cycle)."""
+    conv2 in each cycle). B5 and B2a run the TMA kernel (csrc/tma_conv.cuh)
+    in both dtypes, B2b in bfloat16: one TMA conv launch per call, each
+    after its repack pass, timed alone too."""
     from ood_gan_inversion_tpu_torch.ops import alignnet as an
     from ood_gan_inversion_tpu_torch.ops.samm_conv import (conv3x3_act, conv3x3_act_kernel_reference,
                                                           conv3x3_act_reference)
@@ -750,7 +756,8 @@ def phase_samm_kernels():
     ids = ("B2a", "B2b", "B5")
     per_image = {k: dict.fromkeys(keys, 0.0) for k in ids}
     max_err = dict.fromkeys(ids, 0.0)
-    repack_per_image = dict.fromkeys(ids, 0.0)
+    # the repack passes' ms per image: bfloat16 (all three), float32 (B2a, B5)
+    repack_per_image = {k: {"bf16": 0.0, "f32": 0.0} for k in ids}
     bound_by = {k: {} for k in ids}
     body0 = {"fused": 0.0, "algebraic": 0.0}
     bf16 = lambda v: v.to(torch.bfloat16)
@@ -809,9 +816,19 @@ def phase_samm_kernels():
                              conv_flops,
                              lambda isz: (2 * px * c2 + 9 * c2 * c2) * isz),
             }
+            f32_inputs = {"B2a": (a["s"], a["k1"], a["t"], a["coeffs"]),
+                          "B5 conv1": (a["x1"], a["k1"]), "B5 conv2": (z, a["k2"])}
             for name, (kern, plain, lib, kern_b, plain_b, flops, nbytes) in runs.items():
                 what = f"{name} {h}px b={b} ({c2}->{c2})"
+                # float32: one TMA kernel launch for B2a and B5, none for B2b
+                lib_name = {"B2a": "alignnet_conv1", "B2b": "alignnet_conv2"}.get(name, "samm_conv")
+                tma_before = tma_launches(lib_name)
                 got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                tma_f32 = int(name in f32_inputs)
+                if tma_launches(lib_name) != tma_before + tma_f32:
+                    raise AssertionError(f"{what} f32: {tma_launches(lib_name) - tma_before} "
+                                         f"TMA kernel launches, expected {tma_f32}")
                 err = check_close(what, first(got), first(ref), SAMM_TOL)[0]
                 # B2b's moments, each row against its own max|ref|
                 moments = [check_close(f"{what} moments {m}", got[1][:, m], ref[1][:, m],
@@ -820,7 +837,6 @@ def phase_samm_kernels():
                                       for m, (e, l) in enumerate(moments))
                 # the bfloat16 run: one TMA kernel launch (tma_conv.cuh),
                 # against the kernel's plain version on the same operands
-                lib_name = {"B2a": "alignnet_conv1", "B2b": "alignnet_conv2"}.get(name, "samm_conv")
                 tma_before = tma_launches(lib_name)
                 got_b, ref_b = kern_b(), plain_b()
                 torch.cuda.synchronize()
@@ -849,10 +865,16 @@ def phase_samm_kernels():
                 t["bf16_repack_ms"], enc_us = tma_repack_costs(*tma_inputs[name])
                 tma_text = (f" (of which the repack pass {t['bf16_repack_ms']:.4f} ms; "
                             f"tensor maps {enc_us:.2f} us of host time per launch)")
+                f32_text = ""
+                if name in f32_inputs:
+                    t["repack_ms"] = tma_repack_costs(*f32_inputs[name])[0]
+                    f32_text = (f" (TMA core; of which the float32 repack pass "
+                                f"{t['repack_ms']:.4f} ms, {t['repack_ms'] / t['ms']:.1%})")
                 log(f"[kernel] {what}: fp32 max|err| {err:.3e} (<= {SAMM_TOL:.0e} of max|ref|)"
                     f"{moment_text}, "
-                    f"bf16 {errb:.3e} <= {limb:.3e}; kernel {t['ms']:.4f} ms "
-                    f"({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain {t['plain_ms']:.4f} ms, "
+                    f"bf16 {errb:.3e} <= {limb:.3e}; kernel {t['ms']:.4f} ms{f32_text} "
+                    f"({flops / t['ms'] / 1e9:.1f} TFLOP/s, {t['bound_ms'] / t['ms']:.0%} of its "
+                    f"bound), plain {t['plain_ms']:.4f} ms, "
                     f"cudnn+epilogue {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); bound: "
                     f"tensor cores {t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms "
                     f"({cc_by}: {bound_parts(flops, nbytes(4), FP32_FLOPS)}; "
@@ -867,7 +889,8 @@ def phase_samm_kernels():
                     bound_by[kid][by] = bound_by[kid].get(by, 0.0) + 2 * t["bound_ms"]
                     for key in keys:
                         per_image[kid][key] += 2 * t[key]
-                    repack_per_image[kid] += 2 * t.get("bf16_repack_ms", 0.0)
+                    repack_per_image[kid]["bf16"] += 2 * t["bf16_repack_ms"]
+                    repack_per_image[kid]["f32"] += 2 * t.get("repack_ms", 0.0)
             args = [a[k] for k in ("s", "t", "g1", "b1", "k1", "alpha", "k2", "g2", "b2")]
             fused = an.fused_alignnet_body0(*args, True)
             alg = an.algebraic_alignnet_body0(*args, True)
@@ -882,21 +905,25 @@ def phase_samm_kernels():
     log(f"[kernel] body0 per image (8 calls, b=1): fused {body0['fused']:.4f} ms, "
         f"algebraic {body0['algebraic']:.4f} ms")
     entries = []
-    for kid, name, line, src in (("B2a", "alignnet_conv1", 982, "alignnet_conv1.cu"),
+    # the float32 kernel's source: B2a and B5 run the TMA core in both dtypes
+    for kid, name, line, src in (("B2a", "alignnet_conv1", 982, "tma_conv.cuh"),
                                  ("B2b", "alignnet_conv2", 1005, "alignnet_conv2.cu"),
-                                 ("B5", "conv3x3_act", 517, "samm_conv.cu")):
-        pi = per_image[kid]
+                                 ("B5", "conv3x3_act", 517, "tma_conv.cuh")):
+        pi, rp = per_image[kid], repack_per_image[kid]
         log(f"[kernel] {kid} {name} per image (b=1): "
             + ", ".join(f"{k} {v:.4f}" for k, v in pi.items())
-            + f"; bf16: {pi['bf16_bound_ms'] / pi['bf16_ms']:.0%} of its bound, kernel / "
-            f"cudnn {pi['bf16_ms'] / pi['bf16_library_ms']:.2f}, the repack pass "
-            f"{repack_per_image[kid]:.4f} ({repack_per_image[kid] / pi['bf16_ms']:.1%})")
+            + f"; f32: {pi['bound_ms'] / pi['ms']:.0%} of its bound, kernel / cudnn "
+            f"{pi['ms'] / pi['library_ms']:.2f}, the repack pass {rp['f32']:.4f} "
+            f"({rp['f32'] / pi['ms']:.1%}); bf16: {pi['bf16_bound_ms'] / pi['bf16_ms']:.0%} of "
+            f"its bound, kernel / cudnn {pi['bf16_ms'] / pi['bf16_library_ms']:.2f}, the repack "
+            f"pass {rp['bf16']:.4f} ({rp['bf16'] / pi['bf16_ms']:.1%})")
         entries.append({"name": name, "route": "cuda",
                         "source": f"ood_gan_inversion_tpu_torch/csrc/{src}",
                         "replaces": f"ood_gan_inversion_tpu/ops/pallas_kernels.py:{line}",
                         "max_abs_err": max_err[kid],
                         "bound_by": max(bound_by[kid], key=bound_by[kid].get),
                         "bf16_source": "ood_gan_inversion_tpu_torch/csrc/tma_conv.cuh",
+                        "repack_ms": rp["f32"], "bf16_repack_ms": rp["bf16"],
                         **per_image[kid]})
     return entries
 
@@ -1576,7 +1603,8 @@ def phase_end_to_end(engines, imgs, rounds=15):
             reps[name].append(a.elapsed_time(b))
     for name, r in reps.items():
         log(f"[main] invert ms/img, {name}, {rounds} interleaved rounds: median "
-            f"{float(np.median(r)):.2f}, all {[round(v, 2) for v in r]}")
+            f"{float(np.median(r)):.2f}, spread {min(r):.2f}-{max(r):.2f}, "
+            f"all {[round(v, 2) for v in r]}")
 
 
 def phase_small_reference():

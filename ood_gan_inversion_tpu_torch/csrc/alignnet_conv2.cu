@@ -2,8 +2,8 @@
 // conv3x3(z, k2) in float32 and norm2's moments; replaces the TPU kernel
 // ops/pallas_kernels.py:_an_conv2_kernel (via fused_alignnet_body0). Bound by
 // operations. float32 operands run the tensor-core kernel of samm_conv.cuh
-// (NCHW / OIHW, 3xTF32), bfloat16 operands the TMA kernel of tma_conv.cuh
-// (NHWC / tap-major weights), whose notes say how. Each block writes its
+// (NCHW / OIHW, 3xTF32, the core of tc_conv.cuh), bfloat16 operands the TMA
+// kernel of tma_conv.cuh (NHWC / tap-major weights), whose notes say how. Each block writes its
 // tile's moments to a scratch that sum_tiles_kernel then sums in tile
 // order: no atomics.
 //
@@ -48,11 +48,11 @@ extern "C" int ogi_samm_conv_tiles(int H, int W, int C2) { return tc_n_tiles(H, 
 extern "C" int ogi_alignnet_conv2(const void* z, const void* k2, void* y2,
                                   void* tile_part, void* part, int B, int H, int W,
                                   int C2, void* stream) {
-  if (bad_shape(B, H, W, C2, C2, 0)) return 1000;
+  if (bad_shape(B, H, W, C2, C2)) return 1000;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a{z, nullptr, nullptr, k2, nullptr, y2, static_cast<float*>(tile_part),
-         H, W, C2, C2, ACT_NONE, 0, 0, 0};
-  const int err = launch_tc_type<float, AN_CONV2>(a, B, st);
+  Args a{static_cast<const float*>(z), static_cast<const float*>(k2), static_cast<float*>(y2),
+         static_cast<float*>(tile_part), H, W, C2, C2, 0, 0, 0};
+  const int err = launch_conv2(a, B, st);
   if (err != 0) return err;
   return sum_tiles(tile_part, part, B, tc_n_tiles(H, W, C2), C2, st);
 }

@@ -1,6 +1,7 @@
 // The tensor-core core of the port's 3x3 convolutions, for Hopper (sm_90a),
-// shared by samm_conv.cu (NCHW, OIHW: B5, B2a, B2b) and packed_stage.cu
-// (NHWC, HWIO: B4). A block computes TN = 128 output channels (two
+// shared by samm_conv.cuh (NCHW, OIHW: B2b's float32 path, in
+// alignnet_conv2.cu) and packed_stage.cu (NHWC, HWIO: B4 and B3, both
+// dtypes). B5 and B2a, and B2b's bfloat16 path, run tma_conv.cuh. A block computes TN = 128 output channels (two
 // warpgroups of 64, wgmma's M) for a tile of R rows x 32 columns of one
 // sample (wgmma's N: the flat run of pixels through the halo rows, see
 // Tile), as an implicit GEMM over K = Ci * 9, taken KC input channels at a

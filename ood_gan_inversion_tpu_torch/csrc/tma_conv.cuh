@@ -1,87 +1,111 @@
-// The bfloat16 path of the three SAMM AlignNet convolutions, for Hopper
-// (sm_90a): B5 (samm_conv.cu: ogi_conv3x3_act_tma, out = act(conv3x3(x, k))
-// in bfloat16), B2a (alignnet_conv1.cu: ogi_alignnet_conv1_tma, z =
-// prelu(conv3x3(x1, k1)) in bfloat16, x1 built from s, t and the
-// coefficients by the repack pass) and B2b (alignnet_conv2.cu:
-// ogi_alignnet_conv2_tma, y2 = conv3x3(z, k2) in float32 and the tiles'
-// moments of y2). Their float32 operands run the core of samm_conv.cuh /
-// tc_conv.cuh.
+// The TMA core of the three SAMM AlignNet convolutions, for Hopper
+// (sm_90a): B5 (samm_conv.cu: out = act(conv3x3(x, k)) in x's type), B2a
+// (alignnet_conv1.cu: z = prelu(conv3x3(x1, k1)) in s's type, x1 built
+// from s, t and the coefficients by the repack pass) in both operand types,
+// and B2b's bfloat16 path (alignnet_conv2.cu: ogi_alignnet_conv2_tma, y2 =
+// conv3x3(z, k2) in float32 and the tiles' moments of y2). B2b's float32
+// operands run the core of samm_conv.cuh / tc_conv.cuh.
 //
-// Replaces, for bfloat16 operands, the TPU kernels
-// ops/pallas_kernels.py:_conv_act_band_kernel (via conv3x3_act),
-// _an_conv1_kernel and _an_conv2_kernel (via fused_alignnet_body0). Bound by
-// operations: 2 * 9 * Ci * Co flops per pixel against 2 * (Ci + Co) bytes.
+// Replaces the TPU kernels ops/pallas_kernels.py:_conv_act_band_kernel (via
+// conv3x3_act), _an_conv1_kernel (via fused_alignnet_body0), and for
+// bfloat16 operands _an_conv2_kernel. Bound by operations: 2 * 9 * Ci * Co
+// flops per pixel against 2 * (Ci + Co) bytes in bfloat16; in float32 three
+// TF32 products per product (3xTF32) against 4 * (Ci + Co) bytes.
 //
 // Operands. Both wgmma operands come from shared memory, K-major with the
-// 128-byte swizzle, loaded by TMA. A K-block is one tap x 64 input channels,
-// 128 bytes of bfloat16 per row: one swizzle atom row.
+// 128-byte swizzle, loaded by TMA. A K-block is one tap x one 128-byte row
+// per matrix row (one swizzle atom row): 64 bfloat16 input channels, or in
+// float32 (the CONV_ACT_TF32 mode) 16 channels as 32 words, their 16 hi
+// words then their 16 lo words.
 //   * A (M = output channels): the weights repacked to (3 [dx], 3 [dy], Co,
-//     Ci), Ci contiguous. One TMA box {64 ci, 128 co, 3 taps} brings the
+//     K), K contiguous. One TMA box {one row, 128 co, 3 taps} brings the
 //     three taps of one dx: three 16 KB tiles.
-//   * B (N = pixels): the input repacked to NHWC, (B, H, W, Ci). A block
-//     computes a tile of TH rows x 32 columns; one TMA box {64 ci, 32
+//   * B (N = pixels): the input repacked to NHWC, (B, H, W, K). A block
+//     computes a tile of TH rows x 32 columns; one TMA box {one row, 32
 //     columns, TH + 2 rows} at (x0 + dx - 1, y0 - 1) holds the three taps
 //     of one dx: the tap at dy is the run of TH * 32 pixel rows that starts
 //     dy * 32 rows in, 4 KB apart, so every tap's descriptor starts on a
 //     1024-byte swizzle atom and the base offset stays 0. TMA's
 //     out-of-bounds zero fill supplies the halo, so no halo column is
 //     computed. K-major NHWC was chosen over an MN-major B read straight
-//     from NCHW: the row shift of a tap stays atom-aligned, and a 32-pixel
-//     NCHW row is 64 bytes, half a 128-byte swizzle row.
-//   * The repack is one small pass ahead of the conv (repack_kernel, both
-//     layouts in one launch), into scratch that the wrapper allocates.
-//     Its channels are padded with zeros to a multiple of 8, since a TMA
-//     stride is a multiple of 16 bytes; channels and output channels past
-//     the end of a box are TMA zero fill. ops/samm_conv.py:tma_operands is
-//     its plain version. For B2a it writes x1 = [as*s + at*t + b1, ct*t +
-//     b2] (its x1 mode): read from s and t, computed in float32 with the
-//     plain version's roundings (two products, two sums, no FMA
-//     contraction), rounded once; ops/alignnet.py:tma_x1_operands is that
-//     mode's plain version. TMA's zero fill outside the image is then
-//     conv1's padding of x1, as the TPU kernel masks it, and not the affine
-//     image of zero-padded s and t. B2a then runs B5's mode, PReLU.
-// A stage of the ring is one (64-channel chunk, dx): 3 K-blocks, 48 KB of
-// weights and (TH + 2) * 4 KB of input, completed on one mbarrier. At Ci =
-// 1024 the K loop has 16 * 3 stages and no block-wide barrier.
+//     from NCHW: the row shift of a tap stays atom-aligned, and TF32 wgmma
+//     reads K-major operands only.
+//   * The repack is one small pass ahead of the conv (repack_kernel, or
+//     repack_tf32_kernel in float32; both layouts in one launch), into
+//     scratch that the wrapper allocates. ops/samm_conv.py:tma_operands is
+//     its plain version. bfloat16 channels are padded with zeros to a
+//     multiple of 8, since a TMA stride is a multiple of 16 bytes; channels
+//     and output channels past the end of a box are TMA zero fill. float32
+//     channels are padded to a multiple of 16 and each value v is split once
+//     per call into hi = v rounded to TF32 (half away from zero) and lo = v
+//     - hi, exact (tc::split_tf32), where the float32 core of tc_conv.cuh
+//     splits each weight again for every tap of every pixel tile. For B2a it
+//     writes x1 = [as*s + at*t + b1, ct*t + b2] (its x1 mode): read from s
+//     and t, computed in float32 with the plain version's roundings (two
+//     products, two sums, no FMA contraction), then rounded once to
+//     bfloat16 or split; ops/alignnet.py:tma_x1_operands is that mode's
+//     plain version. TMA's zero fill outside the image is then conv1's
+//     padding of x1, as the TPU kernel masks it, and not the affine image
+//     of zero-padded s and t. B2a then runs B5's mode, PReLU.
+// A stage of the ring is one (K-block, dx): 3 K-blocks, 48 KB of weights
+// and (TH + 2) * 4 KB of input, completed on one mbarrier: 72 KB at TH = 4,
+// three stages in 216 KB. At Ci = 1024 the K loop has 16 * 3 stages in
+// bfloat16 and 64 * 3 in float32, and no block-wide barrier. (A float32
+// stage of 32 channels in separate hi and lo planes would take 144 KB, one
+// stage; interleaving the planes by 16 channels keeps the bfloat16 ring,
+// one TMA box per operand, and the bfloat16 descriptors: the K steps of 32
+// bytes at 0, 32, 64 and 96 bytes into a row.)
 //
 // Warps. One producer warp issues the TMA loads, up to 3 stages ahead; its
 // warpgroup gives its registers up (setmaxnreg 40). Two consumer
 // warpgroups (setmaxnreg 232) take 64 output channels each (M = 128 per
-// block) and issue the stage's 12 wgmma m64nNk16 (N = TH * 32) as one
-// group; each warpgroup frees a stage on its empty mbarrier once its group
-// has completed.
+// block) and issue a stage's wgmmas (N = TH * 32) as one group: 12
+// m64nNk16 in bfloat16, 18 m64nNk8 in float32 (3 taps x 2 steps of 8
+// channels x the products lo*hi, hi*lo, hi*hi; lo*lo, ~2^-22 relative, is
+// dropped); each warpgroup frees a stage on its empty mbarrier once its
+// group has completed.
 //
 // Accumulation. The tensor cores add into their float32 accumulator with
-// truncation (tc_conv.cuh). B5 rounds its output to bfloat16 and is held to
-// 2^-7 of max|ref|, so its accumulator stays in the tensor cores across
-// the whole K, with the previous stage's group still running as it issues
-// the next. B2b returns float32 y2 and pixel sums held to 1e-4, so it
-// drains: the products of DRAIN_STAGES stages go into fresh fragments,
-// which the CUDA cores add to the accumulator, rounded to nearest, once
-// their groups have completed; meanwhile the other consumer warpgroup's
-// group runs. tools/prof_tma_conv.py measures, at the SAMM scales, the
-// error and the time of B2b with this period, with a drain every 16 stages
-// and with none, against the plain version: on an H100 the three ran
-// within 2% of each other, while the error on sum y2^2 grew from under
-// 1.2e-6 of max|ref| (every stage) to 5.7e-6 (16) and 1.8e-5 (none, Ci =
-// 1024), a bias toward zero that grows with K. So B2b drains every stage,
-// the most accurate of the three at no measured cost. (Two fragment sets,
-// drained while the next group runs, made ptxas serialise the wgmmas:
-// C7514.)
+// truncation (tc_conv.cuh). bfloat16 B5 rounds its output to bfloat16 and
+// is held to 2^-7 of max|ref|, so its accumulator stays in the tensor cores
+// across the whole K, with the previous stage's group still running as it
+// issues the next. B2b returns float32 y2 and pixel sums, and the float32
+// mode float32 outputs, held to 1e-4, so they drain: the products of
+// DRAIN_STAGES (TF32_DRAIN_STAGES) stages go into fresh fragments, which
+// the CUDA cores add to the accumulator, rounded to nearest, once their
+// groups have completed; meanwhile the other consumer warpgroup's group
+// runs. In float32 the cross terms of a stage go in before its hi*hi
+// products, so the truncated adds of the larger terms meet small sums.
+// tools/prof_tma_conv.py measures, at the SAMM scales, the error and the
+// time of B2b with its period, with a drain every 16 stages and with none,
+// against the plain version: on an H100 the three ran within 2% of each
+// other, while the error on sum y2^2 grew from under 1.2e-6 of max|ref|
+// (every stage) to 5.7e-6 (16) and 1.8e-5 (none, Ci = 1024), a bias toward
+// zero that grows with K. So B2b drains every stage, the most accurate of
+// the three at no measured cost. (Two fragment sets, drained while the next
+// group runs, made ptxas serialise the wgmmas: C7514.) For the float32 mode
+// the same tool measured float32 B5 with a drain every 1, 2 and 4 stages
+// and none, on an H100: with none the error grew tenfold (2.3e-4 of
+// max|ref| on tf32_cancel_inputs at Ci = 1024, over the 1e-4 tolerance;
+// 7.8e-5 on zero-mean inputs), while 1, 2 and 4 stages erred alike
+// (2.0e-5-2.2e-5 on the cancelling inputs; 3.9e-6, 3.9e-6 and 4.1e-6 on
+// zero-mean ones at 32px). A drain every stage cost 5% at 32px (TH = 2)
+// and up to 1% elsewhere; every 2 stages ran as fast as none at all four
+// scales. So the float32 mode drains every 2 stages, the most accurate
+// period at no measured cost.
 //
 // Tiling: M = 128 output channels, N = TH x 32 pixels, one sample per
 // block; TH = 4, halved while one sample's grid has fewer than 128 blocks
-// (at 32px, 1024 -> 1024: TH = 2, 128 blocks): tc_conv.cuh's tile_rows,
-// the same tiles as the float32 core's. (TH = 8, N = 256 with a 2-stage ring, ran
-// slower than TH = 4 at the SAMM scales.) A function of (H, W, Co) alone,
-// never of the batch size, so every batch slot runs the same sums in the
-// same order.
+// (at 32px, 1024 -> 1024: TH = 2, 128 blocks): tc_conv.cuh's tile_rows.
+// (TH = 8, N = 256 with a 2-stage ring, ran slower than TH = 4 at the SAMM
+// scales in bfloat16.) A function of (H, W, Co) alone, never of the batch
+// size, so every batch slot runs the same sums in the same order.
 //
 // Epilogue: B2b sums each channel's moments over its tile from the
 // registers, in a fixed order, into the (B, n_tiles, 2, Co) scratch that
 // sum_tiles_kernel sums in tile order (no atomics); then the consumers
-// stage the float32 tile in the ring (B5 after its activation) and store
-// it along W, 4 pixels a thread.
+// stage the float32 tile in the ring (B5 and B2a after their activation)
+// and store it along W, 4 pixels a thread, in float32 or bfloat16.
 //
 // The tensor maps are __grid_constant__ kernel arguments, encoded on the
 // host at every launch by cuTensorMapEncodeTiled, reached through
@@ -111,16 +135,21 @@ using tc::wgmma_wait;
 
 constexpr int TW = 32;                 // pixel tile columns
 constexpr int BM = 128;                // output channels per block
-constexpr int KB = 64;                 // input channels per K-block
-constexpr int ROW = KB * 2;            // bytes of a K-block row
+constexpr int ROW = 128;               // bytes of a K-block row: one swizzle atom row
 constexpr int A_TAP = BM * ROW;        // one tap's weights: 16 KB
 constexpr int A_BYTES = 3 * A_TAP;
 constexpr int THREADS = 384;           // producer warpgroup + two consumer warpgroups
 constexpr int ACT_NONE = 0, ACT_PRELU = 1;
-enum Mode { CONV_ACT = 0, AN_CONV2 = 1 };
-// B2b's drain period in stages (of 3 taps x 64 channels each); see the
-// note on accumulation
+// CONV_ACT and AN_CONV2 on bfloat16 operands, CONV_ACT_TF32 on float32 ones
+enum Mode { CONV_ACT = 0, AN_CONV2 = 1, CONV_ACT_TF32 = 2 };
+// the elements of a K-block row: 64 bfloat16 channels, or 32 float32 words
+// (16 channels' hi words, then their lo words)
+template <int MODE> constexpr int KE = MODE == CONV_ACT_TF32 ? 32 : 64;
+constexpr int TF32_GROUP = 16;         // channels of a float32 K-block
+// drain periods in stages (see the note on accumulation): B2b's of 3 taps x
+// 64 channels, the float32 mode's of 3 taps x 16 channels
 constexpr int DRAIN_STAGES = 1;
+constexpr int TF32_DRAIN_STAGES = 2;
 
 template <int TH> struct Cfg {
   static constexpr int N = TH * TW, ND = N / 2;
@@ -136,7 +165,7 @@ template <int TH> struct Cfg {
 
 struct Args {
   const float* alpha;     // (Co,) PReLU slopes (act 1)
-  void* out;              // (B, Co, H, W): bfloat16 (B5) or float32 (B2b)
+  void* out;              // (B, Co, H, W): bfloat16 (CONV_ACT) or float32
   float* tile_part;       // B2b: (B, n_tiles, 2, Co)
   int H, W, Co, act, tiles_w, n_tiles, iters;
 };
@@ -185,66 +214,46 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// d (+)= A * B: m64nNk16, bfloat16 operands from shared memory through the
-// descriptors da, db, float32 d; d += unless scale_d == 0
-__device__ __forceinline__ void wgmma_n32(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15 "
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+// d (+)= A * B: m64nNk16 on bfloat16 or m64nNk8 on tf32 operands, both
+// from shared memory through the descriptors da, db, float32 d; d += unless
+// scale_d == 0. TF32 takes no transpose flags: both operands are K-major.
+#define TMA_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                  "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TMA_D16 TMA_D8(0), TMA_D8(8)
+#define TMA_D32 TMA_D16, TMA_D8(16), TMA_D8(24)
+#define TMA_D64 TMA_D32, TMA_D8(32), TMA_D8(40), TMA_D8(48), TMA_D8(56)
+#define TMA_R16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define TMA_R32 TMA_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+                "%28, %29, %30, %31"
+#define TMA_R64 TMA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+                "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+                "%58, %59, %60, %61, %62, %63"
+// one wgmma INSTR (shape and types) whose accumulator is REGS (constraints
+// DOUT), then da, db and scale_d as the operands DA, DB, SC; TAIL: the
+// flags after scale-a and scale-b
+#define TMA_WGMMA(INSTR, REGS, DOUT, DA, DB, SC, TAIL)                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"                                \
+               "wgmma.mma_async.sync.aligned." INSTR " {" REGS "}, " DA ", " DB               \
+               ", p, 1, 1" TAIL ";\n}\n"                                                      \
+               : DOUT : "l"(da), "l"(db), "r"(scale_d))
 
-template <int N>
+template <int N, bool TF32>
 __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db, int scale_d) {
-  if constexpr (N == 32) wgmma_n32(d, da, db, scale_d);
-  else if constexpr (N == 64) wgmma_n64(d, da, db, scale_d);
-  else wgmma_n128(d, da, db, scale_d);
+  if constexpr (TF32) {
+    if constexpr (N == 32)
+      TMA_WGMMA("m64n32k8.f32.tf32.tf32", TMA_R16, TMA_D16, "%16", "%17", "%18", "");
+    else if constexpr (N == 64)
+      TMA_WGMMA("m64n64k8.f32.tf32.tf32", TMA_R32, TMA_D32, "%32", "%33", "%34", "");
+    else
+      TMA_WGMMA("m64n128k8.f32.tf32.tf32", TMA_R64, TMA_D64, "%64", "%65", "%66", "");
+  } else {
+    if constexpr (N == 32)
+      TMA_WGMMA("m64n32k16.f32.bf16.bf16", TMA_R16, TMA_D16, "%16", "%17", "%18", ", 0, 0");
+    else if constexpr (N == 64)
+      TMA_WGMMA("m64n64k16.f32.bf16.bf16", TMA_R32, TMA_D32, "%32", "%33", "%34", ", 0, 0");
+    else
+      TMA_WGMMA("m64n128k16.f32.bf16.bf16", TMA_R64, TMA_D64, "%64", "%65", "%66", ", 0, 0");
+  }
 }
 
 __device__ __forceinline__ float activate(float v, int act, float slope) {
@@ -264,7 +273,8 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
                 const Args a) {
   using C = Cfg<TH>;
   constexpr int N = C::N, ND = C::ND, S = C::S;
-  constexpr bool CONV2 = MODE == AN_CONV2;
+  constexpr bool CONV2 = MODE == AN_CONV2, TF32 = MODE == CONV_ACT_TF32;
+  constexpr bool F32_OUT = CONV2 || TF32;        // float32 outputs, from drained sums
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t ring = smem_addr(smem);
@@ -289,7 +299,7 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
         const int s = it % S;
         if (it >= S) mbar_wait(empty + 8 * s, (it / S - 1) & 1);
         const uint32_t st = ring + s * C::STAGE, bar = full + 8 * s;
-        const int c0 = it / 3 * KB, dx = it % 3;
+        const int c0 = it / 3 * KE<MODE>, dx = it % 3;
         mbar_expect_tx(bar, C::STAGE);
         tma_load_3d(st, &wmap, c0, n0, 3 * dx, bar);
         tma_load_4d(st + A_BYTES, &xmap, c0, x0 + dx - 1, y0 - 1, b, bar);
@@ -304,29 +314,46 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
   const int m0 = cw * 64 + warp * 16 + gid;       // the thread's first channel in the block
   const bool signals = (ct & 127) == 0;           // frees stages for its warpgroup
 
-  // the 12 wgmmas of iteration it into d: taps dy = 0..2 x 4 steps of 16
-  // channels; the first starts d anew unless `scale`
+  // the wgmmas of iteration it into d; the first starts d anew unless
+  // `scale`. bfloat16: taps dy = 0..2 x 4 steps of 16 channels (12).
+  // float32: the products lo*hi, then hi*lo, then hi*hi (the small cross
+  // terms first, while the fresh sums are small), each over taps dy = 0..2
+  // x 2 steps of 8 channels (18); a row's hi words are its first 64 bytes,
+  // its lo words the next 64.
   auto issue = [&](int it, float* d, int scale) {
     const uint32_t st = ring + (it % S) * C::STAGE;
     const uint32_t a0 = st + cw * 64 * ROW, b0 = st + A_BYTES;
+    if constexpr (TF32) {
 #pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
+      for (int p = 0; p < 3; ++p)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma<N>(d, sw128_desc(a0 + dy * A_TAP + kk * 32),
-                 sw128_desc(b0 + dy * TW * ROW + kk * 32), dy + kk > 0 ? 1 : scale);
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            wgmma<N, true>(d, sw128_desc(a0 + dy * A_TAP + (p == 0 ? 64 : 0) + kk * 32),
+                           sw128_desc(b0 + dy * TW * ROW + (p == 1 ? 64 : 0) + kk * 32),
+                           p + dy + kk > 0 ? 1 : scale);
+    } else {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma<N, false>(d, sw128_desc(a0 + dy * A_TAP + kk * 32),
+                          sw128_desc(b0 + dy * TW * ROW + kk * 32), dy + kk > 0 ? 1 : scale);
+    }
   };
 
-  // The K loop, in periods: B2b's of DRAIN_STAGES stages, whose products go
-  // into t, fresh, and are added to acc once their groups have completed
-  // (the drain; while a warpgroup drains, the other one's wgmmas keep the
-  // tensor cores busy); B5's of all stages, straight into acc. Within a
-  // period the previous stage's group runs on as the next one is issued.
-  float acc[ND], t[CONV2 ? ND : 1];
+  // The K loop, in periods: B2b's of DRAIN_STAGES stages and the float32
+  // mode's of TF32_DRAIN_STAGES, whose products go into t, fresh, and are
+  // added to acc once their groups have completed (the drain; while a
+  // warpgroup drains, the other one's wgmmas keep the tensor cores busy);
+  // bfloat16 B5's of all stages, straight into acc. Within a period the
+  // previous stage's group runs on as the next one is issued.
+  float acc[ND], t[F32_OUT ? ND : 1];
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i] = 0.0f;
-  float* const d = CONV2 ? t : acc;
-  const int period = CONV2 ? DRAIN_STAGES : a.iters;
+  float* const d = F32_OUT ? t : acc;
+  const int period = CONV2 ? DRAIN_STAGES : TF32 ? TF32_DRAIN_STAGES : a.iters;
   for (int p0 = 0; p0 < a.iters; p0 += period) {
     const int p1 = min(p0 + period, a.iters);
     for (int it = p0; it < p1; ++it) {
@@ -342,7 +369,7 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
       pin(d[i]);
-      if constexpr (CONV2) acc[i] += t[i];
+      if constexpr (F32_OUT) acc[i] += t[i];
     }
   }
 
@@ -403,7 +430,7 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
     const int64_t o = (((int64_t)b * Co + co) * H + gy) * W + gx;
     const float4 v = *reinterpret_cast<const float4*>(st + n * C::OS + px);
     if (vec) {
-      if constexpr (CONV2) {
+      if constexpr (F32_OUT) {
         *reinterpret_cast<float4*>(static_cast<float*>(a.out) + o) = v;
       } else {
         const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
@@ -413,7 +440,7 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
     } else {
       const float e[4] = {v.x, v.y, v.z, v.w};
       for (int j = 0; j < 4 && gx + j < W; ++j) {
-        if constexpr (CONV2) static_cast<float*>(a.out)[o + j] = e[j];
+        if constexpr (F32_OUT) static_cast<float*>(a.out)[o + j] = e[j];
         else static_cast<__nv_bfloat16*>(a.out)[o + j] = __float2bfloat16_rn(e[j]);
       }
     }
@@ -424,40 +451,45 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
 // and wr (3 [dx], 3 [dy], Co, Cp) from k (Co, C, 3, 3), channels C..Cp-1
 // zero. It moves bytes only, but in its x1 mode (X1, B2a) computes the
 // input's values from s = x and t (B, C / 2, H * W) and the coefficients
-// (x1_bits). Each transpose goes through shared memory so that reads and
-// writes both run along contiguous rows, two bfloat16 (4 bytes) a thread
-// where the layout allows. Blocks [0, xblocks) transpose 64 channels x 64
-// pixels of x each (grid.y: the sample); blocks from xblocks on take 512
-// channels of one output channel of k (grid.y 0).
-struct Repack {
-  const unsigned short* x;    // x, or s (X1)
-  const unsigned short* t;    // X1: t
+// (x1_value), and in its float32 form (repack_tf32_kernel) splits each
+// value into its hi and lo words. Each transpose goes through shared memory
+// so that reads and writes both run along contiguous rows. Blocks [0,
+// xblocks) transpose 64 channels x 64 pixels of x each (grid.y: the
+// sample); blocks from xblocks on take WCHUNK channels of one output
+// channel of k (grid.y 0). E: the element's bits (bfloat16) or float32.
+template <typename E> struct Repack {
+  const E* x;                 // x, or s (X1)
+  const E* t;                 // X1: t
   const float* coeffs;        // X1: (B, 5, C / 2) [as, at, b1, ct, b2]
-  const unsigned short* k;
-  unsigned short* xr;
-  unsigned short* wr;
+  const E* k;
+  E* xr;
+  E* wr;
   int C, HW, Cp, Co, xtiles_p, xblocks;
 };
 
 constexpr int WCHUNK = 512;      // channels of k per block
 
-// x1 of one value, as bfloat16 bits: (as*s + at*t) + b1 in the s half,
-// ct*t + b2 in the t half, each product and sum rounded to float32 as the
-// plain version's (ops/alignnet.py:alignnet_x1), then rounded once. cf
-// points at the channel's as, the other coefficients C apart (C = x1's
-// channels / 2); s and t are float32 bit patterns.
+// x1 of one value: (as*s + at*t) + b1 in the s half, ct*t + b2 in the t
+// half, each product and sum rounded to float32 as the plain version's
+// (ops/alignnet.py:alignnet_x1). cf points at the channel's as, the other
+// coefficients C apart (C = x1's channels / 2).
+__device__ __forceinline__ float x1_value(const float* cf, int C, bool s_half, float s, float t) {
+  return s_half ? __fadd_rn(__fadd_rn(__fmul_rn(cf[0], s), __fmul_rn(cf[C], t)), cf[2 * C])
+                : __fadd_rn(__fmul_rn(cf[3 * C], t), cf[4 * C]);
+}
+
+// the same from float32 bit patterns s, t, rounded once to bfloat16 bits
 __device__ __forceinline__ uint32_t x1_bits(const float* cf, int C, bool s_half, uint32_t s,
                                             uint32_t t) {
-  const float sv = __uint_as_float(s), tv = __uint_as_float(t);
-  const float v = s_half ? __fadd_rn(__fadd_rn(__fmul_rn(cf[0], sv), __fmul_rn(cf[C], tv)), cf[2 * C])
-                         : __fadd_rn(__fmul_rn(cf[3 * C], tv), cf[4 * C]);
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  return __bfloat16_as_ushort(
+      __float2bfloat16_rn(x1_value(cf, C, s_half, __uint_as_float(s), __uint_as_float(t))));
 }
 
 // the input's channel c (< r.C) of sample b at pixels p and p + 1 (p even,
 // H * W even) as two bfloat16 in one word, p's in the low half; X1: x1's
 template <bool X1>
-__device__ __forceinline__ uint32_t input_pair(const Repack& r, int b, int c, int p) {
+__device__ __forceinline__ uint32_t input_pair(const Repack<unsigned short>& r, int b, int c,
+                                               int p) {
   if constexpr (!X1) {
     return *reinterpret_cast<const uint32_t*>(r.x + ((int64_t)b * r.C + c) * r.HW + p);
   } else {
@@ -473,7 +505,8 @@ __device__ __forceinline__ uint32_t input_pair(const Repack& r, int b, int c, in
 
 // the same at one pixel p
 template <bool X1>
-__device__ __forceinline__ unsigned short input_at(const Repack& r, int b, int c, int p) {
+__device__ __forceinline__ unsigned short input_at(const Repack<unsigned short>& r, int b, int c,
+                                                   int p) {
   if constexpr (!X1) {
     return r.x[((int64_t)b * r.C + c) * r.HW + p];
   } else {
@@ -485,8 +518,9 @@ __device__ __forceinline__ unsigned short input_at(const Repack& r, int b, int c
   }
 }
 
+// the bfloat16 form: two bfloat16 (4 bytes) a thread where the layout allows
 template <bool X1>
-__global__ void __launch_bounds__(256) repack_kernel(const Repack r) {
+__global__ void __launch_bounds__(256) repack_kernel(const Repack<unsigned short> r) {
   __shared__ __align__(16) unsigned short sm[WCHUNK * 9];
   const int tid = threadIdx.x, lane = tid & 31, row = tid >> 5;
   if ((int)blockIdx.x < r.xblocks) {
@@ -548,25 +582,101 @@ __global__ void __launch_bounds__(256) repack_kernel(const Repack r) {
   }
 }
 
+// Word j of a float32 row (Cp channels as 2 Cp words, TF32_GROUP channels'
+// hi words, then their lo words, for each group of channels): the channel
+// of the row it holds, and whether it is the lo word
+__device__ __forceinline__ int tf32_channel(int j) {
+  return j / (2 * TF32_GROUP) * TF32_GROUP + j % TF32_GROUP;
+}
+__device__ __forceinline__ float tf32_word(float v, int j) {
+  uint32_t hi, lo;
+  tc::split_tf32(v, hi, lo);
+  return __uint_as_float(j / TF32_GROUP % 2 ? lo : hi);
+}
+
+// the input's channel c (< r.C) of sample b at pixel p; X1: x1's
+template <bool X1>
+__device__ __forceinline__ float input_f32(const Repack<float>& r, int b, int c, int p) {
+  if constexpr (!X1) {
+    return r.x[((int64_t)b * r.C + c) * r.HW + p];
+  } else {
+    const int C = r.C / 2, cs = c < C ? c : c - C;
+    const int64_t i = ((int64_t)b * C + cs) * r.HW + p;
+    return x1_value(r.coeffs + (int64_t)b * 5 * C + cs, C, c < C, c < C ? r.x[i] : 0.0f, r.t[i]);
+  }
+}
+
+// the float32 form: xr (B, H * W, 2 Cp) and wr (3, 3, Co, 2 Cp) in words,
+// Cp a multiple of TF32_GROUP; each value's hi and lo split once here
+template <bool X1>
+__global__ void __launch_bounds__(256) repack_tf32_kernel(const Repack<float> r) {
+  __shared__ float sm[WCHUNK * 9];
+  const int tid = threadIdx.x;
+  if ((int)blockIdx.x < r.xblocks) {
+    constexpr int LD = 65;       // tile row stride: [64 channels][64 pixels + 1]
+    const int b = blockIdx.y, p0 = blockIdx.x % r.xtiles_p * 64, c0 = blockIdx.x / r.xtiles_p * 64;
+    const int tx = tid & 63, ty = tid >> 6;
+    for (int i = ty; i < 64; i += 4) {
+      const int c = c0 + i, p = p0 + tx;
+      sm[i * LD + tx] = c < r.C && p < r.HW ? input_f32<X1>(r, b, c, p) : 0.0f;
+    }
+    __syncthreads();
+    // a pixel's 64 channels are 128 consecutive words from word 2 c0
+    float* dst = r.xr + (int64_t)b * r.HW * 2 * r.Cp + 2 * c0;
+    for (int e = tid; e < 64 * 128; e += 256) {
+      const int p = e / 128, j = e % 128, c = tf32_channel(j);
+      if (p0 + p < r.HW && c0 + c < r.Cp)
+        dst[(int64_t)(p0 + p) * 2 * r.Cp + j] = tf32_word(sm[c * LD + p], j);
+    }
+    return;
+  }
+  if (blockIdx.y != 0) return;
+  const int j = blockIdx.x - r.xblocks, per_co = (r.Cp + WCHUNK - 1) / WCHUNK;
+  const int co = j / per_co, c0 = j % per_co * WCHUNK;
+  const float* src = r.k + ((int64_t)co * r.C + c0) * 9;
+  const int n = max(0, min(WCHUNK, r.C - c0)) * 9;
+  if (r.C % 4 == 0 && reinterpret_cast<uintptr_t>(r.k) % 16 == 0) {   // 16-byte rows
+    for (int i = tid; i < n / 4; i += 256)
+      reinterpret_cast<float4*>(sm)[i] = reinterpret_cast<const float4*>(src)[i];
+  } else {
+    for (int i = tid; i < n; i += 256) sm[i] = src[i];
+  }
+  __syncthreads();
+  const int words = min(2 * WCHUNK, 2 * (r.Cp - c0));
+  float* dst = r.wr + (int64_t)co * 2 * r.Cp + 2 * c0;
+  for (int tap = 0; tap < 9; ++tap) {     // wr's tap dx * 3 + dy is k's dy * 3 + dx
+    const int t = tap % 3 * 3 + tap / 3;
+    for (int e = tid; e < words; e += 256) {
+      const int c = tf32_channel(e);
+      dst[(int64_t)tap * r.Co * 2 * r.Cp + e] = tf32_word(c0 + c < r.C ? sm[c * 9 + t] : 0.0f, e);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host
 
 // the repack of x (B, C, H, W) and k (Co, C, 3, 3) into xr (B, H, W, Cp)
-// and wr (3, 3, Co, Cp), all bfloat16; with t (nullptr otherwise), its x1
-// mode: xr holds x1 built from s = x and t (B, C / 2, H, W) bfloat16 and
-// coeffs (B, 5, C / 2) float32
-inline int repack(const void* x, const void* t, const float* coeffs, const void* k, void* xr,
-                  void* wr, int B, int C, int H, int W, int Co, int Cp, cudaStream_t stream) {
-  using U = const unsigned short*;
-  Repack r{static_cast<U>(x), static_cast<U>(t), coeffs, static_cast<U>(k),
-           static_cast<unsigned short*>(xr), static_cast<unsigned short*>(wr), C, H * W, Cp, Co,
-           (H * W + 63) / 64, 0};
+// and wr (3, 3, Co, Cp), all bfloat16 (E = unsigned short: Cp a multiple of
+// 8), or into xr (B, H, W, 2 Cp) and wr (3, 3, Co, 2 Cp) float32 words from
+// float32 (E = float: Cp a multiple of TF32_GROUP); with t (nullptr
+// otherwise), its x1 mode: xr holds x1 built from s = x and t (B, C / 2, H,
+// W) and coeffs (B, 5, C / 2) float32
+template <typename E>
+int repack(const void* x, const void* t, const float* coeffs, const void* k, void* xr, void* wr,
+           int B, int C, int H, int W, int Co, int Cp, cudaStream_t stream) {
+  Repack<E> r{static_cast<const E*>(x), static_cast<const E*>(t), coeffs, static_cast<const E*>(k),
+              static_cast<E*>(xr), static_cast<E*>(wr), C, H * W, Cp, Co, (H * W + 63) / 64, 0};
   r.xblocks = r.xtiles_p * ((Cp + 63) / 64);
   const dim3 grid(r.xblocks + Co * ((Cp + WCHUNK - 1) / WCHUNK), B);
-  if (t == nullptr) repack_kernel<false><<<grid, 256, 0, stream>>>(r);
-  else repack_kernel<true><<<grid, 256, 0, stream>>>(r);
+  if constexpr (std::is_same<E, float>::value) {
+    if (t == nullptr) repack_tf32_kernel<false><<<grid, 256, 0, stream>>>(r);
+    else repack_tf32_kernel<true><<<grid, 256, 0, stream>>>(r);
+  } else {
+    if (t == nullptr) repack_kernel<false><<<grid, 256, 0, stream>>>(r);
+    else repack_kernel<true><<<grid, 256, 0, stream>>>(r);
+  }
   return (int)cudaGetLastError();
 }
-
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -591,28 +701,32 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The two tensor maps of a launch: the weights w (3 [dx], 3 [dy], Co, Ci)
-// as a 3-D map {Ci, Co, 9} with boxes {64, 128, 3}, the input x (B, H, W,
-// Ci) as a 4-D map {Ci, W, H, B} with boxes {64, 32, TH + 2, 1}; both
-// bfloat16, 128-byte swizzle, zeros out of bounds. 0, or 1001 (no
-// cuTensorMapEncodeTiled), or 1002 (a map refused).
+// The two tensor maps of a launch: the weights w (3 [dx], 3 [dy], Co, K)
+// as a 3-D map {K, Co, 9} with boxes {KE, 128, 3}, the input x (B, H, W, K)
+// as a 4-D map {K, W, H, B} with boxes {KE, 32, TH + 2, 1}; K elements of
+// bfloat16 (KE 64), or of float32 words with f32 (KE 32), 128-byte swizzle,
+// zeros out of bounds. 0, or 1001 (no cuTensorMapEncodeTiled), or 1002 (a
+// map refused).
 inline int encode_maps(CUtensorMap* wmap, CUtensorMap* xmap, const void* w, const void* x, int B,
-                       int H, int W, int Ci, int Co, int TH) {
+                       int H, int W, int K, int Co, int TH, bool f32) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return 1001;
-  const cuuint64_t ci = Ci, e = 2;
-  const cuuint64_t wdim[3] = {ci, (cuuint64_t)Co, 9};
-  const cuuint64_t wstride[2] = {ci * e, (cuuint64_t)Co * ci * e};
-  const cuuint32_t wbox[3] = {KB, BM, 3};
-  const cuuint64_t xdim[4] = {ci, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t xstride[3] = {ci * e, (cuuint64_t)W * ci * e, (cuuint64_t)H * W * ci * e};
-  const cuuint32_t xbox[4] = {KB, TW, (cuuint32_t)TH + 2, 1};
+  const cuuint64_t k = K, e = f32 ? 4 : 2;
+  const cuuint32_t ke = ROW / e;
+  const CUtensorMapDataType type = f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t wdim[3] = {k, (cuuint64_t)Co, 9};
+  const cuuint64_t wstride[2] = {k * e, (cuuint64_t)Co * k * e};
+  const cuuint32_t wbox[3] = {ke, BM, 3};
+  const cuuint64_t xdim[4] = {k, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t xstride[3] = {k * e, (cuuint64_t)W * k * e, (cuuint64_t)H * W * k * e};
+  const cuuint32_t xbox[4] = {ke, TW, (cuuint32_t)TH + 2, 1};
   const cuuint32_t ones[4] = {1, 1, 1, 1};
-  if (enc(wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w), wdim, wstride, wbox,
-          ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  if (enc(wmap, type, 3, const_cast<void*>(w), wdim, wstride, wbox, ones,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      enc(xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdim, xstride, xbox,
-          ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      enc(xmap, type, 4, const_cast<void*>(x), xdim, xstride, xbox, ones,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return 1002;
   return 0;
@@ -624,15 +738,18 @@ inline std::atomic<long long>& launches() {
   return n;
 }
 
+// the conv on the repacked xr, wr, K elements a row (bfloat16 channels, or
+// float32 words)
 template <int MODE, int TH>
-int launch_cfg(const void* x, const void* w, Args a, int B, int Ci, cudaStream_t stream) {
+int launch_cfg(const void* x, const void* w, Args a, int B, int K, cudaStream_t stream) {
   using C = Cfg<TH>;
   CUtensorMap wmap, xmap;
-  const int err = encode_maps(&wmap, &xmap, w, x, B, a.H, a.W, Ci, a.Co, TH);
+  const int err = encode_maps(&wmap, &xmap, w, x, B, a.H, a.W, K, a.Co, TH,
+                              MODE == CONV_ACT_TF32);
   if (err != 0) return err;
   a.tiles_w = (a.W + TW - 1) / TW;
   a.n_tiles = a.tiles_w * ((a.H + TH - 1) / TH);
-  a.iters = 3 * ((Ci + KB - 1) / KB);
+  a.iters = 3 * ((K + KE<MODE> - 1) / KE<MODE>);
   cudaError_t e = cudaFuncSetAttribute(tma_conv_kernel<MODE, TH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -649,51 +766,71 @@ inline bool bad_args(const Args& a, int B, int Ci, const void* xr, const void* w
          reinterpret_cast<uintptr_t>(xr) % 16 != 0 || reinterpret_cast<uintptr_t>(wr) % 16 != 0;
 }
 
+// the padded channels of a mode's repacked operands: Ci rounded up to a
+// multiple of 8 (bfloat16: a TMA stride is a multiple of 16 bytes) or of
+// TF32_GROUP (float32: one 128-byte row holds a group's hi and lo words)
+template <int MODE> constexpr int padded_channels(int Ci) {
+  return MODE == CONV_ACT_TF32 ? (Ci + TF32_GROUP - 1) / TF32_GROUP * TF32_GROUP
+                               : (Ci + 7) / 8 * 8;
+}
+
 // the repack (x1 mode with t), then the conv on xr, wr at the tiles of
-// tile_rows(H, W, Co); Ci the conv's input channels, Cp = Ci rounded up to
-// a multiple of 8
+// tile_rows(H, W, Co); Ci the conv's input channels
 template <int MODE>
 int repack_and_conv(const void* x, const void* t, const float* coeffs, const void* k, void* xr,
                     void* wr, Args a, int B, int Ci, cudaStream_t stream) {
   if (bad_args(a, B, Ci, xr, wr)) return 1000;
-  const int Cp = (Ci + 7) / 8 * 8;
-  const int err = repack(x, t, coeffs, k, xr, wr, B, Ci, a.H, a.W, a.Co, Cp, stream);
+  constexpr bool F32 = MODE == CONV_ACT_TF32;
+  const int Cp = padded_channels<MODE>(Ci), K = F32 ? 2 * Cp : Cp;
+  using E = std::conditional_t<F32, float, unsigned short>;
+  const int err = repack<E>(x, t, coeffs, k, xr, wr, B, Ci, a.H, a.W, a.Co, Cp, stream);
   if (err != 0) return err;
   const int r = tile_rows(a.H, a.W, a.Co);
-  if (r == 4) return launch_cfg<MODE, 4>(xr, wr, a, B, Cp, stream);
-  if (r == 2) return launch_cfg<MODE, 2>(xr, wr, a, B, Cp, stream);
-  return launch_cfg<MODE, 1>(xr, wr, a, B, Cp, stream);
+  if (r == 4) return launch_cfg<MODE, 4>(xr, wr, a, B, K, stream);
+  if (r == 2) return launch_cfg<MODE, 2>(xr, wr, a, B, K, stream);
+  return launch_cfg<MODE, 1>(xr, wr, a, B, K, stream);
 }
 
-// The repack, then the conv (B5, B2b): x (B, Ci, H, W) and k (Co, Ci, 3, 3)
-// bfloat16; xr (B, H, W, Cp) and wr (3, 3, Co, Cp) bfloat16 scratch, Cp =
-// Ci rounded up to a multiple of 8, both 16-byte aligned; the rest of a as
-// Args says.
+// The repack, then the conv: x (B, Ci, H, W) and k (Co, Ci, 3, 3), bfloat16
+// (CONV_ACT, AN_CONV2) or float32 (CONV_ACT_TF32); xr and wr scratch for
+// their repacked copies, 16-byte aligned: bfloat16 (B, H, W, Cp) and (3, 3,
+// Co, Cp), or float32 (B, H, W, 2 Cp) and (3, 3, Co, 2 Cp), Cp =
+// padded_channels<MODE>(Ci); the rest of a as Args says.
 template <int MODE>
 int launch(const void* x, const void* k, void* xr, void* wr, Args a, int B, int Ci,
            cudaStream_t stream) {
   return repack_and_conv<MODE>(x, nullptr, nullptr, k, xr, wr, a, B, Ci, stream);
 }
 
-// B2a: the repack's x1 mode from s, t (B, C, H, W) bfloat16 and coeffs (B,
-// 5, C) float32, then B5's conv (act as a says: PReLU) with Ci = Co = 2C =
-// a.Co; k (2C, 2C, 3, 3), xr (B, H, W, Cp), wr (3, 3, 2C, Cp) as above.
-inline int launch_x1(const void* s, const void* t, const float* coeffs, const void* k, void* xr,
-                     void* wr, Args a, int B, cudaStream_t stream) {
+// B2a: the repack's x1 mode from s, t (B, C, H, W) and coeffs (B, 5, C)
+// float32, then B5's conv (CONV_ACT or CONV_ACT_TF32; act as a says: PReLU)
+// with Ci = Co = 2C = a.Co; k (2C, 2C, 3, 3), xr and wr as launch's.
+template <int MODE>
+int launch_x1(const void* s, const void* t, const float* coeffs, const void* k, void* xr,
+              void* wr, Args a, int B, cudaStream_t stream) {
   if (a.Co % 2 != 0 || t == nullptr || coeffs == nullptr) return 1000;
-  return repack_and_conv<CONV_ACT>(s, t, coeffs, k, xr, wr, a, B, a.Co, stream);
+  return repack_and_conv<MODE>(s, t, coeffs, k, xr, wr, a, B, a.Co, stream);
 }
 
-// the mean host time in microseconds of encoding one launch's two tensor
-// maps, over `reps` encodings; -1 if an encoding fails
+// the mean host time in microseconds of encoding one bfloat16 launch's two
+// tensor maps, over `reps` encodings; -1 if an encoding fails
 inline double encode_us(const void* x, const void* w, int B, int H, int W, int Ci, int Co, int TH,
                         int reps) {
   CUtensorMap wmap, xmap;
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i)
-    if (encode_maps(&wmap, &xmap, w, x, B, H, W, Ci, Co, TH) != 0) return -1.0;
+    if (encode_maps(&wmap, &xmap, w, x, B, H, W, Ci, Co, TH, false) != 0) return -1.0;
   const auto t1 = std::chrono::steady_clock::now();
   return std::chrono::duration<double, std::micro>(t1 - t0).count() / reps;
+}
+
+// the repack pass alone, with the checks of its C entries
+template <typename E>
+int repack_alone(const void* x, const void* t, const void* coeffs, const void* k, void* xr,
+                 void* wr, int B, int C, int H, int W, int Co, int Cp, cudaStream_t stream) {
+  const int granule = std::is_same<E, float>::value ? TF32_GROUP : 8;
+  if (B <= 0 || B > 65535 || C <= 0 || Co <= 0 || Cp < C || Cp % granule != 0) return 1000;
+  return repack<E>(x, t, static_cast<const float*>(coeffs), k, xr, wr, B, C, H, W, Co, Cp, stream);
 }
 
 }  // namespace tma
@@ -701,12 +838,20 @@ inline double encode_us(const void* x, const void* w, int B, int H, int W, int C
 // The number of tma_conv_kernel launches this library has made.
 extern "C" long long ogi_tma_conv_launches() { return tma::launches().load(); }
 
-// The repack pass alone (tma::repack; arguments as there): 0 or a CUDA error.
+// The repack pass alone (tma::repack; arguments as there), bfloat16: 0 or a
+// CUDA error.
 extern "C" int ogi_tma_repack(const void* x, const void* k, void* xr, void* wr, int B, int C,
                               int H, int W, int Co, int Cp, void* stream) {
-  if (B <= 0 || B > 65535 || C <= 0 || Co <= 0 || Cp < C || Cp % 8 != 0) return 1000;
-  return tma::repack(x, nullptr, nullptr, k, xr, wr, B, C, H, W, Co, Cp,
-                     static_cast<cudaStream_t>(stream));
+  return tma::repack_alone<unsigned short>(x, nullptr, nullptr, k, xr, wr, B, C, H, W, Co, Cp,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// The same in float32: xr (B, H, W, 2 Cp) and wr (3, 3, Co, 2 Cp) float32
+// words, Cp a multiple of 16.
+extern "C" int ogi_tma_repack_tf32(const void* x, const void* k, void* xr, void* wr, int B, int C,
+                                   int H, int W, int Co, int Cp, void* stream) {
+  return tma::repack_alone<float>(x, nullptr, nullptr, k, xr, wr, B, C, H, W, Co, Cp,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // The repack pass's x1 mode alone (B2a): s, t (B, C, H, W) bfloat16, coeffs
@@ -715,7 +860,17 @@ extern "C" int ogi_tma_repack(const void* x, const void* k, void* xr, void* wr, 
 extern "C" int ogi_tma_repack_x1(const void* s, const void* t, const void* coeffs, const void* k,
                                  void* xr, void* wr, int B, int C, int H, int W, int Cp,
                                  void* stream) {
-  if (B <= 0 || B > 65535 || C <= 0 || Cp < 2 * C || Cp % 8 != 0) return 1000;
-  return tma::repack(s, t, static_cast<const float*>(coeffs), k, xr, wr, B, 2 * C, H, W, 2 * C,
-                     Cp, static_cast<cudaStream_t>(stream));
+  if (C <= 0) return 1000;
+  return tma::repack_alone<unsigned short>(s, t, coeffs, k, xr, wr, B, 2 * C, H, W, 2 * C, Cp,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// The same in float32: s, t, k float32 into xr (B, H, W, 2 Cp) and wr (3,
+// 3, 2C, 2 Cp) float32 words, Cp a multiple of 16.
+extern "C" int ogi_tma_repack_x1_tf32(const void* s, const void* t, const void* coeffs,
+                                      const void* k, void* xr, void* wr, int B, int C, int H,
+                                      int W, int Cp, void* stream) {
+  if (C <= 0) return 1000;
+  return tma::repack_alone<float>(s, t, coeffs, k, xr, wr, B, 2 * C, H, W, 2 * C, Cp,
+                                  static_cast<cudaStream_t>(stream));
 }

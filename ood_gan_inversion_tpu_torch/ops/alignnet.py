@@ -18,13 +18,14 @@ across align cycles, so `alignnet_t_context` computes the t-only half once.
 kernels between plain PyTorch passes: the coefficients, then
 `alignnet_conv1` (B2a: x1 built from (s, t) and the coefficients, conv1,
 PReLU), then `alignnet_conv2` (B2b: conv2 and norm2's moments), then the
-norm2 affine and the shortcut. csrc/alignnet_conv1.cu and
-csrc/alignnet_conv2.cu run float32 operands on the tensor-core conv of
-csrc/samm_conv.cuh and bfloat16 operands on the TMA kernel of
-csrc/tma_conv.cuh, after a repack pass into NHWC input and tap-major
-weights (B2a's builds x1 in that pass; `tma_x1_operands` is its plain
-version). Each wrapper launches its kernel for CUDA tensors and counts its
-launches in `.launches`.
+norm2 affine and the shortcut. csrc/alignnet_conv1.cu runs both dtypes on
+the TMA kernel of csrc/tma_conv.cuh, after a repack pass into NHWC input and
+tap-major weights that builds x1 (`tma_x1_operands` is its plain version;
+float32 as 3xTF32, x1 and k1 split into hi and lo words in that pass);
+csrc/alignnet_conv2.cu runs bfloat16 operands on the same TMA kernel after
+the plain repack pass, and float32 operands on the tensor-core conv of
+csrc/samm_conv.cuh. Each wrapper launches its kernel for CUDA tensors and
+counts its calls in `.launches`.
 
 Two plain versions of each kernel: `alignnet_conv1_kernel_reference` and
 `alignnet_conv2_kernel_reference` are the kernels' functions (the convs of
@@ -243,32 +244,27 @@ def alignnet_conv2_kernel_reference(z, k2):
 
 
 def tma_x1_operands(s, t, coeffs, k1):
-    """The operands of the bfloat16 B2a kernel (csrc/tma_conv.cuh) from s, t
-    (B, C, H, W), coeffs (B, 5, C) and k1 (2C, 2C, 3, 3): x1 =
-    alignnet_x1(s, t, coeffs) as NHWC (B, H, W, Cp) and k1 as (3, 3, 2C, Cp),
-    Cp = tma_channels(2C), the channels past 2C zero. The plain version of
-    the repack pass's x1 mode: x1's arithmetic, then layout copies
-    (samm_conv.tma_operands)."""
+    """The operands of the B2a kernel (csrc/tma_conv.cuh) from s, t (B, C,
+    H, W), coeffs (B, 5, C) and k1 (2C, 2C, 3, 3): x1 = alignnet_x1(s, t,
+    coeffs) and k1 laid out by samm_conv.tma_operands (bfloat16: the values,
+    2C channels padded to Cp = tma_channels(2C); float32: their hi and lo
+    words). The plain version of the repack pass's x1 mode: x1's
+    arithmetic, then the layout."""
     return tma_operands(alignnet_x1(s, t, coeffs), k1)
 
 
 def _conv1_run(s, t, coeffs, k1, alpha):
     """B2a's kernel for CUDA tensors, its plain version for CPU tensors:
-    float32 operands as they lie, bfloat16 ones through the TMA kernel's
-    repack pass, which builds x1, into scratch (samm_conv.tma_scratch)."""
+    the TMA kernel's repack pass, which builds x1, into scratch
+    (samm_conv.tma_scratch), then the conv."""
     if not on_card("alignnet_conv1", (s, t, coeffs, k1, alpha)):
         return alignnet_conv1_kernel_reference(s, t, coeffs, k1, alpha)
     b, c, h, w = s.shape
     z = s.new_empty((b, 2 * c, h, w))
-    if s.dtype == torch.bfloat16:
-        xr, wr = tma_scratch(s, k1)
-        launch(alignnet_conv1, "alignnet_conv1",
-               entry("alignnet_conv1", "ogi_alignnet_conv1_tma", 8, 4), s,
-               *(v.data_ptr() for v in (s, t, coeffs, k1, xr, wr, alpha, z)), b, h, w, c)
-    else:
-        launch(alignnet_conv1, "alignnet_conv1",
-               entry("alignnet_conv1", "ogi_alignnet_conv1", 6, 4), s,
-               *(v.data_ptr() for v in (s, t, coeffs, k1, alpha, z)), b, h, w, c)
+    xr, wr = tma_scratch(s, k1)
+    name = "ogi_alignnet_conv1_tma" if s.dtype == torch.bfloat16 else "ogi_alignnet_conv1"
+    launch(alignnet_conv1, "alignnet_conv1", entry("alignnet_conv1", name, 8, 4), s,
+           *(v.data_ptr() for v in (s, t, coeffs, k1, xr, wr, alpha, z)), b, h, w, c)
     return z
 
 
@@ -278,7 +274,9 @@ AlignNetConv1 = twin_function("AlignNetConv1", _conv1_run, alignnet_conv1_refere
 def alignnet_conv1(s, t, coeffs, k1, alpha):
     """B2a: arguments and result as alignnet_conv1_reference; s, t and k1
     float32 or bfloat16 (the same), coeffs and alpha float32. The slopes
-    are rounded to s.dtype first, as JAX's kernel reads them."""
+    are rounded to s.dtype first, as JAX's kernel reads them. The kernel
+    runs on the tensor cores as conv3x3_act does, after the repack pass's
+    x1 mode."""
     activation(s, "alignnet_conv1")
     b, c, h, w = s.shape
     expect("t", t, s.shape, s.dtype)
@@ -320,7 +318,8 @@ AlignNetConv2 = twin_function("AlignNetConv2", _conv2_run, alignnet_conv2_refere
 def alignnet_conv2(z, k2):
     """B2b: y2 (B, 2C, H, W) float32 and part (B, 2, 2C) float32 as
     alignnet_conv2_reference; z and k2 float32 or bfloat16 (the same). The
-    kernel runs on the tensor cores as conv3x3_act does. Each
+    kernel runs on the tensor cores: bfloat16 on conv3x3_act's TMA kernel,
+    float32 on the 3xTF32 core of csrc/samm_conv.cuh. Each
     block of the kernel writes the moments of its pixel tile into a scratch,
     which a fixed-order pass then sums: no atomics, so the moments are
     bit-identical from call to call and in every batch slot."""

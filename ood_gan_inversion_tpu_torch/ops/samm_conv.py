@@ -5,14 +5,15 @@ kernels as everywhere in the port's SAMM.
 
 `conv3x3_act` launches the hand-written CUDA kernel `csrc/samm_conv.cu` for
 CUDA tensors and runs the plain version for CPU tensors; there is no
-fallback between the two. `.launches` counts kernel launches. Operands are
-float32 or bfloat16 (x and k alike), PReLU slopes float32; the kernel
-multiplies on the tensor cores, sums in float32 and writes the output in
-x's dtype. float32 operands run the NCHW/OIHW core of csrc/samm_conv.cuh
-as three TF32 products (hi*hi + hi*lo + lo*hi, for float32 accuracy);
-bfloat16 operands run the TMA kernel of csrc/tma_conv.cuh, after a repack
-pass into NHWC input and tap-major weights at every call (`tma_operands`
-is its plain version).
+fallback between the two. `.launches` counts wrapper calls that launched
+the kernel. Operands are float32 or bfloat16 (x and k alike), PReLU slopes
+float32; the kernel multiplies on the tensor cores, sums in float32 and
+writes the output in x's dtype. Both dtypes run the TMA kernel of
+csrc/tma_conv.cuh after a repack pass into NHWC input and tap-major
+weights at every call (two launches; `tma_operands` is the pass's plain
+version, `tma_scratch` its scratch): bfloat16 as one pass, float32 as three
+TF32 products (lo*hi + hi*lo + hi*hi, for float32 accuracy), each operand
+split into its hi and lo words once, in the repack pass.
 
 Two plain versions: `conv3x3_act_kernel_reference` is the kernel's
 function (the conv of the operands widened to float32, the activation in
@@ -26,6 +27,7 @@ float32 operands the two are the same ops, bit for bit.
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import batch_invariant as bi
 from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function, widen
@@ -35,9 +37,12 @@ ACTS = {"none": 0, "prelu": 1, "lrelu": 2}
 # the channel floor of the conv3x3_act path (as in JAX); tests lower it to
 # run narrow widths through the kernel path
 CONV_ACT_MIN_CHANNELS = 64
-# the bfloat16 kernel's channel granule: its NHWC / tap-major copies are
-# padded with zero channels to a multiple of it
+# the TMA kernel's channel granules: its NHWC / tap-major copies are padded
+# with zero channels to a multiple of 8 in bfloat16 (a TMA stride is a
+# multiple of 16 bytes) and of 16 in float32 (one 128-byte row of the
+# kernel's K-blocks holds 16 channels' hi and lo words)
 TMA_CHANNELS = 8
+TF32_CHANNELS = 16
 
 
 def _activate(y, alpha, act):
@@ -72,25 +77,49 @@ def conv3x3_act_supported(ci: int, co: int) -> bool:
     return ci >= CONV_ACT_MIN_CHANNELS and co >= CONV_ACT_MIN_CHANNELS
 
 
-def tma_channels(c: int) -> int:
-    """c rounded up to a multiple of TMA_CHANNELS."""
-    return -(-c // TMA_CHANNELS) * TMA_CHANNELS
+def tma_channels(c: int, dtype=torch.bfloat16) -> int:
+    """c rounded up to a multiple of the TMA kernel's granule for operands
+    of `dtype`: TF32_CHANNELS for float32, else TMA_CHANNELS."""
+    g = TF32_CHANNELS if dtype == torch.float32 else TMA_CHANNELS
+    return -(-c // g) * g
+
+
+def split_tf32(v):
+    """(hi, lo) of float32 v as the kernels split it (csrc/tc_conv.cuh:
+    split_tf32): hi = v rounded to TF32, a 10-bit mantissa, half away from
+    zero (2^12 added to the bit pattern, the low 13 bits cleared); lo = v -
+    hi, exact in float32, so hi + lo == v."""
+    u = v.contiguous().view(torch.int32)
+    hi = ((u + 0x1000) & ~0x1FFF).view(torch.float32)
+    return hi, v - hi
+
+
+def tf32_words(v, cp):
+    """v (..., C) float32 as the float32 kernel's rows (..., 2 cp): for each
+    group of TF32_CHANNELS channels, their hi words, then their lo words
+    (split_tf32); the channels past C zero in both."""
+    hi, lo = split_tf32(F.pad(v, (0, cp - v.shape[-1])))
+    groups = hi.shape[:-1] + (cp // TF32_CHANNELS, 1, TF32_CHANNELS)
+    return torch.cat([hi.reshape(groups), lo.reshape(groups)], -2).reshape(*hi.shape[:-1], 2 * cp)
 
 
 def tma_operands(x, k):
-    """The operands of the bfloat16 kernel (csrc/tma_conv.cuh) from x (B, C,
-    H, W) and k (Co, C, 3, 3): x as NHWC (B, H, W, Cp) and k as (3, 3, Co,
-    Cp) indexed [dx, dy, co, ci], so that [dx, dy] = k[:, :, dy, dx]; Cp =
-    tma_channels(C), the channels past C zero (a TMA stride is a multiple of
-    16 bytes). Layout copies, no arithmetic: the plain version of the
-    kernel's repack pass (tma_conv.cuh:repack_kernel)."""
-    b, c, h, w = x.shape
-    cp = tma_channels(c)
-    xr = x.new_zeros((b, h, w, cp))
-    xr[..., :c] = x.permute(0, 2, 3, 1)
-    wr = k.new_zeros((3, 3, k.shape[0], cp))
-    wr[..., :c] = k.permute(3, 2, 0, 1)
-    return xr, wr
+    """The operands of the TMA kernel (csrc/tma_conv.cuh) from x (B, C, H, W)
+    and k (Co, C, 3, 3): x as NHWC (B, H, W, .) and k as (3, 3, Co, .)
+    indexed [dx, dy, co, .], so that [dx, dy] = k[:, :, dy, dx]. float32:
+    each channel row as tf32_words (hi and lo words, Cp =
+    tma_channels(C, float32), 2 Cp words), the values split once; any other
+    dtype (the bfloat16 kernel's): the values as they lie, Cp =
+    tma_channels(C) channels. The channels past C are zero. The plain version
+    of the kernel's repack pass (tma_conv.cuh:repack_kernel,
+    repack_tf32_kernel)."""
+    xr, wr = x.permute(0, 2, 3, 1), k.permute(3, 2, 0, 1)
+    cp = tma_channels(x.shape[1], x.dtype)
+    if x.dtype == torch.float32:
+        return tf32_words(xr, cp), tf32_words(wr, cp)
+    pad = (0, cp - x.shape[1])
+    return (F.pad(xr, pad).contiguous(),
+            F.pad(wr, pad).contiguous())
 
 
 def tma_scratch(x, k):
@@ -98,8 +127,8 @@ def tma_scratch(x, k):
     batch and image size and the weights k (Co, Ci, 3, 3), which the repack
     pass fills."""
     b, _, h, w = x.shape
-    cp = tma_channels(k.shape[1])
-    return x.new_empty((b, h, w, cp)), k.new_empty((3, 3, k.shape[0], cp))
+    n = tma_channels(k.shape[1], x.dtype) * (2 if x.dtype == torch.float32 else 1)
+    return x.new_empty((b, h, w, n)), k.new_empty((3, 3, k.shape[0], n))
 
 
 def _run(x, k, alpha, act):
@@ -111,14 +140,11 @@ def _run(x, k, alpha, act):
     co = k.shape[0]
     out = x.new_empty((b, co, h, w))
     slopes = alpha.data_ptr() if act == "prelu" else None
-    if x.dtype == torch.bfloat16:
-        xr, wr = tma_scratch(x, k)
-        launch(conv3x3_act, "conv3x3_act", entry("samm_conv", "ogi_conv3x3_act_tma", 6, 6), x,
-               x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), slopes, out.data_ptr(),
-               b, h, w, ci, co, ACTS[act])
-    else:
-        launch(conv3x3_act, "conv3x3_act", entry("samm_conv", "ogi_conv3x3_act", 4, 6), x,
-               x.data_ptr(), k.data_ptr(), slopes, out.data_ptr(), b, h, w, ci, co, ACTS[act])
+    xr, wr = tma_scratch(x, k)
+    name = "ogi_conv3x3_act_tma" if x.dtype == torch.bfloat16 else "ogi_conv3x3_act"
+    launch(conv3x3_act, "conv3x3_act", entry("samm_conv", name, 6, 6), x,
+           x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), slopes, out.data_ptr(),
+           b, h, w, ci, co, ACTS[act])
     return out
 
 

@@ -577,6 +577,30 @@ def test_tma_repack_on_card(cuda, b, c, co, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,c,co,h,w", [(2, 37, 136, 19, 27), (1, 1024, 1024, 32, 32),
+                                        (2, 36, 36, 19, 27), (1, 40, 100, 16, 16)])
+def test_tma_repack_tf32_on_card(cuda, b, c, co, h, w):
+    """The float32 form of the repack pass (each value split once into its
+    hi and lo words, 16 channels of each per 128-byte row, channels padded
+    with zeros to a multiple of 16) is bit for bit its plain version,
+    samm_conv.tma_operands on float32: odd C, C a multiple of 16, C = 36
+    (padded to 48) and a full SAMM weight."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    x, k, _ = (torch.from_numpy(v).to(cuda) for v in conv_act_inputs(b, c, co, h, w, seed=c))
+    xr, wr = samm_conv.tma_scratch(x, k)
+    xr.fill_(1.0)
+    wr.fill_(1.0)
+    err = entry("samm_conv", "ogi_tma_repack_tf32", 4, 6)(
+        x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), b, c, h, w, co,
+        xr.shape[3] // 2, torch.cuda.current_stream().cuda_stream)
+    xr_ref, wr_ref = samm_conv.tma_operands(x, k)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(xr.view(torch.int32), xr_ref.view(torch.int32))
+    assert torch.equal(wr.view(torch.int32), wr_ref.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("h,c2", SAMM_SCALES)
 def test_alignnet_conv1_bf16_slot_bitwise_at_every_scale(cuda, h, c2):
     """bfloat16 B2a (the x1 repack, then the TMA kernel in B5's mode) at
@@ -617,10 +641,36 @@ def test_tma_x1_repack_on_card(cuda, b, c, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w", [(2, 37, 19, 27), (1, 512, 32, 32), (2, 12, 16, 16),
+                                     (1, 20, 7, 9)])
+def test_tma_x1_repack_tf32_on_card(cuda, b, c, h, w):
+    """B2a's repack pass in its x1 mode, float32 form, is bit for bit its
+    plain version, alignnet.tma_x1_operands on float32: x1 in float32 with
+    the plain version's roundings (no FMA contraction), then split; odd C
+    with an odd H * W, a full SAMM weight, 2C off and on the 16-channel
+    granule."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    a, _ = samm_operands(cuda, b, c, h, w, torch.float32, seed=c)
+    xr, wr = samm_conv.tma_scratch(a["s"], a["k1"])
+    xr.fill_(1.0)
+    wr.fill_(1.0)
+    err = entry("alignnet_conv1", "ogi_tma_repack_x1_tf32", 6, 5)(
+        *(a[k].data_ptr() for k in ("s", "t", "coeffs", "k1")), xr.data_ptr(), wr.data_ptr(),
+        b, c, h, w, xr.shape[3] // 2, torch.cuda.current_stream().cuda_stream)
+    xr_ref, wr_ref = alignnet.tma_x1_operands(a["s"], a["t"], a["coeffs"], a["k1"])
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(xr.view(torch.int32), xr_ref.view(torch.int32))
+    assert torch.equal(wr.view(torch.int32), wr_ref.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_bf16_calls_reach_the_tma_kernel_once(cuda):
     """A bfloat16 conv3x3_act, alignnet_conv1 or alignnet_conv2 call
     launches the TMA kernel of its library once and counts one launch on its
-    wrapper; a float32 call launches the other core and no TMA kernel."""
+    wrapper; so does a float32 conv3x3_act or alignnet_conv1 call (the TMA
+    kernel's float32 mode), while a float32 alignnet_conv2 call launches the
+    other core and no TMA kernel."""
     x, k, alpha = (torch.from_numpy(v).to(cuda) for v in conv_act_inputs(1, 64, 64, 16, 16, 9))
     coeffs = torch.rand(1, 5, 32, device=cuda)
 
@@ -633,7 +683,8 @@ def test_bf16_calls_reach_the_tma_kernel_once(cuda):
              samm_conv.conv3x3_act),
             ("alignnet_conv1", conv1, alignnet.alignnet_conv1),
             ("alignnet_conv2", alignnet.alignnet_conv2, alignnet.alignnet_conv2)):
-        for dtype, tma in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for dtype, tma in ((torch.bfloat16, 1),
+                           (torch.float32, 0 if lib == "alignnet_conv2" else 1)):
             before = (counter.launches, tma_launches(lib))
             call(x.to(dtype), k.to(dtype))
             torch.cuda.synchronize()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""What B2b's drain buys, and bfloat16 B2a on the TMA kernel, on a CUDA
+"""What the TMA kernel's drains buy, and B2a on the TMA kernel, on a CUDA
 card: python3 tools/prof_tma_conv.py
 
 The bfloat16 path of B2b (csrc/tma_conv.cuh, `ogi_alignnet_conv2_tma`)
@@ -17,6 +17,15 @@ B5's on the same operands. Then, at each scale, bfloat16 B2a
 mode) on seeded s, t (b = 1, C = 2C / 2): its max|err| / max|ref| against
 its kernel's plain version, its time, its x1 repack's alone, and cuDNN's
 bfloat16 conv + PReLU on the same x1.
+
+Then the float32 mode (3xTF32, B5's and B2a's float32 path), which drains
+every TF32_DRAIN_STAGES stages: copies of csrc/samm_conv.cu that drain
+every 1, 2 and 4 stages, and never; at each SAMM scale (b = 1) float32 B5
+(act none) on `tf32_cancel_inputs` (where one TF32 pass misses 1e-4 of
+max|ref| by >10x) and on zero-mean inputs, each variant's max|err| /
+max|ref| against the plain version (cuDNN, TF32 off) and its time, the
+float32 repack pass alone, cuDNN's float32 conv, and float32 B2a with its
+x1 repack alone.
 """
 
 import ctypes
@@ -40,34 +49,32 @@ SCALES = [(32, 1024), (64, 1024), (128, 512), (256, 256)]   # (H = W, 2C)
 
 KEY = "constexpr int DRAIN_STAGES = "
 VARIANTS = {"every 16 stages": 16, "none": 1 << 20}
+TF32_KEY = "constexpr int TF32_DRAIN_STAGES = "
+TF32_VARIANTS = {"every stage": 1, "every 2 stages": 2, "every 4 stages": 4, "none": 1 << 20}
 
 
-def variant_libraries():
-    """{label: library} of csrc/alignnet_conv2.cu built with each of
-    VARIANTS' drain periods."""
-    out = os.path.join(ROOT, "build", "tma_conv_variants")
+def variant_libraries(key, variants, source):
+    """{label: library} of csrc/<source>.cu built with each of `variants`'
+    values of the constant `key` of csrc/tma_conv.cuh, all nvcc at once."""
+    out = os.path.join(ROOT, "build", "tma_conv_variants", source)
     shutil.rmtree(out, ignore_errors=True)
     libs, procs = {}, {}
-    for label, period in VARIANTS.items():
+    for label, period in variants.items():
         d = os.path.join(out, label.replace(" ", "_"))
         shutil.copytree(build.CSRC, d)
         header = os.path.join(d, "tma_conv.cuh")
         src = open(header).read()
-        start = src.index(KEY) + len(KEY)
+        start = src.index(key) + len(key)
         src = src[:start] + str(period) + src[src.index(";", start):]
         open(header, "w").write(src)
-        so = os.path.join(d, "libalignnet_conv2.so")
+        so = os.path.join(d, f"lib{source}.so")
         procs[label] = (so, subprocess.Popen(
-            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, "alignnet_conv2.cu")],
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, os.path.join(d, f"{source}.cu")],
             stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
     for label, (so, proc) in procs.items():
         if proc.wait() != 0:
             raise RuntimeError(f"nvcc failed for the {label} variant")
-        lib = ctypes.CDLL(so)
-        lib.ogi_alignnet_conv2_tma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        lib.ogi_samm_conv_tiles.argtypes = [ctypes.c_int] * 3
-        libs[label] = lib
+        libs[label] = ctypes.CDLL(so)
     return libs
 
 
@@ -84,7 +91,15 @@ def main():
     print(f"card: {smi}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = variant_libraries()
+    libs = variant_libraries(KEY, VARIANTS, "alignnet_conv2")
+    for lib in libs.values():
+        lib.ogi_alignnet_conv2_tma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        lib.ogi_samm_conv_tiles.argtypes = [ctypes.c_int] * 3
+    tf32_libs = variant_libraries(TF32_KEY, TF32_VARIANTS, "samm_conv")
+    for lib in tf32_libs.values():
+        lib.ogi_conv3x3_act.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
     shipped = open(os.path.join(build.CSRC, "tma_conv.cuh")).read()
     period = shipped[shipped.index(KEY) + len(KEY):].split(";")[0]
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -123,6 +138,10 @@ def main():
               + ", ".join(f"B2b {label} {t[0]:.4f} / {t[1]:.4f}" for label, t in times.items())
               + f", B5 (bfloat16 out) {b5:.4f}", flush=True)
         b2a(h, c, k, g)
+    tf32_period = shipped[shipped.index(TF32_KEY) + len(TF32_KEY):].split(";")[0]
+    print(f"float32 mode: shipped drain period {tf32_period} stages", flush=True)
+    for h, c in SCALES:
+        tf32_drain(h, c, tf32_libs, g)
     return 0
 
 
@@ -153,6 +172,70 @@ def b2a(h, c2, k1, g):
                                                         alpha.bfloat16()), iters=10)}
     print(f"{h}px {c2}->{c2} B2a bfloat16: max|err| {rel(z, ref):.3e} of max|ref|; ms (L2 "
           "flushed): " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+
+
+def tf32_drain(h, c, libs, g):
+    """float32 B5 (act none) at (h, c -> c) through each drain variant in
+    `libs`: error on the cancelling and on zero-mean inputs, and time (two
+    readings in turns); the float32 repack alone; cuDNN's float32 conv;
+    float32 B2a and its x1 repack alone."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_inputs import tf32_cancel_inputs
+    cases = {"tf32_cancel": [torch.from_numpy(v).cuda() for v in
+                             tf32_cancel_inputs(1, c, c, h, h, seed=h + c)],
+             "zero-mean": [torch.randn(1, c, h, h, device="cuda", generator=g),
+                           torch.randn(c, c, 3, 3, device="cuda", generator=g) / (9 * c) ** 0.5]}
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for case, (x, k) in cases.items():
+        ref = samm_conv.conv3x3_act_kernel_reference(x, k, None, "none")
+        xr, wr = samm_conv.tma_scratch(x, k)
+        errs = []
+        for label, lib in libs.items():
+            out = torch.empty_like(ref)
+
+            def run(lib=lib, out=out, label=label):
+                err = lib.ogi_conv3x3_act(x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(),
+                                          None, out.data_ptr(), 1, h, h, c, c, 0, stream)
+                if err != 0:
+                    raise RuntimeError(f"float32 B5 drain {label}: error {err}")
+                return out
+            got = run()
+            torch.cuda.synchronize()
+            errs.append(f"{label} {rel(got, ref):.3e}")
+            if case == "zero-mean":
+                for _ in range(2):
+                    times.setdefault(label, []).append(time_ms(run, iters=10))
+        print(f"{h}px {c}->{c} float32 B5 max|err| / max|ref| on {case}: " + ", ".join(errs),
+              flush=True)
+    x, k = cases["zero-mean"]
+    xr, wr = samm_conv.tma_scratch(x, k)
+    repack = entry("samm_conv", "ogi_tma_repack_tf32", 4, 6)
+    ms = {"repack (float32)": time_ms(lambda: repack(
+        x.data_ptr(), k.data_ptr(), xr.data_ptr(), wr.data_ptr(), 1, c, h, h, c,
+        xr.shape[3] // 2, stream), iters=10),
+        "cudnn conv (float32, TF32 off)": time_ms(lambda: F.conv2d(x, k, padding=1), iters=10)}
+    print(f"{h}px {c}->{c} float32 ms (L2 flushed): "
+          + ", ".join(f"B5 drain {label} {t[0]:.4f} / {t[1]:.4f}" for label, t in times.items())
+          + ", " + ", ".join(f"{key} {v:.4f}" for key, v in ms.items()), flush=True)
+    c1 = c // 2
+    s = torch.randn(1, c1, h, h, device="cuda", generator=g)
+    t = 2.0 * torch.randn(1, c1, h, h, device="cuda", generator=g) + 0.3
+    coeffs = alignnet._alignnet_coeffs(s, t, 1.0 + 0.1 * torch.randn(c, device="cuda", generator=g),
+                                       0.1 * torch.randn(c, device="cuda", generator=g),
+                                       True, 1e-5)[0]
+    alpha = 0.25 + 0.05 * torch.randn(c, device="cuda", generator=g)
+    z = alignnet.alignnet_conv1(s, t, coeffs, k, alpha)
+    ref = alignnet.alignnet_conv1_kernel_reference(s, t, coeffs, k, alpha)
+    xr, wr = samm_conv.tma_scratch(s, k)
+    repack_x1 = entry("alignnet_conv1", "ogi_tma_repack_x1_tf32", 6, 5)
+    ms = {"B2a": time_ms(lambda: alignnet.alignnet_conv1(s, t, coeffs, k, alpha), iters=10),
+          "x1 repack (float32)": time_ms(lambda: repack_x1(
+              s.data_ptr(), t.data_ptr(), coeffs.data_ptr(), k.data_ptr(), xr.data_ptr(),
+              wr.data_ptr(), 1, c1, h, h, xr.shape[3] // 2, stream), iters=10)}
+    print(f"{h}px {c}->{c} B2a float32: max|err| {rel(z, ref):.3e} of max|ref|; ms (L2 flushed): "
+          + ", ".join(f"{key} {v:.4f}" for key, v in ms.items()), flush=True)
 
 
 if __name__ == "__main__":

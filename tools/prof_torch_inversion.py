@@ -31,8 +31,9 @@ from chip_smoke import e4e_opt, noisy  # noqa: E402
 from ood_gan_inversion_tpu_torch.infer import InversionEngine  # noqa: E402
 
 
-OWN_KERNELS = ("warp_blend_kernel", "tc_conv_kernel", "stage_conv_kernel", "rgb_kernel",
-               "sum_tiles_kernel", "box3x3_kernel")
+OWN_KERNELS = ("warp_blend_kernel", "tma_conv_kernel", "repack_kernel", "repack_tf32_kernel",
+               "conv2_kernel", "stage_conv_kernel", "rgb_kernel", "sum_tiles_kernel",
+               "box3x3_kernel")
 
 
 def main():
