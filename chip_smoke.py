@@ -8,7 +8,9 @@
    and bfloat16: B1's bit for bit; B5's, B2a's and B2b's through the TMA
    kernel of csrc/tma_conv.cuh, one launch of it per call, its repack pass
    (B2a's builds x1) and its host-side tensor-map encoding timed apart;
-   bfloat16 against the kernel's plain version on the same operands), and
+   float32 B4's two convs through the same kernel, two launches of it per
+   call, its repack launch timed apart; bfloat16 against the kernel's plain
+   version on the same operands), and
    times the kernel, the plain version and the closest PyTorch library
    call with CUDA events.
 3. Drives the main path -- E4E inversion at 1024px with the IR-SE-50
@@ -498,6 +500,7 @@ def phase_packed_kernels():
     max_err = {"B3": 0.0, "B4": 0.0}
     bound_by = {"B3": {}, "B4": {}}        # per image: bound ms by what bounds it
     gflop = {"B3": [0.0, 0.0], "B4": [0.0, 0.0]}          # dense, useful per image
+    repack_per_image = 0.0                                # float32 B4's repack launch
     conv_names = ("x", "n1", "k1", "s1", "d1", "b1")
     for h, c1, cmid in PACKED_STAGES:
         c4, stage = 4 * cmid, f"{2 * h}px stage"
@@ -562,9 +565,14 @@ def phase_packed_kernels():
                         per_image["B3"][key] += t[key]
                     gflop["B3"][0] += dense / 1e9
                     gflop["B3"][1] += useful / 1e9
-            # ---- B4: the whole stage
+            # ---- B4: the whole stage; float32: two TMA kernel launches
             args = tuple(a.values())
+            tma_before = tma_launches("packed_stage")
             rgb, z2 = fused_packed_stage(*args)
+            torch.cuda.synchronize()
+            if tma_launches("packed_stage") != tma_before + 2:
+                raise AssertionError(f"B4 {stage} b={b}: {tma_launches('packed_stage') - tma_before}"
+                                     " TMA kernel launches, expected 2")
             rgb_ref, z2_ref = packed_stage_reference(*args)
             err = max(check_close(f"B4 {stage} b={b} z2", z2, z2_ref, PACKED_TOL)[0],
                       check_close(f"B4 {stage} b={b} rgb", rgb, rgb_ref, PACKED_TOL)[0])
@@ -607,6 +615,7 @@ def phase_packed_kernels():
             t = {"ms": time_ms(lambda: fused_packed_stage(*args), iters=10),
                  "plain_ms": time_ms(lambda: packed_stage_reference(*args), iters=10),
                  "library_ms": time_ms(lib, iters=10)}
+            steps = stage_step_ms(args)
             msb = t["bf16_ms"] = time_ms(lambda: fused_packed_stage(*argsb), iters=10)
             t["bf16_library_ms"] = time_ms(lib_b, iters=10)
             d1, u1 = conv_flops(b, h, a["k1"])
@@ -627,7 +636,9 @@ def phase_packed_kernels():
             t["bf16_bound_ms"] = bf16_ms
             log(f"[kernel] B4 {stage} b={b} ({h}x{h}, {c1}->{c4}->{c4}, rgb 12): fp32 "
                 f"max|err| {err:.3e} <= {PACKED_TOL:.0e} of max|ref|, bf16 "
-                f"{errb:.3e}; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"{errb:.3e}; kernel {t['ms']:.4f} ms (TMA core; its launches alone: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+                + f"; the repack {steps['repack'] / t['ms']:.1%}), plain {t['plain_ms']:.4f} ms, "
                 f"cudnn chain {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); "
                 f"kernel {useful / t['ms'] / 1e9:.1f} useful TFLOP/s; bound: tensor cores "
                 f"{t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms ({cc_by}: "
@@ -640,22 +651,54 @@ def phase_packed_kernels():
                 bound_by["B4"][by] = bound_by["B4"].get(by, 0.0) + t["bound_ms"]
                 for key in keys:
                     per_image["B4"][key] += t[key]
+                repack_per_image += steps["repack"]
                 gflop["B4"][0] += dense / 1e9
                 gflop["B4"][1] += useful / 1e9
     entries = []
     for kid, name, src, line in (
             ("B3", "fused_conv3x3_act", "packed_stage.cu", 158),
             ("B4", "fused_packed_stage", "packed_stage.cu", 275)):
+        pi = per_image[kid]
+        extra = {}
+        text = f"; {gflop[kid][0]:.2f} dense, {gflop[kid][1]:.2f} useful GFLOP"
+        if kid == "B4":     # float32 on the TMA core of csrc/tma_conv.cuh
+            extra = {"f32_core": "ood_gan_inversion_tpu_torch/csrc/tma_conv.cuh",
+                     "repack_ms": repack_per_image}
+            text += (f"; f32: {pi['bound_ms'] / pi['ms']:.0%} of its bound, kernel / cudnn "
+                     f"{pi['ms'] / pi['library_ms']:.2f}, the repack {repack_per_image:.4f} "
+                     f"({repack_per_image / pi['ms']:.1%})")
         log(f"[kernel] {kid} {name} per image (b=1): "
-            + ", ".join(f"{k} {v:.4f}" for k, v in per_image[kid].items())
-            + f"; {gflop[kid][0]:.2f} dense, {gflop[kid][1]:.2f} useful GFLOP")
+            + ", ".join(f"{k} {v:.4f}" for k, v in pi.items()) + text)
         entries.append({"name": name, "route": "cuda",
                         "source": f"ood_gan_inversion_tpu_torch/csrc/{src}",
                         "replaces": f"ood_gan_inversion_tpu/ops/pallas_kernels.py:{line}",
                         "max_abs_err": max_err[kid],
                         "bound_by": max(bound_by[kid], key=bound_by[kid].get),
-                        **per_image[kid]})
+                        **extra, **pi})
     return entries
+
+
+def stage_step_ms(args):
+    """{step: ms} of float32 B4's launches one at a time on the operands
+    args (ogi_packed_stage_step, L2 flushed): the repack, conv1 (z out as
+    words), conv2 (z2 and the toRGB partials) and the rgb pass, each on what
+    the steps before it wrote."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    from ood_gan_inversion_tpu_torch.ops.packed_conv import stage_pointers
+    x, k1 = args[0], args[4]
+    b, h, w, c1 = x.shape
+    ptrs, _, _, scratch = stage_pointers(*args)     # scratch lives while the steps run
+    fn = entry("packed_stage", "ogi_packed_stage_step", 22, 6)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def step(i):
+        err = fn(*ptrs, b, h, w, c1, k1.shape[-1], i, stream)
+        if err != 0:
+            raise RuntimeError(f"B4 step {i}: error {err}")
+    out = {}
+    for i, name in enumerate(("repack", "conv1", "conv2", "rgb")):
+        out[name] = time_ms(lambda: step(i), iters=10)
+    return out
 
 
 def samm_operands(b, h, c, seed):
@@ -743,9 +786,9 @@ def phase_samm_kernels():
     float32 and bfloat16 operands; times and bounds; and the whole body0
     fused against the port's algebraic body0. Per image = b = 1, 2 align
     cycles per scale: B2a 8 launches, B2b 8, B5 16 (conv1 + PReLU and
-    conv2 in each cycle). B5 and B2a run the TMA kernel (csrc/tma_conv.cuh)
-    in both dtypes, B2b in bfloat16: one TMA conv launch per call, each
-    after its repack pass, timed alone too."""
+    conv2 in each cycle). All three run the TMA kernel (csrc/tma_conv.cuh)
+    in both dtypes: one TMA conv launch per call, each after its repack
+    pass, timed alone too."""
     from ood_gan_inversion_tpu_torch.ops import alignnet as an
     from ood_gan_inversion_tpu_torch.ops.samm_conv import (conv3x3_act, conv3x3_act_kernel_reference,
                                                           conv3x3_act_reference)
@@ -756,7 +799,7 @@ def phase_samm_kernels():
     ids = ("B2a", "B2b", "B5")
     per_image = {k: dict.fromkeys(keys, 0.0) for k in ids}
     max_err = dict.fromkeys(ids, 0.0)
-    # the repack passes' ms per image: bfloat16 (all three), float32 (B2a, B5)
+    # the repack passes' ms per image, bfloat16 and float32
     repack_per_image = {k: {"bf16": 0.0, "f32": 0.0} for k in ids}
     bound_by = {k: {} for k in ids}
     body0 = {"fused": 0.0, "algebraic": 0.0}
@@ -816,19 +859,18 @@ def phase_samm_kernels():
                              conv_flops,
                              lambda isz: (2 * px * c2 + 9 * c2 * c2) * isz),
             }
-            f32_inputs = {"B2a": (a["s"], a["k1"], a["t"], a["coeffs"]),
+            f32_inputs = {"B2a": (a["s"], a["k1"], a["t"], a["coeffs"]), "B2b": (z, a["k2"]),
                           "B5 conv1": (a["x1"], a["k1"]), "B5 conv2": (z, a["k2"])}
             for name, (kern, plain, lib, kern_b, plain_b, flops, nbytes) in runs.items():
                 what = f"{name} {h}px b={b} ({c2}->{c2})"
-                # float32: one TMA kernel launch for B2a and B5, none for B2b
+                # float32: one TMA kernel launch
                 lib_name = {"B2a": "alignnet_conv1", "B2b": "alignnet_conv2"}.get(name, "samm_conv")
                 tma_before = tma_launches(lib_name)
                 got, ref = kern(), plain()
                 torch.cuda.synchronize()
-                tma_f32 = int(name in f32_inputs)
-                if tma_launches(lib_name) != tma_before + tma_f32:
+                if tma_launches(lib_name) != tma_before + 1:
                     raise AssertionError(f"{what} f32: {tma_launches(lib_name) - tma_before} "
-                                         f"TMA kernel launches, expected {tma_f32}")
+                                         "TMA kernel launches, expected 1")
                 err = check_close(what, first(got), first(ref), SAMM_TOL)[0]
                 # B2b's moments, each row against its own max|ref|
                 moments = [check_close(f"{what} moments {m}", got[1][:, m], ref[1][:, m],
@@ -865,11 +907,9 @@ def phase_samm_kernels():
                 t["bf16_repack_ms"], enc_us = tma_repack_costs(*tma_inputs[name])
                 tma_text = (f" (of which the repack pass {t['bf16_repack_ms']:.4f} ms; "
                             f"tensor maps {enc_us:.2f} us of host time per launch)")
-                f32_text = ""
-                if name in f32_inputs:
-                    t["repack_ms"] = tma_repack_costs(*f32_inputs[name])[0]
-                    f32_text = (f" (TMA core; of which the float32 repack pass "
-                                f"{t['repack_ms']:.4f} ms, {t['repack_ms'] / t['ms']:.1%})")
+                t["repack_ms"] = tma_repack_costs(*f32_inputs[name])[0]
+                f32_text = (f" (TMA core; of which the float32 repack pass "
+                            f"{t['repack_ms']:.4f} ms, {t['repack_ms'] / t['ms']:.1%})")
                 log(f"[kernel] {what}: fp32 max|err| {err:.3e} (<= {SAMM_TOL:.0e} of max|ref|)"
                     f"{moment_text}, "
                     f"bf16 {errb:.3e} <= {limb:.3e}; kernel {t['ms']:.4f} ms{f32_text} "
@@ -890,7 +930,7 @@ def phase_samm_kernels():
                     for key in keys:
                         per_image[kid][key] += 2 * t[key]
                     repack_per_image[kid]["bf16"] += 2 * t["bf16_repack_ms"]
-                    repack_per_image[kid]["f32"] += 2 * t.get("repack_ms", 0.0)
+                    repack_per_image[kid]["f32"] += 2 * t["repack_ms"]
             args = [a[k] for k in ("s", "t", "g1", "b1", "k1", "alpha", "k2", "g2", "b2")]
             fused = an.fused_alignnet_body0(*args, True)
             alg = an.algebraic_alignnet_body0(*args, True)
@@ -905,9 +945,9 @@ def phase_samm_kernels():
     log(f"[kernel] body0 per image (8 calls, b=1): fused {body0['fused']:.4f} ms, "
         f"algebraic {body0['algebraic']:.4f} ms")
     entries = []
-    # the float32 kernel's source: B2a and B5 run the TMA core in both dtypes
+    # all three run the TMA core in both dtypes
     for kid, name, line, src in (("B2a", "alignnet_conv1", 982, "tma_conv.cuh"),
-                                 ("B2b", "alignnet_conv2", 1005, "alignnet_conv2.cu"),
+                                 ("B2b", "alignnet_conv2", 1005, "tma_conv.cuh"),
                                  ("B5", "conv3x3_act", 517, "tma_conv.cuh")):
         pi, rp = per_image[kid], repack_per_image[kid]
         log(f"[kernel] {kid} {name} per image (b=1): "

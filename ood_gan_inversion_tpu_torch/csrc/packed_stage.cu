@@ -29,37 +29,52 @@
 // kernel takes multiples of 128 only).
 //
 // What bounds it: operations. The two convs do 2 * 9 * (C1 + C4) * C4
-// flops per pixel against a few hundred bytes. Both run on the tensor cores
-// as the implicit GEMM of tc_conv.cuh (wgmma; 3xTF32 for float32 operands,
-// one bf16 pass for bfloat16; each chunk's products in fresh fragments), in
-// three launches (B3 is the first alone, with no s_out):
-//   1. conv1 (stage_conv_kernel<T, 1>): z, in the operand dtype, to a
-//      (B, H, W, C4) scratch. Keeping z on chip instead would recompute
-//      conv1 on each tile's halo (1.56x its work at 8 x 8 tiles) and cap C4
-//      by shared memory; the round trip costs 2 * H * W * C4 * sizeof(T)
-//      bytes, tens of microseconds at the packed stages.
-//   2. conv2 (stage_conv_kernel<T, 2>): reads z with masked halo loads (the
-//      zeros outside the image are conv2's padding), writes z2, and sums
-//      each pixel's toRGB partial over the block's 128 channels in channel
-//      order into a (B, n_cblocks, H, W, 12) float32 scratch.
+// flops per pixel against a few hundred bytes. Both run on the tensor
+// cores, in this order (B3 is the first alone, with no s_out):
+//   1. conv1: z, in the operand dtype, to a scratch. Keeping z on chip
+//      instead would recompute conv1 on each tile's halo (1.56x its work at
+//      8 x 8 tiles) and cap C4 by shared memory.
+//   2. conv2: reads z (the zeros outside the image are conv2's padding),
+//      writes z2, and sums each pixel's toRGB partial over the block's 128
+//      channels in channel order into a (B, n_cblocks, H, W, 12) float32
+//      scratch.
 //   3. rgb_kernel: the channel blocks' partials added in order, then b3 and
 //      the 3 -> 12 skip conv.
 // Every sum runs in a fixed order without atomics, and the grid and tiling
 // depend on (H, W, C4) only, so a sample's outputs are the same bits in any
 // batch slot.
 //
-// In NHWC a pixel's KC channels are contiguous, so each 16-byte K half of
-// the B layout is one 16-byte load of the input (plain loads where C is not
-// a multiple of the half). A chunk's HWIO slab, k[:, :, c0:c0+KC,
-// n0:n0+128], is 9 * KC rows of 128 contiguous output channels, copied as
-// it lies by cp.async into the ring; the A-fragments are gathered from it
-// transposed (row = output channel, k = input channel), at a row stride of
-// 136 elements, so that a gather hits all 32 banks.
+// float32 B4 runs its convs on the TMA core of tma_conv.cuh (3xTF32 on
+// words split once; its notes say how), after one repack launch
+// (stage_repack_kernel): x * s1 in float32 (s1 as given, one product, as
+// the plain version rounds it), split into hi and lo words, channels padded
+// to a multiple of 16 -- elementwise, since x is NHWC already -- and k1, k2
+// from HWIO into the core's (3 [dx], 3 [dy], C4, 2 Cp) words. conv1
+// (STAGE1_TF32) writes z straight as conv2's words (B, H, W, 2 Cp4), so
+// conv2 (STAGE2_TF32) reads it through TMA with no pass between; TMA's zero
+// fill is conv2's padding. z's words move 2 * 8 * H * W * Cp4 bytes, which
+// a float32 z and a second repack would exceed.
+// ops/packed_conv.py:stage_input_words, stage_weight_words and
+// stage_z_words are the plain versions of the words.
+//
+// bfloat16 B4 and both dtypes of B3 run the implicit GEMM of tc_conv.cuh
+// (wgmma; 3xTF32 for float32 operands, one bf16 pass for bfloat16; each
+// chunk's products in fresh fragments): stage_conv_kernel<T, 1> writes z to
+// a (B, H, W, C4) scratch in the operand dtype, stage_conv_kernel<T, 2>
+// reads it with masked halo loads. In NHWC a pixel's KC channels are
+// contiguous, so each 16-byte K half of the B layout is one 16-byte load of
+// the input (plain loads where C is not a multiple of the half). A chunk's
+// HWIO slab, k[:, :, c0:c0+KC, n0:n0+128], is 9 * KC rows of 128 contiguous
+// output channels, copied as it lies by cp.async into the ring; the
+// A-fragments are gathered from it transposed (row = output channel, k =
+// input channel), at a row stride of 136 elements, so that a gather hits all
+// 32 banks.
 //
 // Plain C interface (bound with ctypes): launches on the given stream and
 // returns cudaGetLastError().
 
 #include "tc_conv.cuh"
+#include "tma_conv.cuh"
 
 #include <type_traits>
 
@@ -377,6 +392,22 @@ __global__ void rgb_kernel(const float* __restrict__ part, const T* __restrict__
 
 int n_cblocks(int C4) { return (C4 + TN - 1) / TN; }
 
+// the operand pointers of a stage call, in the order of ogi_packed_stage
+enum StageArg { X, N1, N2, SKIP, K1, S1, D1, B1, K2, S2, D2, B2, K3SR, B3, K4, RGB, Z2, Z, PART,
+                XR, W1R, W2R, N_STAGE_ARGS };
+
+// rgb_kernel on a stage call's pointers p
+template <typename T>
+int launch_rgb(const void* const* p, int B, int H, int W, int C4, cudaStream_t stream) {
+  const int64_t n = (int64_t)B * H * W * 12;
+  rgb_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(p[PART]), static_cast<const T*>(p[SKIP]),
+      static_cast<const float*>(p[B3]), static_cast<const T*>(p[K4]),
+      static_cast<T*>(const_cast<void*>(p[RGB])), B, H, W, n_cblocks(C4));
+  return (int)cudaGetLastError();
+}
+static_assert(tma::BM == TN, "conv2's toRGB partials: one block of TN channels per TMA block");
+
 template <typename T, int STAGE>
 int launch_conv(Args a, int B, cudaStream_t stream) {
   a.tiles_w = (a.W + C::TW - 1) / C::TW;
@@ -394,24 +425,138 @@ int launch_conv(Args a, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// bfloat16 B4 on the core of tc_conv.cuh: conv1, conv2, rgb_kernel
 template <typename T>
 int launch(const void* const* p, int B, int H, int W, int C1, int C4, cudaStream_t stream) {
   auto F_ = [&](int i) { return static_cast<const float*>(p[i]); };
-  void* z = const_cast<void*>(p[17]);
-  float* part = static_cast<float*>(const_cast<void*>(p[18]));
-  const Args conv1{p[0], p[4], F_(1), F_(5), F_(6), F_(7), F_(9), nullptr, z, nullptr,
+  void* z = const_cast<void*>(p[Z]);
+  float* part = static_cast<float*>(const_cast<void*>(p[PART]));
+  const Args conv1{p[X], p[K1], F_(N1), F_(S1), F_(D1), F_(B1), F_(S2), nullptr, z, nullptr,
                    H, W, C1, C4, 0, 0, 0};
   int err = launch_conv<T, 1>(conv1, B, stream);
   if (err != 0) return err;
-  const Args conv2{z, p[8], F_(2), nullptr, F_(10), F_(11), nullptr, p[12],
-                   const_cast<void*>(p[16]), part, H, W, C4, C4, 0, 0, 0};
+  const Args conv2{z, p[K2], F_(N2), nullptr, F_(D2), F_(B2), nullptr, p[K3SR],
+                   const_cast<void*>(p[Z2]), part, H, W, C4, C4, 0, 0, 0};
   err = launch_conv<T, 2>(conv2, B, stream);
   if (err != 0) return err;
-  const int64_t n = (int64_t)B * H * W * 12;
-  rgb_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      part, static_cast<const T*>(p[3]), F_(13), static_cast<const T*>(p[14]),
-      static_cast<T*>(const_cast<void*>(p[15])), B, H, W, n_cblocks(C4));
-  return (int)cudaGetLastError();
+  return launch_rgb<T>(p, B, H, W, C4, stream);
+}
+
+// ---------------------------------------------- float32 B4 on the TMA core
+
+// The repack of float32 B4, one launch. Blocks [0, xblocks): xr (B, H, W,
+// 2 Cp1), the words of x * s1, a thread per 4 channels of a pixel (their 4
+// hi words and 4 lo words, two 16-byte stores). The next w1blocks blocks,
+// then the rest: the words of k1 and k2 (HWIO (3 [dy], 3 [dx], Ci, C4))
+// into w1r (3 [dx], 3 [dy], C4, 2 Cp1) and w2r (3, 3, C4, 2 Cp4), a block
+// per (tap, 16 input channels, 32 output channels), transposed through
+// shared memory so that reads run along co and writes along the words.
+struct StageRepack {
+  const float *x, *s1, *k1, *k2;
+  float *xr, *w1r, *w2r;
+  int64_t items;          // B * H * W * Cp1 / 4
+  int HW, C1, C4, Cp1, Cp4, xblocks, w1blocks;
+  bool vec;               // x and s1 read 4 channels at a time (C1 % 4 == 0, 16-byte aligned)
+};
+
+// blocks of the weight words of a (Ci -> Co) kernel
+int weight_blocks(int Cp, int Co) { return 9 * (Cp / tma::TF32_GROUP) * ((Co + 31) / 32); }
+
+__device__ __forceinline__ void weight_words(const float* k, float* wr, int Ci, int Co, int Cp,
+                                             int j, float (*sm)[33]) {
+  const int nco = (Co + 31) / 32, ng = Cp / tma::TF32_GROUP;
+  const int co0 = j % nco * 32, ci0 = j / nco % ng * tma::TF32_GROUP, tap = j / (nco * ng);
+  const int dx = tap / 3, dy = tap % 3;            // wr's tap dx * 3 + dy is k's dy * 3 + dx
+  const float* src = k + (int64_t)(dy * 3 + dx) * Ci * Co;
+  for (int e = threadIdx.x; e < tma::TF32_GROUP * 32; e += 256) {
+    const int r = e / 32, ci = ci0 + r, co = co0 + e % 32;
+    sm[r][e % 32] = ci < Ci && co < Co ? src[(int64_t)ci * Co + co] : 0.0f;
+  }
+  __syncthreads();
+  // the group's 32 words start at word 2 ci0 of a row
+  float* dst = wr + (int64_t)tap * Co * 2 * Cp + 2 * ci0;
+  for (int e = threadIdx.x; e < 32 * 2 * tma::TF32_GROUP; e += 256) {
+    const int c = e / (2 * tma::TF32_GROUP), wd = e % (2 * tma::TF32_GROUP);
+    if (co0 + c < Co)
+      dst[(int64_t)(co0 + c) * 2 * Cp + wd] = tma::tf32_word(sm[wd % tma::TF32_GROUP][c], wd);
+  }
+}
+
+__global__ void __launch_bounds__(256) stage_repack_kernel(const StageRepack r) {
+  __shared__ float sm[tma::TF32_GROUP][33];
+  const int blk = blockIdx.x;
+  if (blk >= r.xblocks) {
+    if (blk < r.xblocks + r.w1blocks) weight_words(r.k1, r.w1r, r.C1, r.C4, r.Cp1, blk - r.xblocks, sm);
+    else weight_words(r.k2, r.w2r, r.C4, r.C4, r.Cp4, blk - r.xblocks - r.w1blocks, sm);
+    return;
+  }
+  const int64_t idx = (int64_t)blk * 256 + threadIdx.x;
+  if (idx >= r.items) return;
+  const int64_t pix = idx / (r.Cp1 / 4);
+  const int c = (int)(idx % (r.Cp1 / 4)) * 4, b = (int)(pix / r.HW);
+  float v[4];
+  if (r.vec && c < r.C1) {
+    const float4 x4 = *reinterpret_cast<const float4*>(r.x + pix * r.C1 + c);
+    const float4 s4 = *reinterpret_cast<const float4*>(r.s1 + (int64_t)b * r.C1 + c);
+    v[0] = __fmul_rn(x4.x, s4.x);
+    v[1] = __fmul_rn(x4.y, s4.y);
+    v[2] = __fmul_rn(x4.z, s4.z);
+    v[3] = __fmul_rn(x4.w, s4.w);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = c + u < r.C1 ? __fmul_rn(r.x[pix * r.C1 + c + u], r.s1[(int64_t)b * r.C1 + c + u])
+                          : 0.0f;
+  }
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) split_tf32(v[u], hi[u], lo[u]);
+  float* o = r.xr + pix * 2 * r.Cp1 + c / tma::TF32_GROUP * 2 * tma::TF32_GROUP +
+             c % tma::TF32_GROUP;
+  *reinterpret_cast<uint4*>(o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(o + tma::TF32_GROUP) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// the steps of float32 B4
+enum Step { STEP_REPACK = 0, STEP_CONV1 = 1, STEP_CONV2 = 2, STEP_RGB = 3 };
+
+// Step `step` of float32 B4 (p as ogi_packed_stage's, z the words scratch
+// (B, H, W, 2 Cp4), xr, w1r, w2r as StageRepack's)
+int f32_step(const void* const* p, int B, int H, int W, int C1, int C4, int step,
+             cudaStream_t stream) {
+  auto F_ = [&](int i) { return static_cast<const float*>(p[i]); };
+  auto M_ = [&](int i) { return static_cast<float*>(const_cast<void*>(p[i])); };
+  const int Cp1 = tma::padded_channels<tma::STAGE1_TF32>(C1);
+  const int Cp4 = tma::padded_channels<tma::STAGE1_TF32>(C4);
+  if (step == STEP_REPACK) {
+    StageRepack r{F_(X), F_(S1), F_(K1), F_(K2), M_(XR), M_(W1R), M_(W2R),
+                  (int64_t)B * H * W * (Cp1 / 4), H * W, C1, C4, Cp1, Cp4, 0,
+                  weight_blocks(Cp1, C4), false};
+    r.xblocks = (int)((r.items + 255) / 256);
+    r.vec = C1 % 4 == 0 && reinterpret_cast<uintptr_t>(r.x) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(r.s1) % 16 == 0;
+    const int64_t blocks = (int64_t)r.xblocks + r.w1blocks + weight_blocks(Cp4, C4);
+    if (blocks > 0x7fffffff) return 1000;
+    stage_repack_kernel<<<(unsigned)blocks, 256, 0, stream>>>(r);
+    return (int)cudaGetLastError();
+  }
+  if (step == STEP_CONV1 || step == STEP_CONV2) {
+    const bool one = step == STEP_CONV1;
+    tma::Args a{nullptr, const_cast<void*>(one ? p[Z] : p[Z2]), nullptr, H, W, C4, tma::ACT_NONE,
+                0, 0, 0, F_(one ? N1 : N2), F_(one ? D1 : D2), F_(one ? B1 : B2),
+                one ? F_(S2) : nullptr, one ? nullptr : F_(K3SR), one ? nullptr : M_(PART), Cp4};
+    const void* xr = one ? p[XR] : p[Z];
+    const void* wr = one ? p[W1R] : p[W2R];
+    if (tma::bad_args(a, B, one ? C1 : C4, xr, wr)) return 1000;
+    return one ? tma::conv_tiles<tma::STAGE1_TF32>(xr, wr, a, B, 2 * Cp1, stream)
+               : tma::conv_tiles<tma::STAGE2_TF32>(xr, wr, a, B, 2 * Cp4, stream);
+  }
+  if (step == STEP_RGB) return launch_rgb<float>(p, B, H, W, C4, stream);
+  return 1000;
+}
+
+bool bad_stage(int B, int H, int W, int C1, int C4) {
+  return B <= 0 || B > 65535 || H <= 0 || W <= 0 || C1 <= 0 || C4 <= 0 || C4 % 4 != 0;
 }
 
 }  // namespace
@@ -422,24 +567,49 @@ extern "C" int ogi_packed_stage_cblocks(int C4) { return n_cblocks(C4); }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, skip, k1, k2, k3sr, k4, rgb, z2, z;
 // the rest float32). All tensors contiguous, shapes as in the note above;
-// z (B, H, W, C4) and part (B, ogi_packed_stage_cblocks(C4), H, W, 12)
-// float32 are scratch. Returns cudaGetLastError() after the launches
-// (0 = success); 1000 for an argument the kernels do not take.
+// part (B, ogi_packed_stage_cblocks(C4), H, W, 12) float32 is scratch, and
+// so is z: bfloat16 (B, H, W, C4), or float32 conv1's words (B, H, W, 2
+// Cp4); float32 also takes the scratch xr (B, H, W, 2 Cp1), w1r (3, 3, C4,
+// 2 Cp1) and w2r (3, 3, C4, 2 Cp4) (null in bfloat16), Cp1 and Cp4 = C1 and
+// C4 rounded up to a multiple of 16. float32: four launches (the repack,
+// conv1, conv2, rgb); bfloat16 three. Returns 0, a CUDA error, 1000 for an
+// argument the kernels do not take, 1001/1002 if a tensor map cannot be
+// encoded.
 extern "C" int ogi_packed_stage(const void* x, const void* n1, const void* n2,
                                 const void* skip, const void* k1, const void* s1,
                                 const void* d1, const void* b1, const void* k2,
                                 const void* s2, const void* d2, const void* b2,
                                 const void* k3sr, const void* b3, const void* k4,
-                                void* rgb, void* z2, void* z, void* part, int B, int H,
-                                int W, int C1, int C4, int dtype, void* stream) {
-  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C1 <= 0 || C4 <= 0 ||
-      C4 % 4 != 0 || (dtype != 0 && dtype != 1))
-    return 1000;
-  const void* p[19] = {x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
-                       k3sr, b3, k4, rgb, z2, z, part};
+                                void* rgb, void* z2, void* z, void* part, void* xr, void* w1r,
+                                void* w2r, int B, int H, int W, int C1, int C4, int dtype,
+                                void* stream) {
+  if (bad_stage(B, H, W, C1, C4) || (dtype != 0 && dtype != 1)) return 1000;
+  const void* p[N_STAGE_ARGS] = {x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
+                                 k3sr, b3, k4, rgb, z2, z, part, xr, w1r, w2r};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(p, B, H, W, C1, C4, st)
-                    : launch<__nv_bfloat16>(p, B, H, W, C1, C4, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, B, H, W, C1, C4, st);
+  for (int step = STEP_REPACK; step <= STEP_RGB; ++step) {
+    const int err = f32_step(p, B, H, W, C1, C4, step, st);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// One step of float32 ogi_packed_stage (arguments as there, dtype 0): 0 the
+// repack, 1 conv1, 2 conv2, 3 the rgb pass; each reads what the steps
+// before it wrote. For timing the steps apart.
+extern "C" int ogi_packed_stage_step(const void* x, const void* n1, const void* n2,
+                                     const void* skip, const void* k1, const void* s1,
+                                     const void* d1, const void* b1, const void* k2,
+                                     const void* s2, const void* d2, const void* b2,
+                                     const void* k3sr, const void* b3, const void* k4,
+                                     void* rgb, void* z2, void* z, void* part, void* xr,
+                                     void* w1r, void* w2r, int B, int H, int W, int C1, int C4,
+                                     int step, void* stream) {
+  if (bad_stage(B, H, W, C1, C4)) return 1000;
+  const void* p[N_STAGE_ARGS] = {x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
+                                 k3sr, b3, k4, rgb, z2, z, part, xr, w1r, w2r};
+  return f32_step(p, B, H, W, C1, C4, step, static_cast<cudaStream_t>(stream));
 }
 
 // B3: one packed conv, conv1 of the stage without s2. dtype: 0 = float32,

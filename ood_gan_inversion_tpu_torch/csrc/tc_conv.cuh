@@ -1,11 +1,13 @@
-// The tensor-core core of the port's 3x3 convolutions, for Hopper (sm_90a),
-// shared by samm_conv.cuh (NCHW, OIHW: B2b's float32 path, in
-// alignnet_conv2.cu) and packed_stage.cu (NHWC, HWIO: B4 and B3, both
-// dtypes). B5 and B2a, and B2b's bfloat16 path, run tma_conv.cuh. A block computes TN = 128 output channels (two
-// warpgroups of 64, wgmma's M) for a tile of R rows x 32 columns of one
-// sample (wgmma's N: the flat run of pixels through the halo rows, see
-// Tile), as an implicit GEMM over K = Ci * 9, taken KC input channels at a
-// time (8 for float32, 16 for bfloat16: one wgmma's K) and tap by tap.
+// The first tensor-core core of the port's 3x3 convolutions, for Hopper
+// (sm_90a): packed_stage.cu's (NHWC, HWIO) B3 in both dtypes and B4's
+// bfloat16 path. B5, B2a and B2b in both dtypes, and B4's float32 path, run
+// the TMA core of tma_conv.cuh, which also takes this header's helpers
+// (split_tf32, the wgmma fences, tile_rows). A block computes TN = 128
+// output channels (two warpgroups of 64, wgmma's M) for a tile of R rows x
+// 32 columns of one sample (wgmma's N: the flat run of pixels through the
+// halo rows, see Tile), as an implicit GEMM over K = Ci * 9, taken KC input
+// channels at a time (8 for float32, 16 for bfloat16: one wgmma's K) and
+// tap by tap.
 //
 // The weights are wgmma's A operand, from registers: for each tap a warp
 // gathers its 16 channels x KC values from the chunk's slab, which cp.async
@@ -370,8 +372,8 @@ __device__ __forceinline__ void conv_loop(float (&acc)[C::N / 2], int nchunks, u
 // the least grid per sample: a block on all but 4 of the H100's 132 SMs
 constexpr int FILL_BLOCKS = 128;
 
-// The rows of a SAMM conv's pixel tile of 32 columns for an (H, W, Co)
-// launch (samm_conv.cuh, tma_conv.cuh): 4, halved while the grid of one
+// The rows of a TMA conv's pixel tile of 32 columns for an (H, W, Co)
+// launch (tma_conv.cuh): 4, halved while the grid of one
 // sample, in blocks of TN channels, has fewer than FILL_BLOCKS blocks. A
 // function of the sample's shape alone, never of the batch size.
 inline int tile_rows(int H, int W, int Co) {

@@ -1,22 +1,26 @@
-// The TMA core of the three SAMM AlignNet convolutions, for Hopper
-// (sm_90a): B5 (samm_conv.cu: out = act(conv3x3(x, k)) in x's type), B2a
-// (alignnet_conv1.cu: z = prelu(conv3x3(x1, k1)) in s's type, x1 built
-// from s, t and the coefficients by the repack pass) in both operand types,
-// and B2b's bfloat16 path (alignnet_conv2.cu: ogi_alignnet_conv2_tma, y2 =
-// conv3x3(z, k2) in float32 and the tiles' moments of y2). B2b's float32
-// operands run the core of samm_conv.cuh / tc_conv.cuh.
+// The TMA core of the port's 3x3 convolutions, for Hopper (sm_90a): the three
+// SAMM AlignNet convolutions in both operand types -- B5 (samm_conv.cu: out =
+// act(conv3x3(x, k)) in x's type), B2a (alignnet_conv1.cu: z =
+// prelu(conv3x3(x1, k1)) in s's type, x1 built from s, t and the
+// coefficients by the repack pass) and B2b (alignnet_conv2.cu: y2 =
+// conv3x3(z, k2) in float32 and the tiles' moments of y2) -- and the two
+// convs of B4's float32 path (packed_stage.cu: the packed stage's conv1 and
+// conv2 with their NHWC epilogues). B4's bfloat16 path and B3 run the core
+// of tc_conv.cuh.
 //
 // Replaces the TPU kernels ops/pallas_kernels.py:_conv_act_band_kernel (via
-// conv3x3_act), _an_conv1_kernel (via fused_alignnet_body0), and for
-// bfloat16 operands _an_conv2_kernel. Bound by operations: 2 * 9 * Ci * Co
-// flops per pixel against 2 * (Ci + Co) bytes in bfloat16; in float32 three
-// TF32 products per product (3xTF32) against 4 * (Ci + Co) bytes.
+// conv3x3_act), _an_conv1_kernel (via fused_alignnet_body0), _an_conv2_kernel
+// (via fused_alignnet_body0) and, for float32 operands, the convs of
+// _stage_band_kernel (via fused_packed_stage). Bound by operations: 2 * 9 *
+// Ci * Co flops per pixel against 2 * (Ci + Co) bytes in bfloat16; in
+// float32 three TF32 products per product (3xTF32) against 4 * (Ci + Co)
+// bytes.
 //
 // Operands. Both wgmma operands come from shared memory, K-major with the
 // 128-byte swizzle, loaded by TMA. A K-block is one tap x one 128-byte row
 // per matrix row (one swizzle atom row): 64 bfloat16 input channels, or in
-// float32 (the CONV_ACT_TF32 mode) 16 channels as 32 words, their 16 hi
-// words then their 16 lo words.
+// float32 (the *_TF32 modes) 16 channels as 32 words, their 16 hi words then
+// their 16 lo words.
 //   * A (M = output channels): the weights repacked to (3 [dx], 3 [dy], Co,
 //     K), K contiguous. One TMA box {one row, 128 co, 3 taps} brings the
 //     three taps of one dx: three 16 KB tiles.
@@ -30,23 +34,28 @@
 //     computed. K-major NHWC was chosen over an MN-major B read straight
 //     from NCHW: the row shift of a tap stays atom-aligned, and TF32 wgmma
 //     reads K-major operands only.
-//   * The repack is one small pass ahead of the conv (repack_kernel, or
-//     repack_tf32_kernel in float32; both layouts in one launch), into
-//     scratch that the wrapper allocates. ops/samm_conv.py:tma_operands is
-//     its plain version. bfloat16 channels are padded with zeros to a
-//     multiple of 8, since a TMA stride is a multiple of 16 bytes; channels
-//     and output channels past the end of a box are TMA zero fill. float32
-//     channels are padded to a multiple of 16 and each value v is split once
-//     per call into hi = v rounded to TF32 (half away from zero) and lo = v
-//     - hi, exact (tc::split_tf32), where the float32 core of tc_conv.cuh
-//     splits each weight again for every tap of every pixel tile. For B2a it
-//     writes x1 = [as*s + at*t + b1, ct*t + b2] (its x1 mode): read from s
-//     and t, computed in float32 with the plain version's roundings (two
-//     products, two sums, no FMA contraction), then rounded once to
-//     bfloat16 or split; ops/alignnet.py:tma_x1_operands is that mode's
-//     plain version. TMA's zero fill outside the image is then conv1's
-//     padding of x1, as the TPU kernel masks it, and not the affine image
-//     of zero-padded s and t. B2a then runs B5's mode, PReLU.
+//   * The SAMM convs' repack is one small pass ahead of the conv
+//     (repack_kernel, or repack_tf32_kernel in float32; both layouts in one
+//     launch), into scratch that the wrapper allocates.
+//     ops/samm_conv.py:tma_operands is its plain version. bfloat16 channels
+//     are padded with zeros to a multiple of 8, since a TMA stride is a
+//     multiple of 16 bytes; channels and output channels past the end of a
+//     box are TMA zero fill. float32 channels are padded to a multiple of 16
+//     and each value v is split once per call into hi = v rounded to TF32
+//     (half away from zero) and lo = v - hi, exact (tc::split_tf32), where
+//     the float32 core of tc_conv.cuh splits each weight again for every tap
+//     of every pixel tile. For B2a it writes x1 = [as*s + at*t + b1, ct*t +
+//     b2] (its x1 mode): read from s and t, computed in float32 with the
+//     plain version's roundings (two products, two sums, no FMA
+//     contraction), then rounded once to bfloat16 or split;
+//     ops/alignnet.py:tma_x1_operands is that mode's plain version. TMA's
+//     zero fill outside the image is then conv1's padding of x1, as the TPU
+//     kernel masks it, and not the affine image of zero-padded s and t. B2a
+//     then runs B5's mode, PReLU.
+//   * B4 is NHWC / HWIO already: its repack (packed_stage.cu) only scales
+//     x by s1 and splits it, elementwise, and lays the weights out as words;
+//     conv1's epilogue writes its activation z straight as conv2's words
+//     (STAGE1_TF32), so conv2 reads z through TMA with no pass between.
 // A stage of the ring is one (K-block, dx): 3 K-blocks, 48 KB of weights
 // and (TH + 2) * 4 KB of input, completed on one mbarrier: 72 KB at TH = 4,
 // three stages in 216 KB. At Ci = 1024 the K loop has 16 * 3 stages in
@@ -70,12 +79,12 @@
 // is held to 2^-7 of max|ref|, so its accumulator stays in the tensor cores
 // across the whole K, with the previous stage's group still running as it
 // issues the next. B2b returns float32 y2 and pixel sums, and the float32
-// mode float32 outputs, held to 1e-4, so they drain: the products of
-// DRAIN_STAGES (TF32_DRAIN_STAGES) stages go into fresh fragments, which
-// the CUDA cores add to the accumulator, rounded to nearest, once their
-// groups have completed; meanwhile the other consumer warpgroup's group
-// runs. In float32 the cross terms of a stage go in before its hi*hi
-// products, so the truncated adds of the larger terms meet small sums.
+// modes float32 outputs, held to 1e-4, so they drain: the products of a
+// period of stages (drain_period) go into fresh fragments, which the CUDA
+// cores add to the accumulator, rounded to nearest, once their groups have
+// completed; meanwhile the other consumer warpgroup's group runs. In
+// float32 the cross terms of a stage go in before its hi*hi products, so
+// the truncated adds of the larger terms meet small sums.
 // tools/prof_tma_conv.py measures, at the SAMM scales, the error and the
 // time of B2b with its period, with a drain every 16 stages and with none,
 // against the plain version: on an H100 the three ran within 2% of each
@@ -91,8 +100,19 @@
 // (2.0e-5-2.2e-5 on the cancelling inputs; 3.9e-6, 3.9e-6 and 4.1e-6 on
 // zero-mean ones at 32px). A drain every stage cost 5% at 32px (TH = 2)
 // and up to 1% elsewhere; every 2 stages ran as fast as none at all four
-// scales. So the float32 mode drains every 2 stages, the most accurate
-// period at no measured cost.
+// scales. So the float32 conv modes (B5, B2a, B4's convs) drain every 2
+// stages, the most accurate period at no measured cost. float32 B2b
+// (AN_CONV2_TF32) drains every TF32_CONV2_DRAIN_STAGES: the same tool
+// measured it with a drain every stage, every 2 stages and none, at the
+// SAMM scales on an H100. On zero-mean inputs sum y2^2 erred by 5.6e-7 to
+// 1.0e-6 of max|ref| (every stage), 1.1e-6 to 1.5e-6 (every 2) and 2.8e-5
+// to 1.1e-4 (none, a bias toward zero: over the 1e-4 tolerance at 2C =
+// 1024); on tf32_cancel_inputs y2 erred by 1.2e-5 to 2.2e-5 with a drain,
+// 2.5e-4 without, and sum y2 -- a sum of a y2 that itself cancels -- by
+// 1.9e-5 to 1.4e-4 (every stage), up to 7.7e-4 (every 2) and 2.3e-2
+// (none). Every stage ran as fast as the others or faster (0.2015 ms
+// against 0.2202 and 0.2211 at 32px, within 1% elsewhere). So float32 B2b
+// drains every stage, the most accurate period at no measured cost.
 //
 // Tiling: M = 128 output channels, N = TH x 32 pixels, one sample per
 // block; TH = 4, halved while one sample's grid has fewer than 128 blocks
@@ -101,11 +121,15 @@
 // scales in bfloat16.) A function of (H, W, Co) alone, never of the batch
 // size, so every batch slot runs the same sums in the same order.
 //
-// Epilogue: B2b sums each channel's moments over its tile from the
+// Epilogues. B2b sums each channel's moments over its tile from the
 // registers, in a fixed order, into the (B, n_tiles, 2, Co) scratch that
 // sum_tiles_kernel sums in tile order (no atomics); then the consumers
-// stage the float32 tile in the ring (B5 and B2a after their activation)
-// and store it along W, 4 pixels a thread, in float32 or bfloat16.
+// stage the float32 tile st[channel][pixel] in the ring (B5 and B2a after
+// their activation) and store it NCHW along W, 4 pixels a thread, in
+// float32 or bfloat16. B4's two convs store NHWC, so they stage the tile
+// st[pixel][channel] instead, beside the block's d, bias, s2 and (conv2)
+// toRGB weights, and store along channels, 4 channels a thread, a warp's
+// 128 channels of one pixel (stage_epilogue).
 //
 // The tensor maps are __grid_constant__ kernel arguments, encoded on the
 // host at every launch by cuTensorMapEncodeTiled, reached through
@@ -140,16 +164,36 @@ constexpr int A_TAP = BM * ROW;        // one tap's weights: 16 KB
 constexpr int A_BYTES = 3 * A_TAP;
 constexpr int THREADS = 384;           // producer warpgroup + two consumer warpgroups
 constexpr int ACT_NONE = 0, ACT_PRELU = 1;
-// CONV_ACT and AN_CONV2 on bfloat16 operands, CONV_ACT_TF32 on float32 ones
-enum Mode { CONV_ACT = 0, AN_CONV2 = 1, CONV_ACT_TF32 = 2 };
+// CONV_ACT (B5, B2a) and AN_CONV2 (B2b) on bfloat16 operands; on float32
+// ones (words) CONV_ACT_TF32 (B5, B2a), AN_CONV2_TF32 (B2b) and B4's two
+// convs, STAGE1_TF32 (conv1, z out as conv2's words) and STAGE2_TF32
+// (conv2, z2 and the toRGB partials out)
+enum Mode { CONV_ACT = 0, AN_CONV2 = 1, CONV_ACT_TF32 = 2, AN_CONV2_TF32 = 3, STAGE1_TF32 = 4,
+            STAGE2_TF32 = 5 };
+template <int MODE> constexpr bool is_tf32 = MODE >= CONV_ACT_TF32;
+template <int MODE> constexpr bool is_conv2 = MODE == AN_CONV2 || MODE == AN_CONV2_TF32;
+template <int MODE> constexpr bool is_stage = MODE == STAGE1_TF32 || MODE == STAGE2_TF32;
 // the elements of a K-block row: 64 bfloat16 channels, or 32 float32 words
 // (16 channels' hi words, then their lo words)
-template <int MODE> constexpr int KE = MODE == CONV_ACT_TF32 ? 32 : 64;
+template <int MODE> constexpr int KE = is_tf32<MODE> ? 32 : 64;
 constexpr int TF32_GROUP = 16;         // channels of a float32 K-block
-// drain periods in stages (see the note on accumulation): B2b's of 3 taps x
-// 64 channels, the float32 mode's of 3 taps x 16 channels
+// drain periods in stages (see the note on accumulation): bfloat16 B2b's of
+// 3 taps x 64 channels, the float32 modes' of 3 taps x 16 channels
 constexpr int DRAIN_STAGES = 1;
 constexpr int TF32_DRAIN_STAGES = 2;
+constexpr int TF32_CONV2_DRAIN_STAGES = 1;
+// a mode's drain period in stages; 0: none (bfloat16 B5)
+template <int MODE> __host__ __device__ constexpr int drain_period() {
+  return MODE == AN_CONV2 ? DRAIN_STAGES
+         : MODE == AN_CONV2_TF32 ? TF32_CONV2_DRAIN_STAGES
+         : is_tf32<MODE> ? TF32_DRAIN_STAGES : 0;
+}
+// the packed stage's staged tile: the pixel stride in floats, so that the
+// fragment writes and a warp's float4 reads along channels hit every bank
+// once; behind it the block's d, bias, s2 and toRGB weights (3 + 12 per
+// channel) and the tile's noise (4 per pixel)
+constexpr int STAGE_SP = BM + 4;
+constexpr int STAGE_TABLES = 15 * BM;
 
 template <int TH> struct Cfg {
   static constexpr int N = TH * TW, ND = N / 2;
@@ -160,14 +204,24 @@ template <int TH> struct Cfg {
   static constexpr int OS = N + 4;                        // staged row stride, floats
   static constexpr int SMEM = RING + 2 * S * 8 + 1024;    // + mbarriers + alignment
   static_assert(BM * OS * 4 <= RING, "the staged tile fits in the ring");
+  static_assert((N * STAGE_SP + STAGE_TABLES + 4 * N) * 4 <= RING,
+                "the stage epilogue fits in the ring");
   static_assert(SMEM <= tc::SMEM_MAX, "the ring fits in shared memory");
 };
 
 struct Args {
   const float* alpha;     // (Co,) PReLU slopes (act 1)
-  void* out;              // (B, Co, H, W): bfloat16 (CONV_ACT) or float32
+  void* out;              // (B, Co, H, W): bfloat16 (CONV_ACT) or float32; STAGE1: z words
+                          // (B, H, W, 2 out_cp); STAGE2: z2 (B, H, W, Co) float32
   float* tile_part;       // B2b: (B, n_tiles, 2, Co)
   int H, W, Co, act, tiles_w, n_tiles, iters;
+  // B4's convs: noise (B, H, W, 4), read at phase co / (Co / 4); d, bias
+  // and (STAGE1, may be null) s_out (B, Co); STAGE2: k3sr (B, Co, 12) and
+  // the toRGB partials part (B, gridDim.y, H, W, 12); STAGE1: out_cp, Co
+  // padded to a multiple of TF32_GROUP
+  const float *noise, *d, *bias, *s_out, *k3sr;
+  float* part;
+  int out_cp;
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -262,6 +316,109 @@ __device__ __forceinline__ float activate(float v, int act, float slope) {
   return v;
 }
 
+// B4's epilogues on a block's float32 sums acc (the accumulator layout of
+// tma_conv_kernel), by its 256 consumer threads (ct), NHWC:
+//   z  = lrelu(acc * d + noise[phase] + bias) * sqrt(2) * s_out (STAGE1),
+//        stored as conv2's words: per 16 channels their hi words, then their
+//        lo words (split_tf32), the channels from Co to out_cp zero;
+//   z2 = lrelu(acc * d + noise[phase] + bias) * sqrt(2) (STAGE2), stored in
+//        float32, then each pixel's toRGB partial over the block's channels,
+//        in channel order, into part[b, blockIdx.y, y, x, :].
+// The tile is staged st[pixel][channel] in the ring, which both consumer
+// warpgroups are done with, so that a warp stores the 128 channels of one
+// pixel; the block's d, bias, s_out and toRGB weights and the tile's noise
+// lie behind it, so that the stores' loop reads no global memory (the
+// compiler could not move such reads ahead of the stores).
+template <int MODE, int TH>
+__device__ __forceinline__ void stage_epilogue(const float* acc, float* st, const Args& a, int ct,
+                                               int m0, int tig, int b, int y0, int x0, int n0) {
+  constexpr int N = Cfg<TH>::N, ND = Cfg<TH>::ND, SP = STAGE_SP;
+  constexpr bool CONV1 = MODE == STAGE1_TF32;
+  const int H = a.H, W = a.W, Co = a.Co, cmid = Co / 4;
+  float* cd = st + N * SP;
+  float* cb = cd + BM;
+  float* cs = cb + BM;
+  float* k3 = cs + BM;
+  float* nz = k3 + 12 * BM;
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  for (int n = ct; n < BM; n += 256) {
+    const int64_t i = (int64_t)b * Co + n0 + n;
+    const bool in = n0 + n < Co;
+    cd[n] = in ? a.d[i] : 0.0f;
+    cb[n] = in ? a.bias[i] : 0.0f;
+    cs[n] = in && a.s_out != nullptr ? a.s_out[i] : 1.0f;
+  }
+  if constexpr (!CONV1) {
+    const float* k3sr = a.k3sr + ((int64_t)b * Co + n0) * 12;
+    for (int e = ct; e < BM * 12; e += 256) k3[e] = n0 + e / 12 < Co ? k3sr[e] : 0.0f;
+  }
+  for (int e = ct; e < N * 4; e += 256) {
+    const int gy = y0 + e / 4 / TW, gx = x0 + e / 4 % TW;
+    nz[e] = gy < H && gx < W ? a.noise[(((int64_t)b * H + gy) * W + gx) * 4 + e % 4] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    const int n = m0 + ((i >> 1) & 1) * 8, px = (i >> 2) * 8 + 2 * tig + (i & 1);
+    st[px * SP + n] = acc[i];
+  }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  for (int idx = ct; idx < N * (BM / 4); idx += 256) {
+    const int px = idx / (BM / 4), n = idx % (BM / 4) * 4, co = n0 + n;
+    const int gy = y0 + px / TW, gx = x0 + px % TW;
+    if (gy >= H || gx >= W || co >= (CONV1 ? a.out_cp : Co)) continue;
+    const int64_t pix = ((int64_t)b * H + gy) * W + gx;
+    float* sp = st + px * SP + n;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {          // Co % 4 == 0: all 4 channels or none
+      float z = 0.0f;
+      if (co < Co) {
+        z = sp[u] * cd[n + u] + nz[px * 4 + (co + u) / cmid] + cb[n + u];
+        z = (z >= 0.0f ? z : 0.2f * z) * tc::SQRT2;
+        if constexpr (CONV1) z *= cs[n + u];
+      }
+      v[u] = z;
+    }
+    if constexpr (CONV1) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) tc::split_tf32(v[u], hi[u], lo[u]);
+      float* o = static_cast<float*>(a.out) + pix * 2 * a.out_cp +
+                 co / TF32_GROUP * 2 * TF32_GROUP + co % TF32_GROUP;
+      *reinterpret_cast<uint4*>(o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(o + TF32_GROUP) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      *reinterpret_cast<float4*>(static_cast<float*>(a.out) + pix * Co + co) =
+          make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sp[u] = v[u];   // toRGB reads z2 as stored
+    }
+  }
+  if constexpr (!CONV1) {
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    // per pixel, 6 of the 12 outputs a thread, summed over the block's
+    // channels in channel order
+    const int nc = min(BM, Co - n0);
+    for (int idx = ct; idx < N * 2; idx += 256) {
+      const int px = idx >> 1, og = (idx & 1) * 6;
+      const int gy = y0 + px / TW, gx = x0 + px % TW;
+      if (gy >= H || gx >= W) continue;
+      float s[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int n = 0; n < nc; n += 4) {
+        const float4 z4 = *reinterpret_cast<const float4*>(st + px * SP + n);
+        const float zz[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int o = 0; o < 6; ++o) s[o] += zz[u] * k3[(n + u) * 12 + og + o];
+      }
+      float* p = a.part + ((((int64_t)b * gridDim.y + blockIdx.y) * H + gy) * W + gx) * 12 + og;
+#pragma unroll
+      for (int o = 0; o < 6; ++o) p[o] = s[o];
+    }
+  }
+}
+
 // Block (pixel tile, channel block, sample). Threads 0..127: the producer
 // warpgroup (thread 0 issues the loads); 128..383: the two consumer
 // warpgroups. Accumulator fragment i of a consumer thread: channel gid (+8
@@ -273,7 +430,7 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
                 const Args a) {
   using C = Cfg<TH>;
   constexpr int N = C::N, ND = C::ND, S = C::S;
-  constexpr bool CONV2 = MODE == AN_CONV2, TF32 = MODE == CONV_ACT_TF32;
+  constexpr bool CONV2 = is_conv2<MODE>, TF32 = is_tf32<MODE>;
   constexpr bool F32_OUT = CONV2 || TF32;        // float32 outputs, from drained sums
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -343,17 +500,17 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
     }
   };
 
-  // The K loop, in periods: B2b's of DRAIN_STAGES stages and the float32
-  // mode's of TF32_DRAIN_STAGES, whose products go into t, fresh, and are
-  // added to acc once their groups have completed (the drain; while a
-  // warpgroup drains, the other one's wgmmas keep the tensor cores busy);
-  // bfloat16 B5's of all stages, straight into acc. Within a period the
-  // previous stage's group runs on as the next one is issued.
+  // The K loop, in periods of drain_period<MODE>() stages, whose products
+  // go into t, fresh, and are added to acc once their groups have completed
+  // (the drain; while a warpgroup drains, the other one's wgmmas keep the
+  // tensor cores busy); bfloat16 B5's of all stages, straight into acc.
+  // Within a period the previous stage's group runs on as the next one is
+  // issued.
   float acc[ND], t[F32_OUT ? ND : 1];
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i] = 0.0f;
   float* const d = F32_OUT ? t : acc;
-  const int period = CONV2 ? DRAIN_STAGES : TF32 ? TF32_DRAIN_STAGES : a.iters;
+  const int period = drain_period<MODE>() > 0 ? drain_period<MODE>() : a.iters;
   for (int p0 = 0; p0 < a.iters; p0 += period) {
     const int p1 = min(p0 + period, a.iters);
     for (int it = p0; it < p1; ++it) {
@@ -402,6 +559,11 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
         p[Co] = s2[h];
       }
     }
+  }
+
+  if constexpr (is_stage<MODE>) {
+    stage_epilogue<MODE, TH>(acc, reinterpret_cast<float*>(smem), a, ct, m0, tig, b, y0, x0, n0);
+    return;
   }
 
   // epilogue: both consumer warpgroups are done with the ring; stage the
@@ -744,8 +906,7 @@ template <int MODE, int TH>
 int launch_cfg(const void* x, const void* w, Args a, int B, int K, cudaStream_t stream) {
   using C = Cfg<TH>;
   CUtensorMap wmap, xmap;
-  const int err = encode_maps(&wmap, &xmap, w, x, B, a.H, a.W, K, a.Co, TH,
-                              MODE == CONV_ACT_TF32);
+  const int err = encode_maps(&wmap, &xmap, w, x, B, a.H, a.W, K, a.Co, TH, is_tf32<MODE>);
   if (err != 0) return err;
   a.tiles_w = (a.W + TW - 1) / TW;
   a.n_tiles = a.tiles_w * ((a.H + TH - 1) / TH);
@@ -770,29 +931,35 @@ inline bool bad_args(const Args& a, int B, int Ci, const void* xr, const void* w
 // multiple of 8 (bfloat16: a TMA stride is a multiple of 16 bytes) or of
 // TF32_GROUP (float32: one 128-byte row holds a group's hi and lo words)
 template <int MODE> constexpr int padded_channels(int Ci) {
-  return MODE == CONV_ACT_TF32 ? (Ci + TF32_GROUP - 1) / TF32_GROUP * TF32_GROUP
-                               : (Ci + 7) / 8 * 8;
+  return is_tf32<MODE> ? (Ci + TF32_GROUP - 1) / TF32_GROUP * TF32_GROUP : (Ci + 7) / 8 * 8;
 }
 
-// the repack (x1 mode with t), then the conv on xr, wr at the tiles of
-// tile_rows(H, W, Co); Ci the conv's input channels
+// the conv on the repacked xr (B, H, W, K) and wr (3, 3, Co, K), K elements
+// a row, at the tiles of tile_rows(H, W, Co)
 template <int MODE>
-int repack_and_conv(const void* x, const void* t, const float* coeffs, const void* k, void* xr,
-                    void* wr, Args a, int B, int Ci, cudaStream_t stream) {
-  if (bad_args(a, B, Ci, xr, wr)) return 1000;
-  constexpr bool F32 = MODE == CONV_ACT_TF32;
-  const int Cp = padded_channels<MODE>(Ci), K = F32 ? 2 * Cp : Cp;
-  using E = std::conditional_t<F32, float, unsigned short>;
-  const int err = repack<E>(x, t, coeffs, k, xr, wr, B, Ci, a.H, a.W, a.Co, Cp, stream);
-  if (err != 0) return err;
+int conv_tiles(const void* xr, const void* wr, Args a, int B, int K, cudaStream_t stream) {
   const int r = tile_rows(a.H, a.W, a.Co);
   if (r == 4) return launch_cfg<MODE, 4>(xr, wr, a, B, K, stream);
   if (r == 2) return launch_cfg<MODE, 2>(xr, wr, a, B, K, stream);
   return launch_cfg<MODE, 1>(xr, wr, a, B, K, stream);
 }
 
+// the repack (x1 mode with t), then the conv on xr, wr; Ci the conv's input
+// channels
+template <int MODE>
+int repack_and_conv(const void* x, const void* t, const float* coeffs, const void* k, void* xr,
+                    void* wr, Args a, int B, int Ci, cudaStream_t stream) {
+  if (bad_args(a, B, Ci, xr, wr)) return 1000;
+  constexpr bool F32 = is_tf32<MODE>;
+  const int Cp = padded_channels<MODE>(Ci), K = F32 ? 2 * Cp : Cp;
+  using E = std::conditional_t<F32, float, unsigned short>;
+  const int err = repack<E>(x, t, coeffs, k, xr, wr, B, Ci, a.H, a.W, a.Co, Cp, stream);
+  if (err != 0) return err;
+  return conv_tiles<MODE>(xr, wr, a, B, K, stream);
+}
+
 // The repack, then the conv: x (B, Ci, H, W) and k (Co, Ci, 3, 3), bfloat16
-// (CONV_ACT, AN_CONV2) or float32 (CONV_ACT_TF32); xr and wr scratch for
+// (CONV_ACT, AN_CONV2) or float32 (CONV_ACT_TF32, AN_CONV2_TF32); xr and wr scratch for
 // their repacked copies, 16-byte aligned: bfloat16 (B, H, W, Cp) and (3, 3,
 // Co, Cp), or float32 (B, H, W, 2 Cp) and (3, 3, Co, 2 Cp), Cp =
 // padded_channels<MODE>(Ci); the rest of a as Args says.

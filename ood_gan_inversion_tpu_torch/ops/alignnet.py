@@ -22,10 +22,10 @@ norm2 affine and the shortcut. csrc/alignnet_conv1.cu runs both dtypes on
 the TMA kernel of csrc/tma_conv.cuh, after a repack pass into NHWC input and
 tap-major weights that builds x1 (`tma_x1_operands` is its plain version;
 float32 as 3xTF32, x1 and k1 split into hi and lo words in that pass);
-csrc/alignnet_conv2.cu runs bfloat16 operands on the same TMA kernel after
-the plain repack pass, and float32 operands on the tensor-core conv of
-csrc/samm_conv.cuh. Each wrapper launches its kernel for CUDA tensors and
-counts its calls in `.launches`.
+csrc/alignnet_conv2.cu runs both dtypes on the same TMA kernel after the
+plain repack pass (`samm_conv.tma_operands`), with the moments epilogue.
+Each wrapper launches its kernel for CUDA tensors and counts its calls in
+`.launches`.
 
 Two plain versions of each kernel: `alignnet_conv1_kernel_reference` and
 `alignnet_conv2_kernel_reference` are the kernels' functions (the convs of
@@ -44,7 +44,8 @@ them, so the kernel and both plain versions read the same values.
 import torch
 
 from . import batch_invariant as bi
-from .cuda_call import activation, dispatch, entry, expect, launch, on_card, twin_function, widen
+from .cuda_call import (DTYPES, activation, dispatch, entry, expect, launch, on_card,
+                        twin_function, widen)
 from .samm_conv import conv3x3_act_kernel_reference, tma_operands, tma_scratch
 
 # the channel floor of the fused path (C, as in JAX); tests lower it to run
@@ -291,8 +292,8 @@ alignnet_conv1.launches = 0
 
 def _conv2_run(z, k2):
     """B2b's kernel for CUDA tensors, its plain version for CPU tensors:
-    float32 operands as they lie, bfloat16 ones through the TMA kernel's
-    repack pass into scratch (samm_conv.tma_scratch)."""
+    the TMA kernel's repack pass into scratch (samm_conv.tma_scratch), then
+    the conv and the tile sums."""
     if not on_card("alignnet_conv2", (z, k2)):
         return alignnet_conv2_kernel_reference(z, k2)
     b, c2, h, w = z.shape
@@ -300,15 +301,10 @@ def _conv2_run(z, k2):
     y2 = z.new_empty((b, c2, h, w), dtype=torch.float32)
     tile_part = z.new_empty((b, n_tiles, 2, c2), dtype=torch.float32)
     part = z.new_empty((b, 2, c2), dtype=torch.float32)
-    if z.dtype == torch.bfloat16:
-        zr, wr = tma_scratch(z, k2)
-        launch(alignnet_conv2, "alignnet_conv2",
-               entry("alignnet_conv2", "ogi_alignnet_conv2_tma", 7, 4), z,
-               *(v.data_ptr() for v in (z, k2, zr, wr, y2, tile_part, part)), b, h, w, c2)
-    else:
-        launch(alignnet_conv2, "alignnet_conv2",
-               entry("alignnet_conv2", "ogi_alignnet_conv2", 5, 4), z,
-               *(v.data_ptr() for v in (z, k2, y2, tile_part, part)), b, h, w, c2)
+    zr, wr = tma_scratch(z, k2)
+    launch(alignnet_conv2, "alignnet_conv2", entry("alignnet_conv2", "ogi_alignnet_conv2", 7, 5),
+           z, *(v.data_ptr() for v in (z, k2, zr, wr, y2, tile_part, part)), b, h, w, c2,
+           DTYPES[z.dtype])
     return y2, part
 
 
@@ -318,8 +314,8 @@ AlignNetConv2 = twin_function("AlignNetConv2", _conv2_run, alignnet_conv2_refere
 def alignnet_conv2(z, k2):
     """B2b: y2 (B, 2C, H, W) float32 and part (B, 2, 2C) float32 as
     alignnet_conv2_reference; z and k2 float32 or bfloat16 (the same). The
-    kernel runs on the tensor cores: bfloat16 on conv3x3_act's TMA kernel,
-    float32 on the 3xTF32 core of csrc/samm_conv.cuh. Each
+    kernel runs on conv3x3_act's TMA kernel (float32 as 3xTF32), with the
+    moments epilogue. Each
     block of the kernel writes the moments of its pixel tile into a scratch,
     which a fixed-order pass then sums: no atomics, so the moments are
     bit-identical from call to call and in every batch slot."""

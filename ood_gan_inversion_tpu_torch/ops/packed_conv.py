@@ -4,13 +4,19 @@ ops/pallas_kernels.py: `fused_conv3x3_act`, `fused_packed_pair`,
 kernels as in JAX.
 
 Two hand-written CUDA kernels, both in csrc/packed_stage.cu on the
-tensor cores (the `wgmma` conv of csrc/tc_conv.cuh):
+tensor cores:
   * `fused_conv3x3_act` (B3) computes
     lrelu(conv3x3(x * s_in) * d_out + phase_bcast(noise4) + bias) * sqrt(2),
     the whole stage's conv1 without its s2 factor; `fused_packed_pair`
-    calls it twice, once per conv of the pair.
+    calls it twice, once per conv of the pair. Both dtypes run the `wgmma`
+    conv of csrc/tc_conv.cuh.
   * `fused_packed_stage` (B4) computes a whole packed stage: the pair, then
-    toRGB and the packed skip upsample.
+    toRGB and the packed skip upsample. float32 runs its two convs on the
+    TMA core of csrc/tma_conv.cuh (3xTF32 on words split once: a repack
+    launch writes the words of x * s1 and of both kernels, conv1 writes z
+    as conv2's words; `stage_input_words`, `stage_weight_words` and
+    `stage_z_words` are their plain versions, `stage_scratch` allocates
+    them), bfloat16 on the core of csrc/tc_conv.cuh.
 
 Each wrapper launches its kernel for CUDA tensors and runs the kernel's
 plain version for CPU tensors; there is no fallback between the two.
@@ -40,6 +46,7 @@ import torch
 from . import batch_invariant as bi
 from .cuda_call import DTYPES, dispatch, entry, expect, launch, on_card, twin_function, widen
 from .polyphase import conv_packed
+from .samm_conv import tf32_words, tma_channels
 
 SQRT2 = math.sqrt(2.0)
 
@@ -113,6 +120,13 @@ def packed_stage_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
     return _rgb(z2, k3sr, b3, skip, k4), z2
 
 
+def _kernel_stage_z(x, n1, k1, s1, d1, b1, s2):
+    """B4's conv1 as its kernel computes it: B3's conv and epilogue, times
+    s2 in float32, rounded once to x.dtype."""
+    return (_kernel_conv_act(_scaled(x, s1), n1, k1, d1, b1)
+            * _per_sample(s2, x.shape[0])).to(x.dtype)
+
+
 def packed_stage_kernel_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
                                   k3sr, b3, k4):
     """B4's kernels' function, arguments and results as
@@ -120,10 +134,46 @@ def packed_stage_kernel_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b
     times s2 in float32 rounded once to x.dtype (z); conv2 on z, rounded
     once (z2); toRGB of z2 as stored, b3 and the skip upsample summed in
     float32, rounded once (rgb)."""
-    z = (_kernel_conv_act(_scaled(x, s1), n1, k1, d1, b1)
-         * _per_sample(s2, x.shape[0])).to(x.dtype)
+    z = _kernel_stage_z(x, n1, k1, s1, d1, b1, s2)
     z2 = _kernel_conv_act(z, n2, k2, d2, b2).to(x.dtype)
     return _rgb(widen(z2), widen(k3sr), b3, widen(skip), widen(k4)).to(x.dtype), z2
+
+
+# ------------------------------------ the words of float32 B4's TMA convs
+
+def stage_input_words(x, s1):
+    """conv1's input as the float32 B4 kernels read it: x * s1 (x (B, H, W,
+    C1) float32, s1 (C1,) or (B, C1)) in float32, as tf32_words (per 16
+    channels their hi words, then their lo words; C1 padded with zeros to
+    Cp1 = tma_channels(C1, float32)): (B, H, W, 2 Cp1). The plain version of
+    the repack launch's input part (csrc/packed_stage.cu:stage_repack_kernel)."""
+    return tf32_words(_scaled(x, s1), tma_channels(x.shape[-1], torch.float32))
+
+
+def stage_weight_words(k):
+    """An HWIO kernel k (3 [dy], 3 [dx], Ci, Co) float32 as the TMA core's
+    weights: (3 [dx], 3 [dy], Co, 2 Cp) words, [dx, dy, co] the words of
+    k[dy, dx, :, co], Cp = tma_channels(Ci, float32). The plain version of
+    the repack launch's weight part."""
+    return tf32_words(k.permute(1, 0, 3, 2), tma_channels(k.shape[2], torch.float32))
+
+
+def stage_z_words(x, n1, k1, s1, d1, b1, s2):
+    """What float32 B4's conv1 writes: its activation z (as
+    packed_stage_kernel_reference computes it) as tf32_words, (B, H, W, 2
+    Cp4), Cp4 = tma_channels(C4, float32); conv2 reads it as its input."""
+    return tf32_words(_kernel_stage_z(x, n1, k1, s1, d1, b1, s2),
+                      tma_channels(k1.shape[-1], torch.float32))
+
+
+def stage_scratch(x, c4):
+    """The scratch of one float32 B4 call on x (B, H, W, C1) with C4 packed
+    channels, which its launches fill: {"xr": stage_input_words' shape,
+    "w1r", "w2r": stage_weight_words' of k1 and k2, "z": stage_z_words'}."""
+    b, h, w, c1 = x.shape
+    cp1, cp4 = (2 * tma_channels(c, torch.float32) for c in (c1, c4))
+    return {"xr": x.new_empty((b, h, w, cp1)), "w1r": x.new_empty((3, 3, c4, cp1)),
+            "w2r": x.new_empty((3, 3, c4, cp4)), "z": x.new_empty((b, h, w, cp4))}
 
 
 # ------------------------------------------------------------- CUDA kernels
@@ -185,10 +235,13 @@ def fused_packed_pair(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2):
     return fused_conv3x3_act(z, n2, k2, s2, d2, b2)
 
 
-def _stage_run(*args):
-    """B4's kernels for CUDA tensors, its plain version for CPU tensors."""
-    if not on_card("fused_packed_stage", args):
-        return packed_stage_kernel_reference(*args)
+def stage_pointers(*args):
+    """(the 22 pointers of csrc/packed_stage.cu:ogi_packed_stage, rgb, z2,
+    scratch) for a B4 call on CUDA tensors args (fused_packed_stage's): the
+    per-sample operands made contiguous (B, C), the outputs and the scratch
+    allocated (float32: stage_scratch; bfloat16: z (B, H, W, C4)). scratch
+    also holds the contiguous operands ("operands"), so that they live until
+    the launches are queued."""
     x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4 = args
     b, h, w, c1 = x.shape
     c4 = k1.shape[-1]
@@ -196,11 +249,26 @@ def _stage_run(*args):
     d1, b1, s2, d2, b2 = (_vec(v, b, c4) for v in (d1, b1, s2, d2, b2))
     n_cblocks = entry("packed_stage", "ogi_packed_stage_cblocks", 0, 1, stream=False)(c4)
     rgb, z2 = x.new_empty((b, h, w, 12)), x.new_empty((b, h, w, c4))
-    z = x.new_empty((b, h, w, c4))
-    part = x.new_empty((b, n_cblocks, h, w, 12), dtype=torch.float32)
-    ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2, z, part)
-    launch(fused_packed_stage, "packed stage", entry("packed_stage", "ogi_packed_stage", 19, 6), x,
-           *(t.data_ptr() for t in ptrs), b, h, w, c1, c4, DTYPES[x.dtype])
+    if x.dtype == torch.float32:
+        scratch = stage_scratch(x, c4)
+    else:
+        scratch = {"xr": None, "w1r": None, "w2r": None, "z": x.new_empty((b, h, w, c4))}
+    scratch["part"] = x.new_empty((b, n_cblocks, h, w, 12), dtype=torch.float32)
+    scratch["operands"] = (s1, d1, b1, s2, d2, b2, b3)
+    ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2,
+            scratch["z"], scratch["part"], scratch["xr"], scratch["w1r"], scratch["w2r"])
+    return [None if t is None else t.data_ptr() for t in ptrs], rgb, z2, scratch
+
+
+def _stage_run(*args):
+    """B4's kernels for CUDA tensors, its plain version for CPU tensors."""
+    if not on_card("fused_packed_stage", args):
+        return packed_stage_kernel_reference(*args)
+    x, k1 = args[0], args[4]
+    b, h, w, c1 = x.shape
+    ptrs, rgb, z2, scratch = stage_pointers(*args)
+    launch(fused_packed_stage, "packed stage", entry("packed_stage", "ogi_packed_stage", 22, 6), x,
+           *ptrs, b, h, w, c1, k1.shape[-1], DTYPES[x.dtype])
     return rgb, z2
 
 
@@ -211,13 +279,14 @@ def fused_packed_stage(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
                        k3sr, b3, k4):
     """A whole packed stage through the B4 kernels (the JAX
     `fused_packed_stage`): one call of csrc/packed_stage.cu, which launches
-    conv1 and conv2 on the tensor cores and a pass that finishes rgb.
-    Arguments as fused_packed_pair, plus skip (B, H, W, 3) coarse RGB, k3sr
-    (B, C4, 12) toRGB kernel with the style scale folded in, b3 (12,) or
-    (B, 12) float32, k4 (3, 3, 3, 12); skip, k3sr and k4 in x.dtype. Returns
-    (rgb (B, H, W, 12), z2 (B, H, W, C4)), both in x.dtype; z2 is written
-    even where the caller drops it. conv1's activation goes through a
-    (B, H, W, C4) scratch in x.dtype, the toRGB partials of each
+    conv1 and conv2 on the tensor cores and a pass that finishes rgb
+    (float32: after a repack launch). Arguments as fused_packed_pair, plus
+    skip (B, H, W, 3) coarse RGB, k3sr (B, C4, 12) toRGB kernel with the
+    style scale folded in, b3 (12,) or (B, 12) float32, k4 (3, 3, 3, 12);
+    skip, k3sr and k4 in x.dtype. Returns (rgb (B, H, W, 12), z2 (B, H, W,
+    C4)), both in x.dtype; z2 is written even where the caller drops it.
+    conv1's activation goes through a scratch (bfloat16: (B, H, W, C4);
+    float32: its hi and lo words, stage_z_words), the toRGB partials of each
     128-channel block through a float32 one.
 
     The JAX package runs its stage kernel only where both channel counts

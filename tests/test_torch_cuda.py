@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels (warp-blend in its three
-instantiations, the packed conv B3, the packed stage B4, also on bands,
-the AlignNet body0 kernels B2a and B2b, the conv3x3 + activation B5 (the
-bfloat16 B2a, B2b and B5 through the TMA kernel and its repack pass, B2a's
-in its x1 mode) and the halo probe) against their plain PyTorch versions on
+instantiations, the packed conv B3, the packed stage B4, also on bands
+(float32 B4 through the TMA kernel, its repack and conv1's z words), the
+AlignNet body0 kernels B2a and B2b, the conv3x3 + activation B5 (all three
+in both dtypes through the TMA kernel and its repack pass, B2a's in its x1
+mode) and the halo probe) against their plain PyTorch versions on
 the card, and their autograd Functions' gradients against the plain
 versions' own. Every test here needs a CUDA card and skips without one. The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -320,6 +321,72 @@ def test_packed_kernels_give_each_batch_slot_its_own_result(cuda):
     assert torch.equal(pair[1:], pair1)
 
 
+def stage_step(a, ptrs, step):
+    """One step of float32 B4 (ogi_packed_stage_step) on a's operands."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    b, h, w, c1 = a["x"].shape
+    err = entry("packed_stage", "ogi_packed_stage_step", 22, 6)(
+        *ptrs, b, h, w, c1, a["k1"].shape[-1], step, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, (step, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c1,c4", [(2, 256, 256, 128, 256),   # 512px stage
+                                         (2, 512, 512, 64, 128),    # 1024px stage
+                                         (2, 37, 45, 12, 20),       # ragged: C1, Cmid off 16
+                                         (2, 130, 70, 64, 128)])    # band-like: H % 4 != 0
+def test_packed_stage_f32_tma_slot_bitwise(cuda, b, h, w, c1, c4):
+    """float32 B4 on the TMA kernel: one call launches its two convs there
+    (ogi_tma_conv_launches + 2); z2 and rgb within PACKED_TOL of max|ref| of
+    the plain version; each slot bit-identical to that sample alone."""
+    a, ref_args = packed_operands(cuda, b, h, w, c1, c4, torch.float32, seed=c1 + h)
+    before = tma_launches("packed_stage")
+    check_packed_stage(a, ref_args, PACKED_TOL)
+    assert tma_launches("packed_stage") == before + 2
+    rgb, z2 = packed_conv.fused_packed_stage(*a.values())
+    for s in range(b):
+        one = {k: (v[s:s + 1].contiguous() if v.dim() > 1 and v.shape[0] == b and k not in
+                   ("k1", "k2", "k4") else v) for k, v in a.items()}
+        rgb1, z21 = packed_conv.fused_packed_stage(*one.values())
+        torch.cuda.synchronize()
+        assert torch.equal(rgb[s:s + 1], rgb1) and torch.equal(z2[s:s + 1], z21), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c1,c4", [(1, 64, 64, 128, 256), (2, 19, 27, 12, 20),
+                                         (1, 33, 40, 37, 44)])
+def test_packed_stage_f32_words_on_card(cuda, b, h, w, c1, c4):
+    """float32 B4's words on the card: the repack launch writes
+    stage_input_words(x, s1) and stage_weight_words(k1), (k2) bit for bit;
+    conv1 writes z as words that split their own value hi + lo as
+    tf32_words does (bit for bit, padded channels zero), within PACKED_TOL
+    of max|ref| of the plain version's z; then conv2 and the rgb pass give
+    the call's z2 and rgb."""
+    from ood_gan_inversion_tpu_torch.ops import samm_conv
+    a, _ = packed_operands(cuda, b, h, w, c1, c4, torch.float32, seed=c4)
+    ptrs, rgb, z2, scratch = packed_conv.stage_pointers(*a.values())
+    stage_step(a, ptrs, 0)
+    torch.cuda.synchronize()
+    i32 = lambda v: v.view(torch.int32)
+    assert torch.equal(i32(scratch["xr"]), i32(packed_conv.stage_input_words(a["x"], a["s1"])))
+    for key, k in (("w1r", "k1"), ("w2r", "k2")):
+        assert torch.equal(i32(scratch[key]), i32(packed_conv.stage_weight_words(a[k]))), key
+    stage_step(a, ptrs, 1)
+    torch.cuda.synchronize()
+    words = scratch["z"]
+    g = words.reshape(*words.shape[:-1], -1, 2, 16)
+    hi, lo = g[..., 0, :].flatten(-2), g[..., 1, :].flatten(-2)
+    z = (hi + lo)[..., :c4]
+    assert torch.equal(i32(words), i32(samm_conv.tf32_words(z, words.shape[-1] // 2)))
+    z_ref = packed_conv._kernel_stage_z(*(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1", "s2")))
+    assert rel_err(z, z_ref) <= PACKED_TOL
+    for step in (2, 3):
+        stage_step(a, ptrs, step)
+    rgb_call, z2_call = packed_conv.fused_packed_stage(*a.values())
+    torch.cuda.synchronize()
+    assert torch.equal(rgb, rgb_call) and torch.equal(z2, z2_call)
+
+
 # ------------------------------------------------ AlignNet body0 kernels
 
 # (b, C, H, W): AlignNet body0 at the four SAMM scales of the 1024px model
@@ -522,7 +589,7 @@ SAMM_SCALES = [(32, 1024), (64, 1024), (128, 512), (256, 256)]
 
 
 def tma_launches(lib):
-    """ogi_tma_conv_launches of csrc/<lib>.cu: its bfloat16 conv launches."""
+    """ogi_tma_conv_launches of csrc/<lib>.cu: its TMA conv launches."""
     import ctypes
     from ood_gan_inversion_tpu_torch import build
     fn = build.load(lib).ogi_tma_conv_launches
@@ -668,9 +735,8 @@ def test_tma_x1_repack_tf32_on_card(cuda, b, c, h, w):
 def test_bf16_calls_reach_the_tma_kernel_once(cuda):
     """A bfloat16 conv3x3_act, alignnet_conv1 or alignnet_conv2 call
     launches the TMA kernel of its library once and counts one launch on its
-    wrapper; so does a float32 conv3x3_act or alignnet_conv1 call (the TMA
-    kernel's float32 mode), while a float32 alignnet_conv2 call launches the
-    other core and no TMA kernel."""
+    wrapper; so does a float32 call of each (the TMA kernel's float32
+    modes)."""
     x, k, alpha = (torch.from_numpy(v).to(cuda) for v in conv_act_inputs(1, 64, 64, 16, 16, 9))
     coeffs = torch.rand(1, 5, 32, device=cuda)
 
@@ -683,13 +749,33 @@ def test_bf16_calls_reach_the_tma_kernel_once(cuda):
              samm_conv.conv3x3_act),
             ("alignnet_conv1", conv1, alignnet.alignnet_conv1),
             ("alignnet_conv2", alignnet.alignnet_conv2, alignnet.alignnet_conv2)):
-        for dtype, tma in ((torch.bfloat16, 1),
-                           (torch.float32, 0 if lib == "alignnet_conv2" else 1)):
+        for dtype, tma in ((torch.bfloat16, 1), (torch.float32, 1)):
             before = (counter.launches, tma_launches(lib))
             call(x.to(dtype), k.to(dtype))
             torch.cuda.synchronize()
             assert (counter.launches, tma_launches(lib)) == (before[0] + 1, before[1] + tma), \
                 (lib, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c2", SAMM_SCALES)
+def test_alignnet_conv2_f32_slot_bitwise_at_every_scale(cuda, h, c2):
+    """float32 B2b (the TMA kernel's AN_CONV2_TF32 mode: one launch of it
+    per call) at each SAMM scale, b = 2: y2 and both moments within 1e-4 of
+    max|ref| of its plain version (each moment row against its own max),
+    and each slot bit-identical to that sample alone."""
+    x, k, _ = (torch.from_numpy(v).to(cuda) for v in conv_act_inputs(2, c2, c2, h, h, seed=h))
+    before = tma_launches("alignnet_conv2")
+    y2, part = alignnet.alignnet_conv2(x, k)
+    torch.cuda.synchronize()
+    assert tma_launches("alignnet_conv2") == before + 1
+    y2_ref, part_ref = alignnet.alignnet_conv2_kernel_reference(x, k)
+    assert rel_err(y2, y2_ref) <= SAMM_TOL[torch.float32]
+    for m in range(2):
+        assert rel_err(part[:, m], part_ref[:, m]) <= SAMM_TOL[torch.float32], m
+    for s in range(2):
+        y2s, part_s = alignnet.alignnet_conv2(x[s:s + 1].contiguous(), k)
+        assert torch.equal(y2[s:s + 1], y2s) and torch.equal(part[s:s + 1], part_s), s
 
 
 @pytest.mark.cuda

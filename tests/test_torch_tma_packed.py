@@ -1,0 +1,190 @@
+"""float32 B4 and B2b on the TMA core (csrc/tma_conv.cuh) on the CPU.
+
+B4: the plain versions of its words -- `packed_conv.stage_input_words` (x *
+s1 in float32, split once into hi and lo words, 16 channels of each per
+128-byte row, channels padded with zeros to a multiple of 16),
+`stage_weight_words` (HWIO k1, k2 as the core's (3 [dx], 3 [dy], Co, 2 Cp)
+words) and `stage_z_words` (conv1's activation as conv2's words) -- and the
+stage that the kernels compute from them: each conv emulated from the words
+in float64 (lo*hi + hi*lo + hi*hi over the nine shifted windows, the tensor
+cores reading the top 19 bits of each word), the epilogues in float64,
+conv2 reading the words of the emulated z. It is held against the kernels'
+plain version within the float32 tolerance at ragged shapes and on
+`packed_cancel_inputs`, where hi*hi alone misses by more than 10x, and once
+against JAX's `fused_packed_stage` (its Pallas kernel in interpret mode).
+
+B2b: the moments of the conv emulated from `samm_conv.tma_operands(z, k2)`
+against `alignnet_conv2_kernel_reference`'s. The kernels themselves are held
+against these plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_tma_tf32 import LOW, TOL, bits, emulated_conv, planes, rel_err
+from torch_inputs import (conv_act_inputs, packed_cancel_inputs, packed_stage_inputs,
+                          tf32_cancel_inputs)
+
+from ood_gan_inversion_tpu.ops import pallas_kernels as j_pk
+from ood_gan_inversion_tpu_torch.ops import alignnet, packed_conv, samm_conv
+
+# (b, H, W, C1, C4): C1 off the 16-channel granule, odd H and W, Cmid = C4 /
+# 4 not a multiple of 16 (C4 off the granule too), and one case on it
+RAGGED = [(2, 7, 9, 12, 20), (1, 5, 11, 37, 44), (2, 6, 6, 16, 32)]
+CANCEL = [(1, 12, 12, 32, 64), (2, 7, 9, 20, 24)]
+ORDER = ("x", "n1", "n2", "skip", "k1", "s1", "d1", "b1", "k2", "s2", "d2", "b2",
+         "k3sr", "b3", "k4")
+ALL = ("lo*hi", "hi*lo", "hi*hi")
+
+
+def stage_inputs(case, inputs=packed_stage_inputs):
+    return {k: torch.from_numpy(v) for k, v in inputs(*case, seed=sum(case)).items()}
+
+
+def nhwc_conv(xr, wr, passes=ALL):
+    """The TMA conv emulated from its words (float64), NHWC."""
+    return emulated_conv(xr, wr, passes).permute(0, 2, 3, 1)
+
+
+def emulated_stage(a, passes=ALL):
+    """(rgb, z2, z) of float32 B4 as its kernels compute them from the
+    words, in float64: conv1 from the words of x * s1 and k1, its epilogue,
+    times s2, rounded to float32 (z, as STAGE1_TF32 stores it before the
+    split); conv2 from the words of z and k2, its epilogue (z2); toRGB of z2
+    and the skip upsample."""
+    d = {k: v.double() for k, v in a.items()}
+    y1 = nhwc_conv(packed_conv.stage_input_words(a["x"], a["s1"]),
+                   packed_conv.stage_weight_words(a["k1"]), passes)
+    z = (packed_conv._epilogue(y1, d["n1"], d["d1"], d["b1"])
+         * packed_conv._per_sample(d["s2"], y1.shape[0])).float()
+    cp4 = samm_conv.tma_channels(z.shape[-1], torch.float32)
+    y2 = nhwc_conv(samm_conv.tf32_words(z, cp4), packed_conv.stage_weight_words(a["k2"]), passes)
+    z2 = packed_conv._epilogue(y2, d["n2"], d["d2"], d["b2"])
+    return packed_conv._rgb(z2, d["k3sr"], d["b3"], d["skip"], d["k4"]), z2, z
+
+
+def check_words(words, want, c):
+    """words (..., 2 Cp): hi words with their low 13 bits clear, hi + lo ==
+    want (..., c) bit for bit, zero words past c."""
+    hi, lo = planes(words)
+    assert hi.shape[-1] % 16 == 0 and c <= hi.shape[-1] < c + 16
+    assert not (bits(hi) & LOW).any()
+    assert torch.equal(bits((hi + lo)[..., :c]), bits(want.contiguous()))
+    assert not bits(hi[..., c:]).any() and not bits(lo[..., c:]).any()
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_stage_words_layout(case):
+    """The repack's plain versions: x * s1 and k1, k2 as words, at ragged
+    shapes; the scratch of a float32 call has their shapes."""
+    b, h, w, c1, c4 = case
+    a = stage_inputs(case)
+    xr = packed_conv.stage_input_words(a["x"], a["s1"])
+    assert xr.shape[:3] == (b, h, w) and xr.dtype == torch.float32 and xr.is_contiguous()
+    check_words(xr, a["x"] * a["s1"][:, None, None, :], c1)
+    for k, ci in (("k1", c1), ("k2", c4)):
+        wr = packed_conv.stage_weight_words(a[k])
+        assert wr.shape[:3] == (3, 3, c4) and wr.is_contiguous()
+        for dx in range(3):
+            for dy in range(3):
+                check_words(wr[dx, dy], a[k][dy, dx].T, ci)
+    scratch = packed_conv.stage_scratch(a["x"], c4)
+    zr = packed_conv.stage_z_words(*(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1", "s2")))
+    for key, ref in (("xr", xr), ("w1r", packed_conv.stage_weight_words(a["k1"])),
+                     ("w2r", packed_conv.stage_weight_words(a["k2"])), ("z", zr)):
+        assert scratch[key].shape == ref.shape and scratch[key].dtype == ref.dtype, key
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_z_words_are_the_plain_z_split(case):
+    """What conv1 writes for conv2: the plain version's z (conv1 and its
+    epilogue times s2, as packed_stage_kernel_reference computes it) as
+    tf32_words, bit for bit, its padded channels zero; conv2 on z is that
+    reference's z2."""
+    c4 = case[4]
+    a = stage_inputs(case)
+    conv1 = [a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1", "s2")]
+    z = packed_conv._kernel_stage_z(*conv1)
+    zr = packed_conv.stage_z_words(*conv1)
+    check_words(zr, z, c4)
+    cp4 = samm_conv.tma_channels(c4, torch.float32)
+    assert torch.equal(bits(zr), bits(samm_conv.tf32_words(z, cp4)))
+    _, z2 = packed_conv.packed_stage_kernel_reference(*(a[k] for k in ORDER))
+    assert torch.equal(z2, packed_conv._kernel_conv_act(z, a["n2"], a["k2"], a["d2"], a["b2"]))
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_conv1_from_words_matches_b3(case):
+    """conv1 emulated from the words, with B3's epilogue (no s2), is B3's
+    kernel's plain version within TOL of max|ref|."""
+    a = stage_inputs(case)
+    d = {k: v.double() for k, v in a.items()}
+    y1 = nhwc_conv(packed_conv.stage_input_words(a["x"], a["s1"]),
+                   packed_conv.stage_weight_words(a["k1"]))
+    got = packed_conv._epilogue(y1, d["n1"], d["d1"], d["b1"])
+    ref = packed_conv.packed_conv3x3_act_kernel_reference(
+        *(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1")))
+    assert got.shape == ref.shape
+    assert rel_err(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_stage_from_words_matches_b4(case):
+    """The whole stage emulated from the words (z2 and rgb) is B4's plain
+    version within TOL of max|ref|."""
+    a = stage_inputs(case)
+    rgb, z2, _ = emulated_stage(a)
+    rgb_ref, z2_ref = packed_conv.packed_stage_kernel_reference(*(a[k] for k in ORDER))
+    assert rel_err(z2, z2_ref) <= TOL and rel_err(rgb, rgb_ref) <= TOL
+
+
+@pytest.mark.parametrize("case", CANCEL)
+def test_stage_from_words_on_cancelling_inputs(case):
+    """On packed_cancel_inputs (both convs cancel a large common offset) the
+    three products stay within TOL of B4's plain version for z2 and rgb,
+    while hi*hi alone misses z2 by more than 10x."""
+    a = stage_inputs(case, packed_cancel_inputs)
+    rgb_ref, z2_ref = packed_conv.packed_stage_kernel_reference(*(a[k] for k in ORDER))
+    rgb, z2, _ = emulated_stage(a)
+    assert rel_err(z2, z2_ref) <= TOL and rel_err(rgb, rgb_ref) <= TOL
+    assert rel_err(emulated_stage(a, ("hi*hi",))[1], z2_ref) > 10 * TOL
+
+
+def test_stage_from_words_matches_jax():
+    """The emulated stage against JAX's fused_packed_stage (its Pallas stage
+    kernel in interpret mode) at a micro size: within 2e-5, absolute plus
+    relative, as tests/test_torch_packed.py holds the port's stage."""
+    a = stage_inputs((1, 16, 16, 8, 16))
+    rgb, z2, _ = emulated_stage(a)
+    rgb_ref, z2_ref = j_pk.fused_packed_stage(*(jnp.asarray(a[k].numpy()) for k in ORDER))
+    np.testing.assert_allclose(z2.numpy(), np.asarray(z2_ref), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_ref), rtol=2e-5, atol=2e-5)
+
+
+def moments(y):
+    return torch.stack([y.sum((2, 3)), (y * y).sum((2, 3))], 1)
+
+
+@pytest.mark.parametrize("case,cancel", [((2, 37, 37, 19, 27), False), ((1, 48, 48, 16, 16), False),
+                                         ((1, 64, 64, 12, 12), True), ((2, 36, 36, 9, 11), True)])
+def test_b2b_moments_from_tf32_operands(case, cancel):
+    """float32 B2b (AN_CONV2_TF32): y2 and its moments from the conv
+    emulated from tma_operands(z, k2) are alignnet_conv2_kernel_reference's
+    within TOL of max|ref| (each moment row against its own), at ragged
+    shapes and on tf32_cancel_inputs, where hi*hi alone misses y2 by more
+    than 10x."""
+    b, ci, co, h, w = case
+    if cancel:
+        z, k = (torch.from_numpy(v) for v in tf32_cancel_inputs(b, ci, co, h, w, seed=ci + h))
+    else:
+        z, k = (torch.from_numpy(v) for v in conv_act_inputs(b, ci, co, h, w, seed=ci)[:2])
+    y2_ref, part_ref = alignnet.alignnet_conv2_kernel_reference(z, k)
+    y2 = emulated_conv(*samm_conv.tma_operands(z, k))
+    assert rel_err(y2, y2_ref) <= TOL
+    part = moments(y2)
+    for m in range(2):
+        assert rel_err(part[:, m], part_ref[:, m]) <= TOL, m
+    if cancel:
+        assert rel_err(emulated_conv(*samm_conv.tma_operands(z, k), ("hi*hi",)), y2_ref) > 10 * TOL

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""What the TMA kernel's drains buy, and B2a on the TMA kernel, on a CUDA
-card: python3 tools/prof_tma_conv.py
+"""What the TMA kernel's drains buy, and B2a and B4 on the TMA kernel, on a
+CUDA card: python3 tools/prof_tma_conv.py [--sections bf16,f32,b2b-f32,b4-f32]
 
-The bfloat16 path of B2b (csrc/tma_conv.cuh, `ogi_alignnet_conv2_tma`)
+Four sections, all by default:
+
+bf16. The bfloat16 path of B2b (csrc/tma_conv.cuh, `ogi_alignnet_conv2`)
 adds its products to its accumulator on the CUDA cores every DRAIN_STAGES
 stages (the drain); in between, and in B5 throughout, the tensor cores
 accumulate, adding with truncation. This script builds copies of
@@ -18,7 +20,7 @@ mode) on seeded s, t (b = 1, C = 2C / 2): its max|err| / max|ref| against
 its kernel's plain version, its time, its x1 repack's alone, and cuDNN's
 bfloat16 conv + PReLU on the same x1.
 
-Then the float32 mode (3xTF32, B5's and B2a's float32 path), which drains
+f32. The float32 mode (3xTF32, B5's and B2a's float32 path), which drains
 every TF32_DRAIN_STAGES stages: copies of csrc/samm_conv.cu that drain
 every 1, 2 and 4 stages, and never; at each SAMM scale (b = 1) float32 B5
 (act none) on `tf32_cancel_inputs` (where one TF32 pass misses 1e-4 of
@@ -26,8 +28,24 @@ max|ref| by >10x) and on zero-mean inputs, each variant's max|err| /
 max|ref| against the plain version (cuDNN, TF32 off) and its time, the
 float32 repack pass alone, cuDNN's float32 conv, and float32 B2a with its
 x1 repack alone.
+
+b2b-f32. float32 B2b (AN_CONV2_TF32), which drains every
+TF32_CONV2_DRAIN_STAGES stages: copies of csrc/alignnet_conv2.cu that drain
+every stage, every 2 stages and never; at each SAMM scale (b = 1), on
+zero-mean inputs and on `tf32_cancel_inputs`, each variant's max|err| /
+max|ref| of y2 and of both moments against the plain version
+(`alignnet_conv2_kernel_reference`), the mean signed relative error of sum
+y2^2, and its time (two readings in turns, zero-mean inputs), beside the
+float32 repack pass alone and cuDNN's float32 conv + moments.
+
+b4-f32. float32 B4 (csrc/packed_stage.cu on the TMA core) at both packed
+stages of the 1024px generator (b = 1): the whole call, and each of its
+launches alone (the repack, conv1 with z out as words, conv2 with z2 and
+the toRGB partials, the rgb pass), beside the tensor-core bound of the
+dense and of the useful convs.
 """
 
+import argparse
 import ctypes
 import os
 import shutil
@@ -45,18 +63,21 @@ from ood_gan_inversion_tpu_torch import build  # noqa: E402
 from ood_gan_inversion_tpu_torch.ops import alignnet, samm_conv  # noqa: E402
 
 SCALES = [(32, 1024), (64, 1024), (128, 512), (256, 256)]   # (H = W, 2C)
+SECTIONS = ("bf16", "f32", "b2b-f32", "b4-f32")
 
 
 KEY = "constexpr int DRAIN_STAGES = "
 VARIANTS = {"every 16 stages": 16, "none": 1 << 20}
 TF32_KEY = "constexpr int TF32_DRAIN_STAGES = "
 TF32_VARIANTS = {"every stage": 1, "every 2 stages": 2, "every 4 stages": 4, "none": 1 << 20}
+CONV2_KEY = "constexpr int TF32_CONV2_DRAIN_STAGES = "
+CONV2_VARIANTS = {"every stage": 1, "every 2 stages": 2, "none": 1 << 20}
 
 
 def variant_libraries(key, variants, source):
     """{label: library} of csrc/<source>.cu built with each of `variants`'
     values of the constant `key` of csrc/tma_conv.cuh, all nvcc at once."""
-    out = os.path.join(ROOT, "build", "tma_conv_variants", source)
+    out = os.path.join(ROOT, "build", "tma_conv_variants", source, key.split()[2])
     shutil.rmtree(out, ignore_errors=True)
     libs, procs = {}, {}
     for label, period in variants.items():
@@ -82,7 +103,44 @@ def rel(got, ref):
     return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
 
 
+def conv2_libraries(key, variants):
+    """variant_libraries of csrc/alignnet_conv2.cu, its entries typed."""
+    libs = variant_libraries(key, variants, "alignnet_conv2")
+    for lib in libs.values():
+        lib.ogi_alignnet_conv2.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.ogi_samm_conv_tiles.argtypes = [ctypes.c_int] * 3
+    return libs
+
+
+def conv2_run(lib, label, z, k, zr, wr, y2, part):
+    """A B2b run of the library `lib` (z's dtype) into y2 and part."""
+    b, c, h, w = z.shape
+    tiles = torch.empty(b, lib.ogi_samm_conv_tiles(h, w, c), 2, c, device="cuda")
+
+    def run():
+        err = lib.ogi_alignnet_conv2(
+            z.data_ptr(), k.data_ptr(), zr.data_ptr(), wr.data_ptr(), y2.data_ptr(),
+            tiles.data_ptr(), part.data_ptr(), b, h, w, c, int(z.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"B2b drain {label}: error {err}")
+        return y2, part
+    return run
+
+
+def shipped_constant(key):
+    shipped = open(os.path.join(build.CSRC, "tma_conv.cuh")).read()
+    return shipped[shipped.index(key) + len(key):].split(";")[0]
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sections", default=",".join(SECTIONS),
+                    help=f"comma-separated, of {', '.join(SECTIONS)}")
+    sections = ap.parse_args().sections.split(",")
+    if not set(sections) <= set(SECTIONS):
+        ap.error(f"unknown section in {sections}")
     if not torch.cuda.is_available():
         print("prof_tma_conv: needs a CUDA card", file=sys.stderr)
         return 1
@@ -91,18 +149,31 @@ def main():
     print(f"card: {smi}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    libs = variant_libraries(KEY, VARIANTS, "alignnet_conv2")
-    for lib in libs.values():
-        lib.ogi_alignnet_conv2_tma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        lib.ogi_samm_conv_tiles.argtypes = [ctypes.c_int] * 3
-    tf32_libs = variant_libraries(TF32_KEY, TF32_VARIANTS, "samm_conv")
-    for lib in tf32_libs.values():
-        lib.ogi_conv3x3_act.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-    shipped = open(os.path.join(build.CSRC, "tma_conv.cuh")).read()
-    period = shipped[shipped.index(KEY) + len(KEY):].split(";")[0]
     g = torch.Generator(device="cuda").manual_seed(0)
+    if "bf16" in sections:
+        bf16_drain(g)
+    if "f32" in sections:
+        tf32_libs = variant_libraries(TF32_KEY, TF32_VARIANTS, "samm_conv")
+        for lib in tf32_libs.values():
+            lib.ogi_conv3x3_act.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
+        print(f"float32 mode: shipped drain period {shipped_constant(TF32_KEY)} stages", flush=True)
+        for h, c in SCALES:
+            tf32_drain(h, c, tf32_libs, g)
+    if "b2b-f32" in sections:
+        libs = conv2_libraries(CONV2_KEY, CONV2_VARIANTS)
+        print(f"float32 B2b: shipped drain period {shipped_constant(CONV2_KEY)} stages", flush=True)
+        for h, c in SCALES:
+            b2b_f32_drain(h, c, libs, g)
+    if "b4-f32" in sections:
+        b4_f32()
+    return 0
+
+
+def bf16_drain(g):
+    """The bfloat16 B2b drain variants and bfloat16 B2a at each SAMM scale."""
+    libs = conv2_libraries(KEY, VARIANTS)
+    period = shipped_constant(KEY)
     for h, c in SCALES:
         z = torch.randn(1, c, h, h, device="cuda", generator=g).bfloat16()
         k = (torch.randn(c, c, 3, 3, device="cuda", generator=g) / (9 * c) ** 0.5).bfloat16()
@@ -110,19 +181,8 @@ def main():
         zr, wr = samm_conv.tma_scratch(z, k)
         runs = {f"shipped (drain period {period})": lambda: alignnet.alignnet_conv2(z, k)}
         for label, lib in libs.items():
-            y2 = torch.empty_like(y2_ref)
-            tiles = torch.empty(1, lib.ogi_samm_conv_tiles(h, h, c), 2, c, device="cuda")
-            part = torch.empty_like(part_ref)
-
-            def run(lib=lib, y2=y2, tiles=tiles, part=part, label=label):
-                err = lib.ogi_alignnet_conv2_tma(
-                    z.data_ptr(), k.data_ptr(), zr.data_ptr(), wr.data_ptr(), y2.data_ptr(),
-                    tiles.data_ptr(), part.data_ptr(), 1, h, h, c,
-                    torch.cuda.current_stream().cuda_stream)
-                if err != 0:
-                    raise RuntimeError(f"B2b drain {label}: error {err}")
-                return y2, part
-            runs[f"drain {label}"] = run
+            runs[f"drain {label}"] = conv2_run(lib, label, z, k, zr, wr, torch.empty_like(y2_ref),
+                                               torch.empty_like(part_ref))
         times = {}
         for label, fn in runs.items():
             yy, pp = fn()
@@ -138,11 +198,6 @@ def main():
               + ", ".join(f"B2b {label} {t[0]:.4f} / {t[1]:.4f}" for label, t in times.items())
               + f", B5 (bfloat16 out) {b5:.4f}", flush=True)
         b2a(h, c, k, g)
-    tf32_period = shipped[shipped.index(TF32_KEY) + len(TF32_KEY):].split(";")[0]
-    print(f"float32 mode: shipped drain period {tf32_period} stages", flush=True)
-    for h, c in SCALES:
-        tf32_drain(h, c, tf32_libs, g)
-    return 0
 
 
 def b2a(h, c2, k1, g):
@@ -236,6 +291,81 @@ def tf32_drain(h, c, libs, g):
               wr.data_ptr(), 1, c1, h, h, xr.shape[3] // 2, stream), iters=10)}
     print(f"{h}px {c}->{c} B2a float32: max|err| {rel(z, ref):.3e} of max|ref|; ms (L2 flushed): "
           + ", ".join(f"{key} {v:.4f}" for key, v in ms.items()), flush=True)
+
+
+def b2b_f32_drain(h, c, libs, g):
+    """float32 B2b at (h, c -> c) through each drain variant in `libs`: y2's
+    and both moments' error on zero-mean and on cancelling inputs, the mean
+    signed error of sum y2^2, and the time (two readings in turns, zero-mean
+    inputs); the shipped wrapper, the float32 repack alone and cuDNN's
+    float32 conv + moments beside it."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_inputs import tf32_cancel_inputs
+    cases = {"zero-mean": [torch.randn(1, c, h, h, device="cuda", generator=g),
+                           torch.randn(c, c, 3, 3, device="cuda", generator=g) / (9 * c) ** 0.5],
+             "tf32_cancel": [torch.from_numpy(v).cuda() for v in
+                             tf32_cancel_inputs(1, c, c, h, h, seed=h + c)]}
+    runs = {}
+    for case, (z, k) in cases.items():
+        y2_ref, part_ref = alignnet.alignnet_conv2_kernel_reference(z, k)
+        zr, wr = samm_conv.tma_scratch(z, k)
+        errs = []
+        for label, lib in libs.items():
+            run = conv2_run(lib, label, z, k, zr, wr, torch.empty_like(y2_ref),
+                            torch.empty_like(part_ref))
+            y2, part = run()
+            torch.cuda.synchronize()
+            bias = float(((part[:, 1] - part_ref[:, 1]) / part_ref[:, 1]).mean())
+            errs.append(f"{label}: y2 {rel(y2, y2_ref):.3e}, sum y2 "
+                        f"{rel(part[:, 0], part_ref[:, 0]):.3e}, sum y2^2 "
+                        f"{rel(part[:, 1], part_ref[:, 1]):.3e} (mean signed {bias:.3e})")
+            if case == "zero-mean":
+                runs[label] = run
+        print(f"{h}px {c}->{c} float32 B2b max|err| / max|ref| on {case}: " + "; ".join(errs),
+              flush=True)
+    z, k = cases["zero-mean"]
+    runs["shipped"] = lambda: alignnet.alignnet_conv2(z, k)
+    times = {}
+    for label, fn in [*runs.items(), *reversed(runs.items())]:
+        times.setdefault(label, []).append(time_ms(fn, iters=10))
+    zr, wr = samm_conv.tma_scratch(z, k)
+    repack = entry("samm_conv", "ogi_tma_repack_tf32", 4, 6)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = {"repack (float32)": time_ms(lambda: repack(
+        z.data_ptr(), k.data_ptr(), zr.data_ptr(), wr.data_ptr(), 1, c, h, h, c,
+        zr.shape[3] // 2, stream), iters=10)}
+    ms["cudnn conv + moments (float32, TF32 off)"] = time_ms(
+        lambda: alignnet.alignnet_conv2_reference(z, k), iters=10)
+    print(f"{h}px {c}->{c} float32 B2b ms (L2 flushed, two readings in turns): "
+          + ", ".join(f"{label} {t[0]:.4f} / {t[1]:.4f}" for label, t in times.items())
+          + ", " + ", ".join(f"{key} {v:.4f}" for key, v in ms.items()), flush=True)
+
+
+def b4_f32():
+    """float32 B4 at both packed stages (b = 1): the call and its launches
+    alone (chip_smoke.stage_step_ms), beside the bounds of its convs."""
+    from chip_smoke import PACKED_STAGES, conv_flops, packed_operands, stage_step_ms, tc_bound_ms
+    from ood_gan_inversion_tpu_torch.ops.packed_conv import fused_packed_stage
+    total = {}
+    for h, c1, cmid in PACKED_STAGES:
+        a = packed_operands(1, h, c1, cmid, seed=h + 1)
+        args = tuple(a.values())
+        call = time_ms(lambda: fused_packed_stage(*args), iters=10)
+        steps = stage_step_ms(args)
+        (d1, u1), (d2, u2) = conv_flops(1, h, a["k1"]), conv_flops(1, h, a["k2"])
+        dense = tc_bound_ms(d1 + d2, 0, 4)[0]
+        useful = tc_bound_ms(u1 + u2, 0, 4)[0]
+        conv_ms = steps["conv1"] + steps["conv2"]
+        print(f"{2 * h}px stage ({h}x{h}, {c1}->{4 * cmid}->{4 * cmid}) float32 B4: call "
+              f"{call:.4f} ms; alone " + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+              + f"; convs {conv_ms:.4f} ms against their dense 3xTF32 bound {dense:.4f} "
+              f"({dense / conv_ms:.0%}) and useful {useful:.4f} ({useful / conv_ms:.0%})",
+              flush=True)
+        for k, v in (("call", call), *steps.items(), ("dense bound", dense)):
+            total[k] = total.get(k, 0.0) + v
+    print("float32 B4 per 1024px image (2 stages, b = 1): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in total.items()), flush=True)
 
 
 if __name__ == "__main__":
