@@ -8,9 +8,10 @@
    and bfloat16: B1's bit for bit; B5's, B2a's and B2b's through the TMA
    kernel of csrc/tma_conv.cuh, one launch of it per call, its repack pass
    (B2a's builds x1) and its host-side tensor-map encoding timed apart;
-   float32 B4's two convs through the same kernel, two launches of it per
-   call, its repack launch timed apart; bfloat16 against the kernel's plain
-   version on the same operands), and
+   B4's two convs in both dtypes through the same kernel, two launches of
+   it per call, its launches timed apart; float32 B3 through it, one per
+   call, its repack launch timed apart; bfloat16 against the kernel's
+   plain version on the same operands), and
    times the kernel, the plain version and the closest PyTorch library
    call with CUDA events.
 3. Drives the main path -- E4E inversion at 1024px with the IR-SE-50
@@ -500,7 +501,9 @@ def phase_packed_kernels():
     max_err = {"B3": 0.0, "B4": 0.0}
     bound_by = {"B3": {}, "B4": {}}        # per image: bound ms by what bounds it
     gflop = {"B3": [0.0, 0.0], "B4": [0.0, 0.0]}          # dense, useful per image
-    repack_per_image = 0.0                                # float32 B4's repack launch
+    # the repack launches of float32 B3, float32 B4 and bfloat16 B4
+    repack_per_image = {"B3": 0.0, "B4": 0.0, "B4 bf16": 0.0}
+    bf16_steps = {}                                       # bfloat16 B4's launches per image
     conv_names = ("x", "n1", "k1", "s1", "d1", "b1")
     for h, c1, cmid in PACKED_STAGES:
         c4, stage = 4 * cmid, f"{2 * h}px stage"
@@ -513,8 +516,14 @@ def phase_packed_kernels():
             for name, args in convs:
                 x, n4, k, s, d, bias = args
                 ci, co = k.shape[2], k.shape[3]
-                err, lim = check_close(f"B3 {stage} {name} b={b}",
-                                       fused_conv3x3_act(*args),
+                tma_before = tma_launches("packed_stage")
+                out = fused_conv3x3_act(*args)
+                torch.cuda.synchronize()
+                if tma_launches("packed_stage") != tma_before + 1:
+                    raise AssertionError(f"B3 {stage} {name} b={b}: "
+                                         f"{tma_launches('packed_stage') - tma_before} TMA kernel "
+                                         "launches, expected 1")
+                err, lim = check_close(f"B3 {stage} {name} b={b}", out,
                                        packed_conv3x3_act_reference(*args), PACKED_TOL)
                 xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
                 argsb = (xb, n4, kb, s, d, bias)
@@ -537,6 +546,7 @@ def phase_packed_kernels():
                      "library_ms": time_ms(lib, iters=10)}
                 msb = t["bf16_ms"] = time_ms(lambda: fused_conv3x3_act(*argsb), iters=10)
                 t["bf16_library_ms"] = time_ms(lib_b, iters=10)
+                steps = conv_step_ms(args)
                 dense, useful = conv_flops(b, h, k)
                 epi = 5 * b * h * h * co
                 nbytes = lambda isz: ((b * h * h * (ci + co) + 9 * ci * co) * isz
@@ -549,7 +559,9 @@ def phase_packed_kernels():
                 t["bf16_bound_ms"] = bf16_ms
                 log(f"[kernel] B3 {stage} {name} b={b} ({h}x{h}, {ci}->{co}): fp32 "
                     f"max|err| {err:.3e} <= {lim:.3e}, bf16 {errb:.3e} <= {limb:.3e}; "
-                    f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                    f"kernel {t['ms']:.4f} ms (TMA core; its launches alone: repack "
+                    f"{steps['repack']:.4f}, conv {steps['conv']:.4f}; the repack "
+                    f"{steps['repack'] / t['ms']:.1%}), plain {t['plain_ms']:.4f} ms, "
                     f"cudnn+epilogue {t['library_ms']:.4f} ms (|diff| {lib_diff:.1e}); "
                     f"kernel {useful / t['ms'] / 1e9:.1f} useful TFLOP/s; bound: tensor cores "
                     f"{t['bound_ms']:.4f} ms ({by}), CUDA cores {cc_ms:.4f} ms ({cc_by}: "
@@ -563,6 +575,7 @@ def phase_packed_kernels():
                     bound_by["B3"][by] = bound_by["B3"].get(by, 0.0) + t["bound_ms"]
                     for key in keys:
                         per_image["B3"][key] += t[key]
+                    repack_per_image["B3"] += steps["repack"]
                     gflop["B3"][0] += dense / 1e9
                     gflop["B3"][1] += useful / 1e9
             # ---- B4: the whole stage; float32: two TMA kernel launches
@@ -579,7 +592,13 @@ def phase_packed_kernels():
             bf = {k: (v.to(torch.bfloat16) if k in ("x", "skip", "k1", "k2", "k3sr", "k4")
                       else v) for k, v in a.items()}
             argsb = tuple(bf.values())
+            tma_before = tma_launches("packed_stage")
             rgbb, z2b = fused_packed_stage(*argsb)
+            torch.cuda.synchronize()
+            if tma_launches("packed_stage") != tma_before + 2:
+                raise AssertionError(f"B4 {stage} b={b} bf16: "
+                                     f"{tma_launches('packed_stage') - tma_before} TMA kernel "
+                                     "launches, expected 2")
             # the plain version in float32 on conv1's input as JAX rounds it:
             # x * s1 in bfloat16, s1 rounded first
             refb = {k: v.float() for k, v in bf.items()}
@@ -611,6 +630,17 @@ def phase_packed_kernels():
                 return (torch.einsum("bchw,bco->bohw", zz2, lb["k3sr"])
                         + lb["b3"][None, :, None, None] + F.conv2d(sknb, wb4, padding=1))
 
+            # bfloat16 B4's launches alone, each beside its bound and its
+            # library call (none for the repack)
+            lib_steps_b = {
+                "conv1": lambda: library_conv_act(xnb, n1b, wb1, lb["s1"], lb["d1"], lb["b1"],
+                                                  cmid),
+                "conv2": lambda: library_conv_act(zzb, n2b, wb2, lb["s2"], lb["d2"], lb["b2"],
+                                                  cmid),
+                "rgb": lambda: (torch.einsum("bchw,bco->bohw", zz2b, lb["k3sr"])
+                                + lb["b3"][None, :, None, None] + F.conv2d(sknb, wb4, padding=1))}
+            zzb = library_conv_act(xnb, n1b, wb1, lb["s1"], lb["d1"], lb["b1"], cmid)
+            zz2b = library_conv_act(zzb, n2b, wb2, lb["s2"], lb["d2"], lb["b2"], cmid)
             lib_diff = float((lib().permute(0, 2, 3, 1) - rgb_ref).abs().max())
             t = {"ms": time_ms(lambda: fused_packed_stage(*args), iters=10),
                  "plain_ms": time_ms(lambda: packed_stage_reference(*args), iters=10),
@@ -634,6 +664,29 @@ def phase_packed_kernels():
             dense_ms, _ = bound_ms(dense, nbytes(4), FP32_FLOPS)
             bf16_ms, bf16_by = tc_bound_ms(useful, nbytes(2), 2)
             t["bf16_bound_ms"] = bf16_ms
+            steps_b = stage_step_ms(argsb)
+            cp1, cp4 = (-(-c // 8) * 8 for c in (c1, c4))
+            step_bounds = {       # (flops, bytes) of each bfloat16 launch
+                "repack": (0, 2 * (px * (c1 + cp1) + 9 * c4 * (c1 + cp1 + c4 + cp4)) + 4 * b * c1),
+                "conv1": (u1 + 5 * px * c4, 2 * (px * (cp1 + cp4) + 9 * c4 * cp1)
+                          + 4 * (px * 4 + 4 * b * c4)),
+                "conv2": (u2 + u3 + 5 * px * c4, 2 * (px * (cp4 + c4) + 9 * c4 * cp4 + b * c4 * 12)
+                          + 4 * (px * 4 + 3 * b * c4 + px * 12 * -(-c4 // 128))),
+                "rgb": (u4 + 2 * px * 12, 4 * px * 12 * -(-c4 // 128) + 2 * (px * 15 + 9 * 36)
+                        + 4 * b * 12)}
+            step_text = []
+            for name, step_ms in steps_b.items():
+                sb_ms, sb_by = tc_bound_ms(*step_bounds[name], 2)
+                lib_ms = time_ms(lib_steps_b[name], iters=10) if name in lib_steps_b else None
+                step_text.append(f"{name} {step_ms:.4f} (bound {sb_ms:.4f}, {sb_by}; cudnn "
+                                 + ("none" if lib_ms is None else f"{lib_ms:.4f}") + ")")
+                if b == 1:
+                    acc = bf16_steps.setdefault(name, [0.0, 0.0, 0.0])
+                    acc[0] += step_ms
+                    acc[1] += sb_ms
+                    acc[2] += lib_ms or 0.0
+            log(f"[kernel] B4 {stage} b={b} bf16 on the TMA core, its launches alone (ms): "
+                + ", ".join(step_text) + f"; the repack {steps_b['repack'] / msb:.1%} of the call")
             log(f"[kernel] B4 {stage} b={b} ({h}x{h}, {c1}->{c4}->{c4}, rgb 12): fp32 "
                 f"max|err| {err:.3e} <= {PACKED_TOL:.0e} of max|ref|, bf16 "
                 f"{errb:.3e}; kernel {t['ms']:.4f} ms (TMA core; its launches alone: "
@@ -651,7 +704,8 @@ def phase_packed_kernels():
                 bound_by["B4"][by] = bound_by["B4"].get(by, 0.0) + t["bound_ms"]
                 for key in keys:
                     per_image["B4"][key] += t[key]
-                repack_per_image += steps["repack"]
+                repack_per_image["B4"] += steps["repack"]
+                repack_per_image["B4 bf16"] += steps_b["repack"]
                 gflop["B4"][0] += dense / 1e9
                 gflop["B4"][1] += useful / 1e9
     entries = []
@@ -659,14 +713,20 @@ def phase_packed_kernels():
             ("B3", "fused_conv3x3_act", "packed_stage.cu", 158),
             ("B4", "fused_packed_stage", "packed_stage.cu", 275)):
         pi = per_image[kid]
-        extra = {}
         text = f"; {gflop[kid][0]:.2f} dense, {gflop[kid][1]:.2f} useful GFLOP"
-        if kid == "B4":     # float32 on the TMA core of csrc/tma_conv.cuh
-            extra = {"f32_core": "ood_gan_inversion_tpu_torch/csrc/tma_conv.cuh",
-                     "repack_ms": repack_per_image}
-            text += (f"; f32: {pi['bound_ms'] / pi['ms']:.0%} of its bound, kernel / cudnn "
-                     f"{pi['ms'] / pi['library_ms']:.2f}, the repack {repack_per_image:.4f} "
-                     f"({repack_per_image / pi['ms']:.1%})")
+        tma, tc = (f"ood_gan_inversion_tpu_torch/csrc/{f}" for f in ("tma_conv.cuh", "tc_conv.cuh"))
+        # the core of each dtype's convs, and the repack launch per image
+        extra = {"f32_core": tma, "bf16_core": tma if kid == "B4" else tc,
+                 "repack_ms": repack_per_image[kid]}
+        text += (f"; f32: {pi['bound_ms'] / pi['ms']:.0%} of its bound, kernel / cudnn "
+                 f"{pi['ms'] / pi['library_ms']:.2f}, the repack {repack_per_image[kid]:.4f} "
+                 f"({repack_per_image[kid] / pi['ms']:.1%}); bf16: "
+                 f"{pi['bf16_bound_ms'] / pi['bf16_ms']:.0%} of its bound, kernel / cudnn "
+                 f"{pi['bf16_ms'] / pi['bf16_library_ms']:.2f}")
+        if kid == "B4":
+            extra["bf16_repack_ms"] = repack_per_image["B4 bf16"]
+            text += ("; bf16 launches alone per image (ms, bound, cudnn): " + ", ".join(
+                f"{k} {v[0]:.4f} / {v[1]:.4f} / {v[2]:.4f}" for k, v in bf16_steps.items()))
         log(f"[kernel] {kid} {name} per image (b=1): "
             + ", ".join(f"{k} {v:.4f}" for k, v in pi.items()) + text)
         entries.append({"name": name, "route": "cuda",
@@ -679,26 +739,49 @@ def phase_packed_kernels():
 
 
 def stage_step_ms(args):
-    """{step: ms} of float32 B4's launches one at a time on the operands
-    args (ogi_packed_stage_step, L2 flushed): the repack, conv1 (z out as
-    words), conv2 (z2 and the toRGB partials) and the rgb pass, each on what
-    the steps before it wrote."""
-    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    """{step: ms} of B4's launches one at a time on the operands args, in
+    x's dtype (ogi_packed_stage_step, L2 flushed): the repack, conv1 (z out
+    as conv2's operand), conv2 (z2 and the toRGB partials) and the rgb
+    pass, each on what the steps before it wrote."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import DTYPES, entry
     from ood_gan_inversion_tpu_torch.ops.packed_conv import stage_pointers
     x, k1 = args[0], args[4]
     b, h, w, c1 = x.shape
     ptrs, _, _, scratch = stage_pointers(*args)     # scratch lives while the steps run
-    fn = entry("packed_stage", "ogi_packed_stage_step", 22, 6)
+    fn = entry("packed_stage", "ogi_packed_stage_step", 22, 7)
     stream = torch.cuda.current_stream().cuda_stream
 
     def step(i):
-        err = fn(*ptrs, b, h, w, c1, k1.shape[-1], i, stream)
+        err = fn(*ptrs, b, h, w, c1, k1.shape[-1], DTYPES[x.dtype], i, stream)
         if err != 0:
             raise RuntimeError(f"B4 step {i}: error {err}")
     out = {}
     for i, name in enumerate(("repack", "conv1", "conv2", "rgb")):
         out[name] = time_ms(lambda: step(i), iters=10)
     return out
+
+
+def conv_step_ms(args):
+    """{step: ms} of float32 B3's two launches one at a time on the
+    operands args (ogi_packed_conv3x3_act_step, L2 flushed): the repack of
+    x * s_in and k into words, then the conv on them."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    from ood_gan_inversion_tpu_torch.ops.packed_conv import _vec, conv_scratch
+    x, n4, k, s, d, bias = args
+    b, h, w, ci = x.shape
+    co = k.shape[-1]
+    s, d, bias = _vec(s, b, ci), _vec(d, b, co), _vec(bias, b, co)
+    out = x.new_empty((b, h, w, co))
+    xr, wr = conv_scratch(x, co)
+    fn = entry("packed_stage", "ogi_packed_conv3x3_act_step", 9, 6)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (x, n4, k, s, d, bias, out, xr, wr)]
+
+    def step(i):
+        err = fn(*ptrs, b, h, w, ci, co, i, stream)
+        if err != 0:
+            raise RuntimeError(f"B3 step {i}: error {err}")
+    return {name: time_ms(lambda: step(i), iters=10) for i, name in enumerate(("repack", "conv"))}
 
 
 def samm_operands(b, h, c, seed):
@@ -1645,6 +1728,7 @@ def phase_end_to_end(engines, imgs, rounds=15):
         log(f"[main] invert ms/img, {name}, {rounds} interleaved rounds: median "
             f"{float(np.median(r)):.2f}, spread {min(r):.2f}-{max(r):.2f}, "
             f"all {[round(v, 2) for v in r]}")
+    return reps
 
 
 def phase_small_reference():
@@ -3618,9 +3702,16 @@ def main():
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     conv_bf16 = InversionEngine(e4e_opt(), params=engine.net.state_dict(), device="cuda",
                                 samm_conv_bf16=True)
-    phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails, **body0s,
-                      **bf16s, "samm_conv_bf16 (body0 convs on cuDNN in bf16)": conv_bf16},
-                     imgs)
+    reps = phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails,
+                             **body0s, **bf16s,
+                             "samm_conv_bf16 (body0 convs on cuDNN in bf16)": conv_bf16}, imgs)
+    # the packed-tail engines whose kernels run the TMA core: float32 "pair"
+    # (B3) and bfloat16 "stage" (B4), beside their dtype's default
+    log("[main] packed tail on the TMA core, invert ms/img median (spread) of the same rounds: "
+        + "; ".join(f"{name} {float(np.median(reps[name])):.2f} ({min(reps[name]):.2f}-"
+                    f"{max(reps[name]):.2f})"
+                    for name in ("packed tail pair", "default (unpacked tail, body0 algebraic)",
+                                 "bf16 packed tail stage", "bf16 default")))
     del conv_bf16
     launches["warp_blend_taps_bf16"] = taps_launches
     for e in entries[1:]:
@@ -3641,6 +3732,7 @@ def main():
     for e in entries:
         e.setdefault("cc_bound_ms", e["bound_ms"])
     extra = ("bf16_ms", "bf16_bound_ms", "bf16_library_ms", "bf16_source", "serves",
+             "f32_core", "bf16_core", "repack_ms", "bf16_repack_ms",
              "test_launches",
              "train_launches", "pipeline_launches", "train_launches_per_step", "dp_launches",
              "pipeline_dp_launches", "sharded_launches", "spatial_launches",

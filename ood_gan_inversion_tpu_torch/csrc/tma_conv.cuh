@@ -3,15 +3,16 @@
 // act(conv3x3(x, k)) in x's type), B2a (alignnet_conv1.cu: z =
 // prelu(conv3x3(x1, k1)) in s's type, x1 built from s, t and the
 // coefficients by the repack pass) and B2b (alignnet_conv2.cu: y2 =
-// conv3x3(z, k2) in float32 and the tiles' moments of y2) -- and the two
-// convs of B4's float32 path (packed_stage.cu: the packed stage's conv1 and
-// conv2 with their NHWC epilogues). B4's bfloat16 path and B3 run the core
-// of tc_conv.cuh.
+// conv3x3(z, k2) in float32 and the tiles' moments of y2) -- and the packed
+// generator convs of packed_stage.cu with their NHWC epilogues: B4's conv1
+// and conv2 in both operand types, and B3 in float32. Only bfloat16 B3 runs
+// the core of tc_conv.cuh.
 //
 // Replaces the TPU kernels ops/pallas_kernels.py:_conv_act_band_kernel (via
 // conv3x3_act), _an_conv1_kernel (via fused_alignnet_body0), _an_conv2_kernel
-// (via fused_alignnet_body0) and, for float32 operands, the convs of
-// _stage_band_kernel (via fused_packed_stage). Bound by operations: 2 * 9 *
+// (via fused_alignnet_body0), the convs of _stage_band_kernel (via
+// fused_packed_stage) and, for float32 operands, _conv_band_kernel (via
+// fused_conv3x3_act). Bound by operations: 2 * 9 *
 // Ci * Co flops per pixel against 2 * (Ci + Co) bytes in bfloat16; in
 // float32 three TF32 products per product (3xTF32) against 4 * (Ci + Co)
 // bytes.
@@ -43,8 +44,8 @@
 //     box are TMA zero fill. float32 channels are padded to a multiple of 16
 //     and each value v is split once per call into hi = v rounded to TF32
 //     (half away from zero) and lo = v - hi, exact (tc::split_tf32), where
-//     the float32 core of tc_conv.cuh splits each weight again for every tap
-//     of every pixel tile. For B2a it writes x1 = [as*s + at*t + b1, ct*t +
+//     splitting in the conv would split each weight again for every tap of
+//     every pixel tile. For B2a it writes x1 = [as*s + at*t + b1, ct*t +
 //     b2] (its x1 mode): read from s and t, computed in float32 with the
 //     plain version's roundings (two products, two sums, no FMA
 //     contraction), then rounded once to bfloat16 or split;
@@ -52,10 +53,13 @@
 //     zero fill outside the image is then conv1's padding of x1, as the TPU
 //     kernel masks it, and not the affine image of zero-padded s and t. B2a
 //     then runs B5's mode, PReLU.
-//   * B4 is NHWC / HWIO already: its repack (packed_stage.cu) only scales
-//     x by s1 and splits it, elementwise, and lays the weights out as words;
-//     conv1's epilogue writes its activation z straight as conv2's words
-//     (STAGE1_TF32), so conv2 reads z through TMA with no pass between.
+//   * The packed convs (B4, B3) are NHWC / HWIO already: their repack
+//     (packed_stage.cu) only scales x by s1 and rounds it to bfloat16 or
+//     splits it into words, elementwise, and lays the weights out. B4's
+//     conv1 epilogue writes its activation z straight as conv2's operand
+//     (STAGE1_TF32: words; STAGE1: bfloat16, channels C4.. zero), so conv2
+//     reads z through TMA with no pass between. float32 B3 (PACKED_TF32) is
+//     conv1 without s2, its output float32 (B, H, W, Co).
 // A stage of the ring is one (K-block, dx): 3 K-blocks, 48 KB of weights
 // and (TH + 2) * 4 KB of input, completed on one mbarrier: 72 KB at TH = 4,
 // three stages in 216 KB. At Ci = 1024 the K loop has 16 * 3 stages in
@@ -78,7 +82,8 @@
 // truncation (tc_conv.cuh). bfloat16 B5 rounds its output to bfloat16 and
 // is held to 2^-7 of max|ref|, so its accumulator stays in the tensor cores
 // across the whole K, with the previous stage's group still running as it
-// issues the next. B2b returns float32 y2 and pixel sums, and the float32
+// issues the next; so do bfloat16 B4's two convs (STAGE1, STAGE2), whose
+// outputs are rounded to bfloat16 and held to 2^-7 too. B2b returns float32 y2 and pixel sums, and the float32
 // modes float32 outputs, held to 1e-4, so they drain: the products of a
 // period of stages (drain_period) go into fresh fragments, which the CUDA
 // cores add to the accumulator, rounded to nearest, once their groups have
@@ -100,7 +105,7 @@
 // (2.0e-5-2.2e-5 on the cancelling inputs; 3.9e-6, 3.9e-6 and 4.1e-6 on
 // zero-mean ones at 32px). A drain every stage cost 5% at 32px (TH = 2)
 // and up to 1% elsewhere; every 2 stages ran as fast as none at all four
-// scales. So the float32 conv modes (B5, B2a, B4's convs) drain every 2
+// scales. So the float32 conv modes (B5, B2a, B4's and B3's convs) drain every 2
 // stages, the most accurate period at no measured cost. float32 B2b
 // (AN_CONV2_TF32) drains every TF32_CONV2_DRAIN_STAGES: the same tool
 // measured it with a drain every stage, every 2 stages and none, at the
@@ -126,7 +131,7 @@
 // sum_tiles_kernel sums in tile order (no atomics); then the consumers
 // stage the float32 tile st[channel][pixel] in the ring (B5 and B2a after
 // their activation) and store it NCHW along W, 4 pixels a thread, in
-// float32 or bfloat16. B4's two convs store NHWC, so they stage the tile
+// float32 or bfloat16. The packed convs store NHWC, so they stage the tile
 // st[pixel][channel] instead, beside the block's d, bias, s2 and (conv2)
 // toRGB weights, and store along channels, 4 channels a thread, a warp's
 // 128 channels of one pixel (stage_epilogue).
@@ -165,14 +170,23 @@ constexpr int A_BYTES = 3 * A_TAP;
 constexpr int THREADS = 384;           // producer warpgroup + two consumer warpgroups
 constexpr int ACT_NONE = 0, ACT_PRELU = 1;
 // CONV_ACT (B5, B2a) and AN_CONV2 (B2b) on bfloat16 operands; on float32
-// ones (words) CONV_ACT_TF32 (B5, B2a), AN_CONV2_TF32 (B2b) and B4's two
-// convs, STAGE1_TF32 (conv1, z out as conv2's words) and STAGE2_TF32
-// (conv2, z2 and the toRGB partials out)
+// ones (words) CONV_ACT_TF32 (B5, B2a) and AN_CONV2_TF32 (B2b). The packed
+// convs, NHWC (stage_epilogue): B4's conv1, z out as conv2's operand
+// (STAGE1_TF32 words, STAGE1 bfloat16), B4's conv2, z2 and the toRGB
+// partials out (STAGE2_TF32, STAGE2), and float32 B3, its float32 output
+// (PACKED_TF32). Each predicate below names its modes.
 enum Mode { CONV_ACT = 0, AN_CONV2 = 1, CONV_ACT_TF32 = 2, AN_CONV2_TF32 = 3, STAGE1_TF32 = 4,
-            STAGE2_TF32 = 5 };
-template <int MODE> constexpr bool is_tf32 = MODE >= CONV_ACT_TF32;
+            STAGE2_TF32 = 5, STAGE1 = 6, STAGE2 = 7, PACKED_TF32 = 8 };
+template <int MODE> constexpr bool is_tf32 = MODE == CONV_ACT_TF32 || MODE == AN_CONV2_TF32 ||
+                                             MODE == STAGE1_TF32 || MODE == STAGE2_TF32 ||
+                                             MODE == PACKED_TF32;
 template <int MODE> constexpr bool is_conv2 = MODE == AN_CONV2 || MODE == AN_CONV2_TF32;
-template <int MODE> constexpr bool is_stage = MODE == STAGE1_TF32 || MODE == STAGE2_TF32;
+template <int MODE> constexpr bool writes_operand = MODE == STAGE1 || MODE == STAGE1_TF32;
+template <int MODE> constexpr bool writes_rgb = MODE == STAGE2 || MODE == STAGE2_TF32;
+template <int MODE> constexpr bool is_stage =
+    writes_operand<MODE> || writes_rgb<MODE> || MODE == PACKED_TF32;
+static_assert(!is_tf32<STAGE1> && !is_tf32<STAGE2> && is_tf32<STAGE1_TF32> &&
+              is_tf32<PACKED_TF32> && !is_stage<AN_CONV2_TF32>, "each mode's operand type");
 // the elements of a K-block row: 64 bfloat16 channels, or 32 float32 words
 // (16 channels' hi words, then their lo words)
 template <int MODE> constexpr int KE = is_tf32<MODE> ? 32 : 64;
@@ -182,7 +196,7 @@ constexpr int TF32_GROUP = 16;         // channels of a float32 K-block
 constexpr int DRAIN_STAGES = 1;
 constexpr int TF32_DRAIN_STAGES = 2;
 constexpr int TF32_CONV2_DRAIN_STAGES = 1;
-// a mode's drain period in stages; 0: none (bfloat16 B5)
+// a mode's drain period in stages; 0: none (bfloat16 B5, B2a and B4)
 template <int MODE> __host__ __device__ constexpr int drain_period() {
   return MODE == AN_CONV2 ? DRAIN_STAGES
          : MODE == AN_CONV2_TF32 ? TF32_CONV2_DRAIN_STAGES
@@ -211,15 +225,18 @@ template <int TH> struct Cfg {
 
 struct Args {
   const float* alpha;     // (Co,) PReLU slopes (act 1)
-  void* out;              // (B, Co, H, W): bfloat16 (CONV_ACT) or float32; STAGE1: z words
-                          // (B, H, W, 2 out_cp); STAGE2: z2 (B, H, W, Co) float32
+  void* out;              // (B, Co, H, W): bfloat16 (CONV_ACT) or float32; the packed convs
+                          // NHWC: STAGE1(_TF32) z (B, H, W, out_cp) bfloat16 or (B, H, W,
+                          // 2 out_cp) words; STAGE2(_TF32) z2, PACKED_TF32 out (B, H, W, Co)
+                          // in the operand type
   float* tile_part;       // B2b: (B, n_tiles, 2, Co)
   int H, W, Co, act, tiles_w, n_tiles, iters;
-  // B4's convs: noise (B, H, W, 4), read at phase co / (Co / 4); d, bias
-  // and (STAGE1, may be null) s_out (B, Co); STAGE2: k3sr (B, Co, 12) and
-  // the toRGB partials part (B, gridDim.y, H, W, 12); STAGE1: out_cp, Co
-  // padded to a multiple of TF32_GROUP
-  const float *noise, *d, *bias, *s_out, *k3sr;
+  // the packed convs: noise (B, H, W, 4), read at phase co / (Co / 4); d
+  // and bias (B, Co); STAGE1(_TF32): s_out (B, Co) and out_cp, Co padded
+  // to the operand's granule; STAGE2(_TF32): k3sr (B, Co, 12) in the
+  // operand type and the toRGB partials part (B, gridDim.y, H, W, 12)
+  const float *noise, *d, *bias, *s_out;
+  const void* k3sr;
   float* part;
   int out_cp;
 };
@@ -316,25 +333,30 @@ __device__ __forceinline__ float activate(float v, int act, float slope) {
   return v;
 }
 
-// B4's epilogues on a block's float32 sums acc (the accumulator layout of
-// tma_conv_kernel), by its 256 consumer threads (ct), NHWC:
-//   z  = lrelu(acc * d + noise[phase] + bias) * sqrt(2) * s_out (STAGE1),
-//        stored as conv2's words: per 16 channels their hi words, then their
-//        lo words (split_tf32), the channels from Co to out_cp zero;
-//   z2 = lrelu(acc * d + noise[phase] + bias) * sqrt(2) (STAGE2), stored in
-//        float32, then each pixel's toRGB partial over the block's channels,
-//        in channel order, into part[b, blockIdx.y, y, x, :].
+// The packed convs' epilogues on a block's float32 sums acc (the
+// accumulator layout of tma_conv_kernel), by its 256 consumer threads (ct),
+// NHWC, with a = lrelu(acc * d + noise[phase] + bias) * sqrt(2):
+//   STAGE1_TF32, STAGE1: z = a * s_out, stored as conv2's operand: words
+//        (per 16 channels their hi words, then their lo words, split_tf32)
+//        or one rounding to bfloat16; the channels from Co to out_cp zero;
+//   STAGE2_TF32, STAGE2: z2 = a, stored in float32 or rounded once to
+//        bfloat16, then each pixel's toRGB partial of z2 as stored over the
+//        block's channels, in channel order, into part[b, blockIdx.y, y, x, :];
+//   PACKED_TF32: a, stored in float32.
 // The tile is staged st[pixel][channel] in the ring, which both consumer
 // warpgroups are done with, so that a warp stores the 128 channels of one
 // pixel; the block's d, bias, s_out and toRGB weights and the tile's noise
 // lie behind it, so that the stores' loop reads no global memory (the
-// compiler could not move such reads ahead of the stores).
+// compiler could not move such reads ahead of the stores). A bfloat16 store
+// is 8 bytes: Co and out_cp are multiples of 4, so every row and every
+// 4-channel group starts on 8 bytes.
 template <int MODE, int TH>
 __device__ __forceinline__ void stage_epilogue(const float* acc, float* st, const Args& a, int ct,
                                                int m0, int tig, int b, int y0, int x0, int n0) {
   constexpr int N = Cfg<TH>::N, ND = Cfg<TH>::ND, SP = STAGE_SP;
-  constexpr bool CONV1 = MODE == STAGE1_TF32;
+  constexpr bool CONV1 = writes_operand<MODE>, RGB = writes_rgb<MODE>, BF16 = !is_tf32<MODE>;
   const int H = a.H, W = a.W, Co = a.Co, cmid = Co / 4;
+  const int out_c = CONV1 ? a.out_cp : Co;     // channels of an output row
   float* cd = st + N * SP;
   float* cb = cd + BM;
   float* cs = cb + BM;
@@ -346,11 +368,18 @@ __device__ __forceinline__ void stage_epilogue(const float* acc, float* st, cons
     const bool in = n0 + n < Co;
     cd[n] = in ? a.d[i] : 0.0f;
     cb[n] = in ? a.bias[i] : 0.0f;
-    cs[n] = in && a.s_out != nullptr ? a.s_out[i] : 1.0f;
+    if constexpr (CONV1) cs[n] = in ? a.s_out[i] : 1.0f;
   }
-  if constexpr (!CONV1) {
-    const float* k3sr = a.k3sr + ((int64_t)b * Co + n0) * 12;
-    for (int e = ct; e < BM * 12; e += 256) k3[e] = n0 + e / 12 < Co ? k3sr[e] : 0.0f;
+  if constexpr (RGB) {
+    const int64_t k0 = ((int64_t)b * Co + n0) * 12;
+    for (int e = ct; e < BM * 12; e += 256) {
+      float v = 0.0f;
+      if (n0 + e / 12 < Co) {
+        if constexpr (BF16) v = __bfloat162float(static_cast<const __nv_bfloat16*>(a.k3sr)[k0 + e]);
+        else v = static_cast<const float*>(a.k3sr)[k0 + e];
+      }
+      k3[e] = v;
+    }
   }
   for (int e = ct; e < N * 4; e += 256) {
     const int gy = y0 + e / 4 / TW, gx = x0 + e / 4 % TW;
@@ -365,7 +394,7 @@ __device__ __forceinline__ void stage_epilogue(const float* acc, float* st, cons
   for (int idx = ct; idx < N * (BM / 4); idx += 256) {
     const int px = idx / (BM / 4), n = idx % (BM / 4) * 4, co = n0 + n;
     const int gy = y0 + px / TW, gx = x0 + px % TW;
-    if (gy >= H || gx >= W || co >= (CONV1 ? a.out_cp : Co)) continue;
+    if (gy >= H || gx >= W || co >= out_c) continue;
     const int64_t pix = ((int64_t)b * H + gy) * W + gx;
     float* sp = st + px * SP + n;
     float v[4];
@@ -379,7 +408,18 @@ __device__ __forceinline__ void stage_epilogue(const float* acc, float* st, cons
       }
       v[u] = z;
     }
-    if constexpr (CONV1) {
+    if constexpr (BF16) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(a.out) + pix * out_c + co) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+      if constexpr (RGB) {                 // toRGB reads z2 as stored
+        sp[0] = __low2float(lo);
+        sp[1] = __high2float(lo);
+        sp[2] = __low2float(hi);
+        sp[3] = __high2float(hi);
+      }
+    } else if constexpr (CONV1) {
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) tc::split_tf32(v[u], hi[u], lo[u]);
@@ -390,11 +430,13 @@ __device__ __forceinline__ void stage_epilogue(const float* acc, float* st, cons
     } else {
       *reinterpret_cast<float4*>(static_cast<float*>(a.out) + pix * Co + co) =
           make_float4(v[0], v[1], v[2], v[3]);
+      if constexpr (RGB) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) sp[u] = v[u];   // toRGB reads z2 as stored
+        for (int u = 0; u < 4; ++u) sp[u] = v[u];   // toRGB reads z2 as stored
+      }
     }
   }
-  if constexpr (!CONV1) {
+  if constexpr (RGB) {
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
     // per pixel, 6 of the 12 outputs a thread, summed over the block's
     // channels in channel order
@@ -431,7 +473,8 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
   using C = Cfg<TH>;
   constexpr int N = C::N, ND = C::ND, S = C::S;
   constexpr bool CONV2 = is_conv2<MODE>, TF32 = is_tf32<MODE>;
-  constexpr bool F32_OUT = CONV2 || TF32;        // float32 outputs, from drained sums
+  constexpr bool F32_OUT = CONV2 || TF32;        // the NCHW modes' float32 outputs
+  constexpr bool DRAIN = drain_period<MODE>() > 0;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t ring = smem_addr(smem);
@@ -503,14 +546,15 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
   // The K loop, in periods of drain_period<MODE>() stages, whose products
   // go into t, fresh, and are added to acc once their groups have completed
   // (the drain; while a warpgroup drains, the other one's wgmmas keep the
-  // tensor cores busy); bfloat16 B5's of all stages, straight into acc.
+  // tensor cores busy); bfloat16 B5's, B2a's and B4's of all stages,
+  // straight into acc.
   // Within a period the previous stage's group runs on as the next one is
   // issued.
-  float acc[ND], t[F32_OUT ? ND : 1];
+  float acc[ND], t[DRAIN ? ND : 1];
 #pragma unroll
   for (int i = 0; i < ND; ++i) acc[i] = 0.0f;
-  float* const d = F32_OUT ? t : acc;
-  const int period = drain_period<MODE>() > 0 ? drain_period<MODE>() : a.iters;
+  float* const d = DRAIN ? t : acc;
+  const int period = DRAIN ? drain_period<MODE>() : a.iters;
   for (int p0 = 0; p0 < a.iters; p0 += period) {
     const int p1 = min(p0 + period, a.iters);
     for (int it = p0; it < p1; ++it) {
@@ -526,7 +570,7 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
       pin(d[i]);
-      if constexpr (F32_OUT) acc[i] += t[i];
+      if constexpr (DRAIN) acc[i] += t[i];
     }
   }
 

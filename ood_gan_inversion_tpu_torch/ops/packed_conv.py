@@ -8,15 +8,18 @@ tensor cores:
   * `fused_conv3x3_act` (B3) computes
     lrelu(conv3x3(x * s_in) * d_out + phase_bcast(noise4) + bias) * sqrt(2),
     the whole stage's conv1 without its s2 factor; `fused_packed_pair`
-    calls it twice, once per conv of the pair. Both dtypes run the `wgmma`
-    conv of csrc/tc_conv.cuh.
+    calls it twice, once per conv of the pair. float32 runs the TMA core of
+    csrc/tma_conv.cuh (3xTF32 on words split once: a repack launch writes
+    the words of x * s_in and of k, then the conv writes float32;
+    `conv_scratch` allocates the words), bfloat16 the `wgmma` conv of
+    csrc/tc_conv.cuh.
   * `fused_packed_stage` (B4) computes a whole packed stage: the pair, then
-    toRGB and the packed skip upsample. float32 runs its two convs on the
-    TMA core of csrc/tma_conv.cuh (3xTF32 on words split once: a repack
-    launch writes the words of x * s1 and of both kernels, conv1 writes z
-    as conv2's words; `stage_input_words`, `stage_weight_words` and
-    `stage_z_words` are their plain versions, `stage_scratch` allocates
-    them), bfloat16 on the core of csrc/tc_conv.cuh.
+    toRGB and the packed skip upsample. Both dtypes run its two convs on
+    the TMA core: a repack launch writes x * s1 and both kernels as the
+    core's operands (float32: 3xTF32 words; bfloat16: the values, channels
+    padded to a multiple of 8), conv1 writes z as conv2's operand;
+    `stage_input_words`, `stage_weight_words` and `stage_z_words` are their
+    plain versions in both dtypes, `stage_scratch` allocates them.
 
 Each wrapper launches its kernel for CUDA tensors and runs the kernel's
 plain version for CPU tensors; there is no fallback between the two.
@@ -46,7 +49,7 @@ import torch
 from . import batch_invariant as bi
 from .cuda_call import DTYPES, dispatch, entry, expect, launch, on_card, twin_function, widen
 from .polyphase import conv_packed
-from .samm_conv import tf32_words, tma_channels
+from .samm_conv import tma_row_len, tma_rows
 
 SQRT2 = math.sqrt(2.0)
 
@@ -139,41 +142,52 @@ def packed_stage_kernel_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b
     return _rgb(widen(z2), widen(k3sr), b3, widen(skip), widen(k4)).to(x.dtype), z2
 
 
-# ------------------------------------ the words of float32 B4's TMA convs
+# ------------------------------------- the operands of the packed TMA convs
 
 def stage_input_words(x, s1):
-    """conv1's input as the float32 B4 kernels read it: x * s1 (x (B, H, W,
-    C1) float32, s1 (C1,) or (B, C1)) in float32, as tf32_words (per 16
-    channels their hi words, then their lo words; C1 padded with zeros to
-    Cp1 = tma_channels(C1, float32)): (B, H, W, 2 Cp1). The plain version of
-    the repack launch's input part (csrc/packed_stage.cu:stage_repack_kernel)."""
-    return tf32_words(_scaled(x, s1), tma_channels(x.shape[-1], torch.float32))
+    """conv1's input as the TMA convs of B4 (and float32 B3, s1 = s_in) read
+    it: x * s1 as _scaled rounds it (float32: one product; bfloat16: s1
+    rounded to bfloat16 first, then the product), x (B, H, W, C1), s1 (C1,)
+    or (B, C1), as tma_rows rows: (B, H, W, 2 Cp1) words or (B, H, W, Cp1)
+    bfloat16. The plain version of the repack launch's input part
+    (csrc/packed_stage.cu:stage_repack_kernel)."""
+    return tma_rows(_scaled(x, s1))
 
 
 def stage_weight_words(k):
-    """An HWIO kernel k (3 [dy], 3 [dx], Ci, Co) float32 as the TMA core's
-    weights: (3 [dx], 3 [dy], Co, 2 Cp) words, [dx, dy, co] the words of
-    k[dy, dx, :, co], Cp = tma_channels(Ci, float32). The plain version of
-    the repack launch's weight part."""
-    return tf32_words(k.permute(1, 0, 3, 2), tma_channels(k.shape[2], torch.float32))
+    """An HWIO kernel k (3 [dy], 3 [dx], Ci, Co) as the TMA core's weights:
+    (3 [dx], 3 [dy], Co, .), [dx, dy, co] the tma_rows row of k[dy, dx, :,
+    co] (float32 words, or bfloat16 padded to a multiple of 8). The plain
+    version of the repack launch's weight part."""
+    return tma_rows(k.permute(1, 0, 3, 2))
 
 
 def stage_z_words(x, n1, k1, s1, d1, b1, s2):
-    """What float32 B4's conv1 writes: its activation z (as
-    packed_stage_kernel_reference computes it) as tf32_words, (B, H, W, 2
-    Cp4), Cp4 = tma_channels(C4, float32); conv2 reads it as its input."""
-    return tf32_words(_kernel_stage_z(x, n1, k1, s1, d1, b1, s2),
-                      tma_channels(k1.shape[-1], torch.float32))
+    """What B4's conv1 writes for conv2: its activation z (as
+    packed_stage_kernel_reference computes it, in x.dtype) as tma_rows rows,
+    (B, H, W, 2 Cp4) words or (B, H, W, Cp4) bfloat16 with the channels
+    past C4 zero; conv2 reads it as its input."""
+    return tma_rows(_kernel_stage_z(x, n1, k1, s1, d1, b1, s2))
+
+
+def conv_scratch(x, co):
+    """Uninitialised (xr, wr) for one TMA conv of x (B, H, W, Ci) to co
+    channels, which the repack launch fills: stage_input_words' and
+    stage_weight_words' shapes."""
+    b, h, w, ci = x.shape
+    n = tma_row_len(ci, x.dtype)
+    return x.new_empty((b, h, w, n)), x.new_empty((3, 3, co, n))
 
 
 def stage_scratch(x, c4):
-    """The scratch of one float32 B4 call on x (B, H, W, C1) with C4 packed
+    """The scratch of one B4 call on x (B, H, W, C1) with C4 packed
     channels, which its launches fill: {"xr": stage_input_words' shape,
     "w1r", "w2r": stage_weight_words' of k1 and k2, "z": stage_z_words'}."""
-    b, h, w, c1 = x.shape
-    cp1, cp4 = (2 * tma_channels(c, torch.float32) for c in (c1, c4))
-    return {"xr": x.new_empty((b, h, w, cp1)), "w1r": x.new_empty((3, 3, c4, cp1)),
-            "w2r": x.new_empty((3, 3, c4, cp4)), "z": x.new_empty((b, h, w, cp4))}
+    b, h, w, _ = x.shape
+    xr, w1r = conv_scratch(x, c4)
+    n4 = tma_row_len(c4, x.dtype)
+    return {"xr": xr, "w1r": w1r, "w2r": x.new_empty((3, 3, c4, n4)),
+            "z": x.new_empty((b, h, w, n4))}
 
 
 # ------------------------------------------------------------- CUDA kernels
@@ -193,9 +207,12 @@ def _conv3x3_act_run(x, noise4, k, s_in, d_out, bias):
     co = k.shape[-1]
     s_in, d_out, bias = _vec(s_in, b, ci), _vec(d_out, b, co), _vec(bias, b, co)
     out = x.new_empty((b, h, w, co))
+    # float32: the TMA core's words; bfloat16 runs the core of tc_conv.cuh
+    xr, wr = conv_scratch(x, co) if x.dtype == torch.float32 else (None, None)
     launch(fused_conv3x3_act, "packed conv3x3",
-           entry("packed_stage", "ogi_packed_conv3x3_act", 7, 6), x,
+           entry("packed_stage", "ogi_packed_conv3x3_act", 9, 6), x,
            *(t.data_ptr() for t in (x, noise4, k, s_in, d_out, bias, out)),
+           *(None if t is None else t.data_ptr() for t in (xr, wr)),
            b, h, w, ci, co, DTYPES[x.dtype])
     return out
 
@@ -229,8 +246,9 @@ def fused_packed_pair(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2):
     pre-scaled by the NoiseInjection weights; k1 (3, 3, C1, C4) packed
     upconv+blur kernel; s1 (B, C1); d1, s2, d2 (B, C4); b1, b2 (C4,) or
     (B, C4); k2 (3, 3, C4, C4). Returns (B, H, W, C4) in x.dtype. Two calls
-    of B3: on the card two launches, the first writing z to device memory in
-    x.dtype; on the CPU packed_pair_reference, conv by conv."""
+    of B3, the first writing z to device memory in x.dtype, which the
+    second scales by s2 (float32: its repack launch); on the CPU
+    packed_pair_reference, conv by conv."""
     z = fused_conv3x3_act(x, n1, k1, s1, d1, b1)
     return fused_conv3x3_act(z, n2, k2, s2, d2, b2)
 
@@ -239,7 +257,7 @@ def stage_pointers(*args):
     """(the 22 pointers of csrc/packed_stage.cu:ogi_packed_stage, rgb, z2,
     scratch) for a B4 call on CUDA tensors args (fused_packed_stage's): the
     per-sample operands made contiguous (B, C), the outputs and the scratch
-    allocated (float32: stage_scratch; bfloat16: z (B, H, W, C4)). scratch
+    (stage_scratch, and the toRGB partials "part") allocated. scratch
     also holds the contiguous operands ("operands"), so that they live until
     the launches are queued."""
     x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4 = args
@@ -249,10 +267,7 @@ def stage_pointers(*args):
     d1, b1, s2, d2, b2 = (_vec(v, b, c4) for v in (d1, b1, s2, d2, b2))
     n_cblocks = entry("packed_stage", "ogi_packed_stage_cblocks", 0, 1, stream=False)(c4)
     rgb, z2 = x.new_empty((b, h, w, 12)), x.new_empty((b, h, w, c4))
-    if x.dtype == torch.float32:
-        scratch = stage_scratch(x, c4)
-    else:
-        scratch = {"xr": None, "w1r": None, "w2r": None, "z": x.new_empty((b, h, w, c4))}
+    scratch = stage_scratch(x, c4)
     scratch["part"] = x.new_empty((b, n_cblocks, h, w, 12), dtype=torch.float32)
     scratch["operands"] = (s1, d1, b1, s2, d2, b2, b3)
     ptrs = (x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2, k3sr, b3, k4, rgb, z2,
@@ -279,15 +294,15 @@ def fused_packed_stage(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b2,
                        k3sr, b3, k4):
     """A whole packed stage through the B4 kernels (the JAX
     `fused_packed_stage`): one call of csrc/packed_stage.cu, which launches
-    conv1 and conv2 on the tensor cores and a pass that finishes rgb
-    (float32: after a repack launch). Arguments as fused_packed_pair, plus
+    a repack, conv1 and conv2 on the TMA core and a pass that finishes rgb.
+    Arguments as fused_packed_pair, plus
     skip (B, H, W, 3) coarse RGB, k3sr (B, C4, 12) toRGB kernel with the
     style scale folded in, b3 (12,) or (B, 12) float32, k4 (3, 3, 3, 12);
     skip, k3sr and k4 in x.dtype. Returns (rgb (B, H, W, 12), z2 (B, H, W,
     C4)), both in x.dtype; z2 is written even where the caller drops it.
-    conv1's activation goes through a scratch (bfloat16: (B, H, W, C4);
-    float32: its hi and lo words, stage_z_words), the toRGB partials of each
-    128-channel block through a float32 one.
+    conv1's activation goes through a scratch as conv2's operand
+    (stage_z_words), the toRGB partials of each 128-channel block through a
+    float32 one.
 
     The JAX package runs its stage kernel only where both channel counts
     are multiples of 128 (a lowering limit of the TPU compiler) and falls

@@ -103,23 +103,29 @@ def tf32_words(v, cp):
     return torch.cat([hi.reshape(groups), lo.reshape(groups)], -2).reshape(*hi.shape[:-1], 2 * cp)
 
 
+def tma_rows(v):
+    """v (..., C) as rows of the TMA kernel's operands: float32 as
+    tf32_words (Cp = tma_channels(C, float32), 2 Cp words a row), the values
+    split once; any other dtype (the bfloat16 kernel's) as it lies, Cp =
+    tma_channels(C) channels. The channels past C are zero."""
+    cp = tma_channels(v.shape[-1], v.dtype)
+    if v.dtype == torch.float32:
+        return tf32_words(v, cp)
+    return F.pad(v, (0, cp - v.shape[-1])).contiguous()
+
+
+def tma_row_len(c, dtype):
+    """The elements of a tma_rows row of c channels of `dtype`."""
+    return tma_channels(c, dtype) * (2 if dtype == torch.float32 else 1)
+
+
 def tma_operands(x, k):
     """The operands of the TMA kernel (csrc/tma_conv.cuh) from x (B, C, H, W)
     and k (Co, C, 3, 3): x as NHWC (B, H, W, .) and k as (3, 3, Co, .)
-    indexed [dx, dy, co, .], so that [dx, dy] = k[:, :, dy, dx]. float32:
-    each channel row as tf32_words (hi and lo words, Cp =
-    tma_channels(C, float32), 2 Cp words), the values split once; any other
-    dtype (the bfloat16 kernel's): the values as they lie, Cp =
-    tma_channels(C) channels. The channels past C are zero. The plain version
-    of the kernel's repack pass (tma_conv.cuh:repack_kernel,
-    repack_tf32_kernel)."""
-    xr, wr = x.permute(0, 2, 3, 1), k.permute(3, 2, 0, 1)
-    cp = tma_channels(x.shape[1], x.dtype)
-    if x.dtype == torch.float32:
-        return tf32_words(xr, cp), tf32_words(wr, cp)
-    pad = (0, cp - x.shape[1])
-    return (F.pad(xr, pad).contiguous(),
-            F.pad(wr, pad).contiguous())
+    indexed [dx, dy, co, .], so that [dx, dy] = k[:, :, dy, dx], each channel
+    row as tma_rows. The plain version of the kernel's repack pass
+    (tma_conv.cuh:repack_kernel, repack_tf32_kernel)."""
+    return tma_rows(x.permute(0, 2, 3, 1)), tma_rows(k.permute(3, 2, 0, 1))
 
 
 def tma_scratch(x, k):
@@ -127,7 +133,7 @@ def tma_scratch(x, k):
     batch and image size and the weights k (Co, Ci, 3, 3), which the repack
     pass fills."""
     b, _, h, w = x.shape
-    n = tma_channels(k.shape[1], x.dtype) * (2 if x.dtype == torch.float32 else 1)
+    n = tma_row_len(k.shape[1], x.dtype)
     return x.new_empty((b, h, w, n)), k.new_empty((3, 3, k.shape[0], n))
 
 

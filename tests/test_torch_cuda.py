@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (warp-blend in its three
 instantiations, the packed conv B3, the packed stage B4, also on bands
-(float32 B4 through the TMA kernel, its repack and conv1's z words), the
+(B4 in both dtypes and float32 B3 through the TMA kernel, their repack and
+conv1's z operand), the
 AlignNet body0 kernels B2a and B2b, the conv3x3 + activation B5 (all three
 in both dtypes through the TMA kernel and its repack pass, B2a's in its x1
 mode) and the halo probe) against their plain PyTorch versions on
@@ -295,12 +296,15 @@ def test_packed_conv_bf16_rounds_x_s_in_on_card(cuda):
 
 @pytest.mark.cuda
 def test_packed_pair_launches_the_conv_kernel_twice(cuda):
+    """float32 fused_packed_pair: two B3 calls, each one TMA conv launch."""
     a, ref_args = packed_operands(cuda, 2, 32, 32, 16, 32, torch.float32)
     before = packed_conv.fused_conv3x3_act.launches
+    tma_before = tma_launches("packed_stage")
     out = packed_conv.fused_packed_pair(*(a[k] for k in PAIR_KEYS))
     ref = packed_conv.packed_pair_reference(*(ref_args[k] for k in PAIR_KEYS))
     torch.cuda.synchronize()
     assert packed_conv.fused_conv3x3_act.launches == before + 2
+    assert tma_launches("packed_stage") == tma_before + 2
     assert rel_err(out, ref) <= PACKED_TOL
 
 
@@ -322,12 +326,125 @@ def test_packed_kernels_give_each_batch_slot_its_own_result(cuda):
 
 
 def stage_step(a, ptrs, step):
-    """One step of float32 B4 (ogi_packed_stage_step) on a's operands."""
-    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    """One step of B4 (ogi_packed_stage_step) on a's operands, in x's dtype."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import DTYPES, entry
     b, h, w, c1 = a["x"].shape
-    err = entry("packed_stage", "ogi_packed_stage_step", 22, 6)(
-        *ptrs, b, h, w, c1, a["k1"].shape[-1], step, torch.cuda.current_stream().cuda_stream)
+    err = entry("packed_stage", "ogi_packed_stage_step", 22, 7)(
+        *ptrs, b, h, w, c1, a["k1"].shape[-1], DTYPES[a["x"].dtype], step,
+        torch.cuda.current_stream().cuda_stream)
     assert err == 0, (step, err)
+
+
+def per_slot(a, b, s):
+    """Slot s of a's per-sample operands (the kernels k1, k2, k4 whole)."""
+    return {k: (v[s:s + 1].contiguous() if v.dim() > 1 and v.shape[0] == b and k not in
+                ("k1", "k2", "k4") else v) for k, v in a.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("h,w,ci,co", [(256, 256, 128, 256),   # 512px stage conv1
+                                       (256, 256, 256, 256),   # 512px stage conv2
+                                       (512, 512, 64, 128),    # 1024px stage conv1
+                                       (512, 512, 128, 128),   # 1024px stage conv2
+                                       (37, 45, 12, 20),       # ragged: Ci, Co / 4 off 16
+                                       (130, 70, 64, 128)])    # band-like: H % 4 != 0
+def test_packed_conv_f32_tma_slot_bitwise(cuda, b, h, w, ci, co):
+    """float32 B3 on the TMA kernel: one call launches it once
+    (ogi_tma_conv_launches + 1), within PACKED_TOL of max|ref| of its plain
+    version, each slot bit-identical to that sample alone."""
+    names = ("x", "n1", "k1", "s1", "d1", "b1")
+    a, _ = packed_operands(cuda, b, h, w, ci, co, torch.float32, seed=ci + h + b)
+    before = tma_launches("packed_stage")
+    out = packed_conv.fused_conv3x3_act(*(a[k] for k in names))
+    torch.cuda.synchronize()
+    assert tma_launches("packed_stage") == before + 1
+    ref = packed_conv.packed_conv3x3_act_kernel_reference(*(a[k] for k in names))
+    assert out.shape == ref.shape and rel_err(out, ref) <= PACKED_TOL
+    for s in range(b):
+        one = per_slot(a, b, s)
+        alone = packed_conv.fused_conv3x3_act(*(one[k] for k in names))
+        torch.cuda.synchronize()
+        assert torch.equal(out[s:s + 1], alone), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c1,c4", [(1, 64, 64, 128, 256), (2, 64, 64, 64, 128),
+                                         (2, 37, 45, 20, 24)])
+def test_packed_pair_f32_on_cancelling_inputs(cuda, b, h, w, c1, c4):
+    """float32 fused_packed_pair on `packed_cancel_inputs` (both convs
+    cancel a large common offset; hi*hi alone misses by >10x,
+    tests/test_torch_tma_packed.py): two TMA launches, within PACKED_TOL of
+    max|ref| of packed_pair_reference, each slot bit-identical alone."""
+    a, _ = packed_operands(cuda, b, h, w, c1, c4, torch.float32, seed=c1,
+                           inputs=packed_cancel_inputs)
+    before = tma_launches("packed_stage")
+    out = packed_conv.fused_packed_pair(*(a[k] for k in PAIR_KEYS))
+    torch.cuda.synchronize()
+    assert tma_launches("packed_stage") == before + 2
+    assert rel_err(out, packed_conv.packed_pair_reference(*(a[k] for k in PAIR_KEYS))) <= PACKED_TOL
+    for s in range(b):
+        one = per_slot(a, b, s)
+        alone = packed_conv.fused_packed_pair(*(one[k] for k in PAIR_KEYS))
+        torch.cuda.synchronize()
+        assert torch.equal(out[s:s + 1], alone), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c1,c4", [(2, 256, 256, 128, 256),   # 512px stage
+                                         (2, 512, 512, 64, 128),    # 1024px stage
+                                         (2, 37, 45, 12, 20),       # ragged: C4 % 8 == 4
+                                         (2, 19, 27, 37, 44),
+                                         (2, 130, 70, 64, 128)])    # band-like: H % 4 != 0
+def test_packed_stage_bf16_tma_slot_bitwise(cuda, b, h, w, c1, c4):
+    """bfloat16 B4 on the TMA kernel: one call launches its two convs there
+    (ogi_tma_conv_launches + 2); z2 and rgb within PACKED_TOL_BF16 of
+    max|ref| of its kernels' plain version on the same operands; each slot
+    bit-identical to that sample alone (b = 1)."""
+    a, _ = packed_operands(cuda, b, h, w, c1, c4, torch.bfloat16, seed=c1 + h)
+    before = tma_launches("packed_stage")
+    rgb, z2 = packed_conv.fused_packed_stage(*a.values())
+    torch.cuda.synchronize()
+    assert tma_launches("packed_stage") == before + 2
+    rgb_ref, z2_ref = packed_conv.packed_stage_kernel_reference(*a.values())
+    assert rgb.dtype == z2.dtype == torch.bfloat16
+    assert rel_err(z2, z2_ref.float()) <= PACKED_TOL_BF16
+    assert rel_err(rgb, rgb_ref.float()) <= PACKED_TOL_BF16
+    for s in range(b):
+        rgb1, z21 = packed_conv.fused_packed_stage(*per_slot(a, b, s).values())
+        torch.cuda.synchronize()
+        assert torch.equal(rgb[s:s + 1], rgb1) and torch.equal(z2[s:s + 1], z21), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c1,c4", [(1, 64, 64, 128, 256), (2, 19, 27, 12, 20),
+                                         (1, 33, 40, 37, 44)])
+def test_packed_stage_bf16_operands_on_card(cuda, b, h, w, c1, c4):
+    """bfloat16 B4's operands on the card: the repack launch writes
+    stage_input_words(x, s1) (x * s1 rounded as JAX rounds it) and
+    stage_weight_words(k1), (k2) bit for bit; conv1 writes z as conv2's
+    operand, its pad channels zero bits, its channels within
+    PACKED_TOL_BF16 of max|ref| of the plain version's z; then conv2 and
+    the rgb pass give the call's z2 and rgb."""
+    a, _ = packed_operands(cuda, b, h, w, c1, c4, torch.bfloat16, seed=c4)
+    ptrs, rgb, z2, scratch = packed_conv.stage_pointers(*a.values())
+    stage_step(a, ptrs, 0)
+    torch.cuda.synchronize()
+    i16 = lambda v: v.view(torch.int16)
+    assert torch.equal(i16(scratch["xr"]), i16(packed_conv.stage_input_words(a["x"], a["s1"])))
+    for key, k in (("w1r", "k1"), ("w2r", "k2")):
+        assert torch.equal(i16(scratch[key]), i16(packed_conv.stage_weight_words(a[k]))), key
+    stage_step(a, ptrs, 1)
+    torch.cuda.synchronize()
+    z = scratch["z"]
+    assert z.shape[-1] % 8 == 0 and not i16(z[..., c4:]).any()
+    z_ref = packed_conv._kernel_stage_z(*(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1", "s2")))
+    assert rel_err(z[..., :c4], z_ref.float()) <= PACKED_TOL_BF16
+    for step in (2, 3):
+        stage_step(a, ptrs, step)
+    rgb_call, z2_call = packed_conv.fused_packed_stage(*a.values())
+    torch.cuda.synchronize()
+    assert torch.equal(rgb, rgb_call) and torch.equal(z2, z2_call)
 
 
 @pytest.mark.cuda
@@ -345,9 +462,7 @@ def test_packed_stage_f32_tma_slot_bitwise(cuda, b, h, w, c1, c4):
     assert tma_launches("packed_stage") == before + 2
     rgb, z2 = packed_conv.fused_packed_stage(*a.values())
     for s in range(b):
-        one = {k: (v[s:s + 1].contiguous() if v.dim() > 1 and v.shape[0] == b and k not in
-                   ("k1", "k2", "k4") else v) for k, v in a.items()}
-        rgb1, z21 = packed_conv.fused_packed_stage(*one.values())
+        rgb1, z21 = packed_conv.fused_packed_stage(*per_slot(a, b, s).values())
         torch.cuda.synchronize()
         assert torch.equal(rgb[s:s + 1], rgb1) and torch.equal(z2[s:s + 1], z21), s
 

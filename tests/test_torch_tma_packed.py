@@ -1,4 +1,5 @@
-"""float32 B4 and B2b on the TMA core (csrc/tma_conv.cuh) on the CPU.
+"""B4 in both dtypes, float32 B3 and float32 B2b on the TMA core
+(csrc/tma_conv.cuh) on the CPU.
 
 B4: the plain versions of its words -- `packed_conv.stage_input_words` (x *
 s1 in float32, split once into hi and lo words, 16 channels of each per
@@ -13,6 +14,18 @@ plain version within the float32 tolerance at ragged shapes and on
 `packed_cancel_inputs`, where hi*hi alone misses by more than 10x, and once
 against JAX's `fused_packed_stage` (its Pallas kernel in interpret mode).
 
+float32 B3: the same words of x * s_in and k, the conv emulated from them
+and its epilogue, against B3's kernel's plain version at ragged shapes and
+on the cancelling inputs, the pair as two such convs (the second repacking
+the first's float32 output times s2) against `packed_pair_reference`, and
+once against JAX's `fused_conv3x3_act` in interpret mode.
+
+bfloat16 B4: the same plain versions on bfloat16 operands (x * s1 rounded
+as `_scaled` rounds it, channels padded with zeros to a multiple of 8, no
+split), and the stage emulated from them in float64 with each output
+rounded once to bfloat16, against `packed_stage_kernel_reference` within
+2^-7 of max|ref|.
+
 B2b: the moments of the conv emulated from `samm_conv.tma_operands(z, k2)`
 against `alignnet_conv2_kernel_reference`'s. The kernels themselves are held
 against these plain versions on the card (tests/test_torch_cuda.py,
@@ -22,10 +35,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from test_torch_samm_tma import repacked_conv3x3
 from test_torch_tma_tf32 import LOW, TOL, bits, emulated_conv, planes, rel_err
-from torch_inputs import (conv_act_inputs, packed_cancel_inputs, packed_stage_inputs,
-                          tf32_cancel_inputs)
+from torch_inputs import (PAIR_KEYS, conv_act_inputs, packed_cancel_inputs,
+                          packed_stage_inputs, tf32_cancel_inputs)
 
 from ood_gan_inversion_tpu.ops import pallas_kernels as j_pk
 from ood_gan_inversion_tpu_torch.ops import alignnet, packed_conv, samm_conv
@@ -37,6 +52,9 @@ CANCEL = [(1, 12, 12, 32, 64), (2, 7, 9, 20, 24)]
 ORDER = ("x", "n1", "n2", "skip", "k1", "s1", "d1", "b1", "k2", "s2", "d2", "b2",
          "k3sr", "b3", "k4")
 ALL = ("lo*hi", "hi*lo", "hi*hi")
+CONV1 = ("x", "n1", "k1", "s1", "d1", "b1")
+TOL_BF16 = 2.0 ** -7    # bfloat16 outputs, of max|ref| (tests/test_torch_cuda.py)
+BF16_KEYS = ("x", "skip", "k1", "k2", "k3sr", "k4")
 
 
 def stage_inputs(case, inputs=packed_stage_inputs):
@@ -95,6 +113,9 @@ def test_stage_words_layout(case):
     for key, ref in (("xr", xr), ("w1r", packed_conv.stage_weight_words(a["k1"])),
                      ("w2r", packed_conv.stage_weight_words(a["k2"])), ("z", zr)):
         assert scratch[key].shape == ref.shape and scratch[key].dtype == ref.dtype, key
+    # float32 B3's scratch: the same words for its one conv
+    for t, ref in zip(packed_conv.conv_scratch(a["x"], c4), (xr, scratch["w1r"])):
+        assert t.shape == ref.shape and t.dtype == ref.dtype
 
 
 @pytest.mark.parametrize("case", RAGGED)
@@ -161,6 +182,152 @@ def test_stage_from_words_matches_jax():
     rgb_ref, z2_ref = j_pk.fused_packed_stage(*(jnp.asarray(a[k].numpy()) for k in ORDER))
     np.testing.assert_allclose(z2.numpy(), np.asarray(z2_ref), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_ref), rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------ float32 B3
+
+def emulated_b3(args, passes=ALL):
+    """float32 B3 as its kernels compute it, in float64: the conv from the
+    words of x * s_in and k (the repack launch's), then the epilogue (no
+    s2); args as packed_conv3x3_act_reference's."""
+    x, n4, k, s, d, bias = args
+    y = nhwc_conv(packed_conv.stage_input_words(x, s), packed_conv.stage_weight_words(k), passes)
+    return packed_conv._epilogue(y, n4.double(), d.double(), bias.double())
+
+
+def pair_convs(a):
+    """The argument tuples of the pair's two B3 calls, conv2 on conv1's
+    output as its plain version computes it."""
+    conv1 = tuple(a[k] for k in CONV1)
+    z = packed_conv.packed_conv3x3_act_kernel_reference(*conv1)
+    return conv1, (z, a["n2"], a["k2"], a["s2"], a["d2"], a["b2"])
+
+
+@pytest.mark.parametrize("case", CANCEL)
+def test_b3_from_words_on_cancelling_inputs(case):
+    """float32 B3 on packed_cancel_inputs, at both convs of the pair (each
+    cancels a large common offset): the three products stay within TOL of
+    B3's kernel's plain version, while hi*hi alone misses conv2 by more
+    than 10x and conv1, whose output carries b1's offset of 4, by more than
+    TOL."""
+    a = stage_inputs(case, packed_cancel_inputs)
+    for args, miss in zip(pair_convs(a), (TOL, 10 * TOL)):
+        ref = packed_conv.packed_conv3x3_act_kernel_reference(*args)
+        assert rel_err(emulated_b3(args), ref) <= TOL
+        assert rel_err(emulated_b3(args, ("hi*hi",)), ref) > miss
+
+
+@pytest.mark.parametrize("case,inputs", [(c, packed_stage_inputs) for c in RAGGED]
+                         + [(c, packed_cancel_inputs) for c in CANCEL])
+def test_pair_from_words_matches_plain(case, inputs):
+    """fused_packed_pair as the float32 kernels compute it: two B3 calls,
+    the second repacking the first's float32 output times s2 (the words of
+    its x * s_in), within TOL of packed_pair_reference, at ragged shapes and
+    on the cancelling inputs, where hi*hi alone misses by more than 10x."""
+    a = stage_inputs(case, inputs)
+    conv1, conv2 = pair_convs(a)
+    ref = packed_conv.packed_pair_reference(*(a[k] for k in PAIR_KEYS))
+
+    def pair(passes):
+        z = emulated_b3(conv1, passes).float()       # what the first call stores
+        return emulated_b3((z,) + conv2[1:], passes)
+    assert rel_err(pair(ALL), ref) <= TOL
+    if inputs is packed_cancel_inputs:
+        assert rel_err(pair(("hi*hi",)), ref) > 10 * TOL
+
+
+def test_b3_from_words_matches_jax():
+    """The emulated B3 against JAX's fused_conv3x3_act (its Pallas kernel in
+    interpret mode) at a micro size: within 2e-5, absolute plus relative."""
+    a = stage_inputs((2, 8, 12, 12, 16))
+    args = tuple(a[k] for k in CONV1)
+    got = emulated_b3(args)
+    j = [jnp.asarray(v.numpy()) for v in args]
+    j[5] = jnp.broadcast_to(j[5][None], (2, j[5].shape[0]))     # bias (B, Co)
+    ref = j_pk.fused_conv3x3_act(*j, band=4, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+# ----------------------------------------------------------- bfloat16 B4
+
+def bf16_inputs(case):
+    """stage_inputs with x, skip and the kernels rounded to bfloat16."""
+    a = stage_inputs(case)
+    for k in BF16_KEYS:
+        a[k] = a[k].to(torch.bfloat16)
+    return a
+
+
+def check_padded(t, want, c):
+    """t (..., Cp) bfloat16: want (..., c) bit for bit, then zero bits, Cp
+    the multiple of 8 at or above c."""
+    assert t.dtype == torch.bfloat16 and t.is_contiguous()
+    assert t.shape[-1] % 8 == 0 and c <= t.shape[-1] < c + 8
+    assert torch.equal(t[..., :c].view(torch.int16), want.contiguous().view(torch.int16))
+    assert not t[..., c:].view(torch.int16).any()
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_bf16_stage_operands_layout(case):
+    """The bfloat16 repack's plain versions at ragged shapes: x * s1 with s1
+    rounded to bfloat16 first, then the product rounded (which differs from
+    rounding the float32 product), channels padded with zeros to a multiple
+    of 8; k1, k2 laid out [dx, dy, co, ci] likewise; conv1's z operand is
+    _kernel_stage_z padded with zeros, bit for bit; the scratch of a
+    bfloat16 call has their shapes and dtype."""
+    b, h, w, c1, c4 = case
+    a = bf16_inputs(case)
+    xr = packed_conv.stage_input_words(a["x"], a["s1"])
+    assert xr.shape[:3] == (b, h, w)
+    xs = a["x"] * a["s1"].to(torch.bfloat16)[:, None, None, :]
+    check_padded(xr, xs, c1)
+    unrounded = (a["x"].float() * a["s1"][:, None, None, :]).to(torch.bfloat16)
+    assert not torch.equal(xs, unrounded)
+    w1r, w2r = (packed_conv.stage_weight_words(a[k]) for k in ("k1", "k2"))
+    for wr, k, ci in ((w1r, "k1", c1), (w2r, "k2", c4)):
+        assert wr.shape[:3] == (3, 3, c4)
+        for dx in range(3):
+            for dy in range(3):
+                check_padded(wr[dx, dy], a[k][dy, dx].T, ci)
+    conv1 = [a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1", "s2")]
+    zr = packed_conv.stage_z_words(*conv1)
+    check_padded(zr, packed_conv._kernel_stage_z(*conv1), c4)
+    scratch = packed_conv.stage_scratch(a["x"], c4)
+    for key, ref in (("xr", xr), ("w1r", w1r), ("w2r", w2r), ("z", zr)):
+        assert scratch[key].shape == ref.shape and scratch[key].dtype == ref.dtype, key
+
+
+def emulated_stage_bf16(a):
+    """(rgb, z2, z) of bfloat16 B4 as its kernels compute it from the
+    operands, in float64 with one rounding to bfloat16 per output: conv1
+    from stage_input_words and stage_weight_words, its epilogue times s2
+    (z); conv2 from z's padded operand; toRGB of z2 as stored and the skip
+    upsample."""
+    d = {k: v.double() for k, v in a.items()}
+    bf = lambda v: v.float().to(torch.bfloat16)
+    y1 = repacked_conv3x3(packed_conv.stage_input_words(a["x"], a["s1"]),
+                          packed_conv.stage_weight_words(a["k1"])).permute(0, 2, 3, 1)
+    z = bf(packed_conv._epilogue(y1, d["n1"], d["d1"], d["b1"])
+           * packed_conv._per_sample(d["s2"], y1.shape[0]))
+    y2 = repacked_conv3x3(F.pad(z, (0, samm_conv.tma_channels(z.shape[-1]) - z.shape[-1])),
+                          packed_conv.stage_weight_words(a["k2"])).permute(0, 2, 3, 1)
+    z2 = bf(packed_conv._epilogue(y2, d["n2"], d["d2"], d["b2"]))
+    rgb = bf(packed_conv._rgb(z2.double(), d["k3sr"], d["b3"], d["skip"], d["k4"]))
+    return rgb, z2, z
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_bf16_stage_from_operands_matches_b4(case):
+    """bfloat16 B4 emulated from its operands: z, z2 and rgb within 2^-7 of
+    max|ref| of the kernels' plain version (packed_stage_kernel_reference,
+    _kernel_stage_z) in bfloat16."""
+    a = bf16_inputs(case)
+    rgb, z2, z = emulated_stage_bf16(a)
+    rgb_ref, z2_ref = packed_conv.packed_stage_kernel_reference(*(a[k] for k in ORDER))
+    z_ref = packed_conv._kernel_stage_z(*(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1", "s2")))
+    assert rgb.dtype == rgb_ref.dtype == z2_ref.dtype == torch.bfloat16
+    for got, ref in ((z, z_ref), (z2, z2_ref), (rgb, rgb_ref)):
+        assert got.shape == ref.shape and rel_err(got, ref) <= TOL_BF16
 
 
 def moments(y):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""What the TMA kernel's drains buy, and B2a and B4 on the TMA kernel, on a
-CUDA card: python3 tools/prof_tma_conv.py [--sections bf16,f32,b2b-f32,b4-f32]
+"""What the TMA kernel's drains buy, and B2a, B3 and B4 on the TMA kernel, on
+a CUDA card:
+python3 tools/prof_tma_conv.py [--sections bf16,f32,b2b-f32,b4-f32,b3-f32,b4-bf16]
 
-Four sections, all by default:
+Six sections, all by default:
 
 bf16. The bfloat16 path of B2b (csrc/tma_conv.cuh, `ogi_alignnet_conv2`)
 adds its products to its accumulator on the CUDA cores every DRAIN_STAGES
@@ -38,11 +39,17 @@ max|ref| of y2 and of both moments against the plain version
 y2^2, and its time (two readings in turns, zero-mean inputs), beside the
 float32 repack pass alone and cuDNN's float32 conv + moments.
 
-b4-f32. float32 B4 (csrc/packed_stage.cu on the TMA core) at both packed
-stages of the 1024px generator (b = 1): the whole call, and each of its
-launches alone (the repack, conv1 with z out as words, conv2 with z2 and
-the toRGB partials, the rgb pass), beside the tensor-core bound of the
-dense and of the useful convs.
+b4-f32, b4-bf16. B4 (csrc/packed_stage.cu on the TMA core) in float32 or
+bfloat16 at both packed stages of the 1024px generator (b = 1): the whole
+call, and each of its launches alone (the repack, conv1 with z out as
+conv2's operand, conv2 with z2 and the toRGB partials, the rgb pass),
+beside the tensor-core bound of the dense and of the useful convs (3xTF32
+or bfloat16).
+
+b3-f32. float32 B3 (csrc/packed_stage.cu on the TMA core, PACKED_TF32) at
+both convs of both packed stages (b = 1): the whole call and its two
+launches alone (the repack of x * s_in and k into words, the conv), beside
+the dense and useful 3xTF32 bounds of the conv.
 """
 
 import argparse
@@ -63,7 +70,7 @@ from ood_gan_inversion_tpu_torch import build  # noqa: E402
 from ood_gan_inversion_tpu_torch.ops import alignnet, samm_conv  # noqa: E402
 
 SCALES = [(32, 1024), (64, 1024), (128, 512), (256, 256)]   # (H = W, 2C)
-SECTIONS = ("bf16", "f32", "b2b-f32", "b4-f32")
+SECTIONS = ("bf16", "f32", "b2b-f32", "b4-f32", "b3-f32", "b4-bf16")
 
 
 KEY = "constexpr int DRAIN_STAGES = "
@@ -166,7 +173,11 @@ def main():
         for h, c in SCALES:
             b2b_f32_drain(h, c, libs, g)
     if "b4-f32" in sections:
-        b4_f32()
+        b4(torch.float32)
+    if "b3-f32" in sections:
+        b3_f32()
+    if "b4-bf16" in sections:
+        b4(torch.bfloat16)
     return 0
 
 
@@ -342,29 +353,63 @@ def b2b_f32_drain(h, c, libs, g):
           + ", " + ", ".join(f"{key} {v:.4f}" for key, v in ms.items()), flush=True)
 
 
-def b4_f32():
-    """float32 B4 at both packed stages (b = 1): the call and its launches
-    alone (chip_smoke.stage_step_ms), beside the bounds of its convs."""
+def b4(dtype):
+    """B4 in `dtype` at both packed stages (b = 1): the call and its
+    launches alone (chip_smoke.stage_step_ms), beside the bounds of its
+    convs."""
     from chip_smoke import PACKED_STAGES, conv_flops, packed_operands, stage_step_ms, tc_bound_ms
     from ood_gan_inversion_tpu_torch.ops.packed_conv import fused_packed_stage
+    itemsize, what = (4, "float32 B4, 3xTF32") if dtype == torch.float32 else (2, "bfloat16 B4")
     total = {}
     for h, c1, cmid in PACKED_STAGES:
         a = packed_operands(1, h, c1, cmid, seed=h + 1)
+        for k in ("x", "skip", "k1", "k2", "k3sr", "k4"):
+            a[k] = a[k].to(dtype)
         args = tuple(a.values())
         call = time_ms(lambda: fused_packed_stage(*args), iters=10)
         steps = stage_step_ms(args)
         (d1, u1), (d2, u2) = conv_flops(1, h, a["k1"]), conv_flops(1, h, a["k2"])
-        dense = tc_bound_ms(d1 + d2, 0, 4)[0]
-        useful = tc_bound_ms(u1 + u2, 0, 4)[0]
+        dense = tc_bound_ms(d1 + d2, 0, itemsize)[0]
+        useful = tc_bound_ms(u1 + u2, 0, itemsize)[0]
         conv_ms = steps["conv1"] + steps["conv2"]
-        print(f"{2 * h}px stage ({h}x{h}, {c1}->{4 * cmid}->{4 * cmid}) float32 B4: call "
+        print(f"{2 * h}px stage ({h}x{h}, {c1}->{4 * cmid}->{4 * cmid}) {what}: call "
               f"{call:.4f} ms; alone " + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
-              + f"; convs {conv_ms:.4f} ms against their dense 3xTF32 bound {dense:.4f} "
+              + f"; convs {conv_ms:.4f} ms against their dense bound {dense:.4f} "
               f"({dense / conv_ms:.0%}) and useful {useful:.4f} ({useful / conv_ms:.0%})",
               flush=True)
         for k, v in (("call", call), *steps.items(), ("dense bound", dense)):
             total[k] = total.get(k, 0.0) + v
-    print("float32 B4 per 1024px image (2 stages, b = 1): "
+    print(f"{what} per 1024px image (2 stages, b = 1): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in total.items()), flush=True)
+
+
+def b3_f32():
+    """float32 B3 at both convs of both packed stages (b = 1): the call and
+    its two launches alone (chip_smoke.conv_step_ms), beside the conv's
+    bounds."""
+    from chip_smoke import (PACKED_STAGES, conv_flops, conv_step_ms, packed_operands,
+                            tc_bound_ms)
+    from ood_gan_inversion_tpu_torch.ops.packed_conv import (fused_conv3x3_act,
+                                                             packed_conv3x3_act_reference)
+    total = {}
+    for h, c1, cmid in PACKED_STAGES:
+        a = packed_operands(1, h, c1, cmid, seed=h + 1)
+        conv1 = tuple(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1"))
+        z = packed_conv3x3_act_reference(*conv1)
+        for name, args in (("conv1", conv1), ("conv2", (z, a["n2"], a["k2"], a["s2"], a["d2"],
+                                                      a["b2"]))):
+            k = args[2]
+            call = time_ms(lambda: fused_conv3x3_act(*args), iters=10)
+            steps = conv_step_ms(args)
+            dense, useful = (tc_bound_ms(f, 0, 4)[0] for f in conv_flops(1, h, k))
+            print(f"{2 * h}px stage {name} ({h}x{h}, {k.shape[2]}->{k.shape[3]}) float32 B3: "
+                  f"call {call:.4f} ms; alone repack {steps['repack']:.4f}, conv "
+                  f"{steps['conv']:.4f}; the conv against its dense 3xTF32 bound {dense:.4f} "
+                  f"({dense / steps['conv']:.0%}) and useful {useful:.4f} "
+                  f"({useful / steps['conv']:.0%})", flush=True)
+            for key, v in (("call", call), *steps.items(), ("dense bound", dense)):
+                total[key] = total.get(key, 0.0) + v
+    print("float32 B3 per 1024px image (4 calls, b = 1): "
           + ", ".join(f"{k} {v:.4f}" for k, v in total.items()), flush=True)
 
 
