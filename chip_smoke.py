@@ -9,9 +9,9 @@
    kernel of csrc/tma_conv.cuh, one launch of it per call, its repack pass
    (B2a's builds x1) and its host-side tensor-map encoding timed apart;
    B4's two convs in both dtypes through the same kernel, two launches of
-   it per call, its launches timed apart; float32 B3 through it, one per
-   call, its repack launch timed apart; bfloat16 against the kernel's
-   plain version on the same operands), and
+   it per call, its launches timed apart; B3 in both dtypes through it,
+   one per call, its repack launch timed apart; bfloat16 against the
+   kernel's plain version on the same operands), and
    times the kernel, the plain version and the closest PyTorch library
    call with CUDA events.
 3. Drives the main path -- E4E inversion at 1024px with the IR-SE-50
@@ -501,9 +501,10 @@ def phase_packed_kernels():
     max_err = {"B3": 0.0, "B4": 0.0}
     bound_by = {"B3": {}, "B4": {}}        # per image: bound ms by what bounds it
     gflop = {"B3": [0.0, 0.0], "B4": [0.0, 0.0]}          # dense, useful per image
-    # the repack launches of float32 B3, float32 B4 and bfloat16 B4
-    repack_per_image = {"B3": 0.0, "B4": 0.0, "B4 bf16": 0.0}
-    bf16_steps = {}                                       # bfloat16 B4's launches per image
+    # the repack launches of B3 and B4 in each dtype
+    repack_per_image = {"B3": 0.0, "B4": 0.0, "B3 bf16": 0.0, "B4 bf16": 0.0}
+    # the bfloat16 kernels' launches per image: {launch: [ms, bound, cudnn]}
+    bf16_steps = {"B3": {}, "B4": {}}
     conv_names = ("x", "n1", "k1", "s1", "d1", "b1")
     for h, c1, cmid in PACKED_STAGES:
         c4, stage = 4 * cmid, f"{2 * h}px stage"
@@ -530,8 +531,15 @@ def phase_packed_kernels():
                 # the plain version in float32 on the input as JAX rounds it:
                 # x * s_in in bfloat16, s_in rounded first
                 xs = (xb * s[:, None, None, :].to(torch.bfloat16)).float()
+                tma_before = tma_launches("packed_stage")
+                outb = fused_conv3x3_act(*argsb)
+                torch.cuda.synchronize()
+                if tma_launches("packed_stage") != tma_before + 1:
+                    raise AssertionError(f"B3 {stage} {name} b={b} bf16: "
+                                         f"{tma_launches('packed_stage') - tma_before} TMA kernel "
+                                         "launches, expected 1")
                 errb, limb = check_close(
-                    f"B3 {stage} {name} b={b} bf16", fused_conv3x3_act(*argsb),
+                    f"B3 {stage} {name} b={b} bf16", outb,
                     packed_conv3x3_act_reference(xs, n4, kb.float(), torch.ones_like(s), d, bias),
                     PACKED_TOL_BF16)
                 xn, n4n = x.permute(0, 3, 1, 2), n4.permute(0, 3, 1, 2)
@@ -548,15 +556,38 @@ def phase_packed_kernels():
                 t["bf16_library_ms"] = time_ms(lib_b, iters=10)
                 steps = conv_step_ms(args)
                 dense, useful = conv_flops(b, h, k)
-                epi = 5 * b * h * h * co
-                nbytes = lambda isz: ((b * h * h * (ci + co) + 9 * ci * co) * isz
-                                      + b * h * h * 16 + 4 * b * (ci + 2 * co))
+                px = b * h * h
+                epi = 5 * px * co
+                nbytes = lambda isz: ((px * (ci + co) + 9 * ci * co) * isz
+                                      + px * 16 + 4 * b * (ci + 2 * co))
                 t["bound_ms"], by = tc_bound_ms(useful + epi, nbytes(4), 4)
                 cc_ms, cc_by = bound_ms(useful + epi, nbytes(4), FP32_FLOPS)
                 t["cc_bound_ms"] = cc_ms
                 dense_ms, _ = bound_ms(dense + epi, nbytes(4), FP32_FLOPS)
                 bf16_ms, bf16_by = tc_bound_ms(useful + epi, nbytes(2), 2)
                 t["bf16_bound_ms"] = bf16_ms
+                # bfloat16 B3's two launches alone, each beside its bound and
+                # cuDNN's call (none for the repack)
+                steps_b = conv_step_ms(argsb)
+                cp = -(-ci // 8) * 8
+                step_bounds = {       # (flops, bytes) of each bfloat16 launch
+                    "repack": (0, 2 * (px * (ci + cp) + 9 * co * (ci + cp)) + 4 * b * ci),
+                    "conv": (useful + epi, 2 * (px * (cp + co) + 9 * co * cp)
+                             + 4 * (px * 4 + 2 * b * co))}
+                step_text = []
+                for step, step_ms in steps_b.items():
+                    sb_ms, sb_by = tc_bound_ms(*step_bounds[step], 2)
+                    lib_ms = t["bf16_library_ms"] if step == "conv" else None
+                    step_text.append(f"{step} {step_ms:.4f} (bound {sb_ms:.4f}, {sb_by}; cudnn "
+                                     + ("none" if lib_ms is None else f"{lib_ms:.4f}") + ")")
+                    if b == 1:
+                        acc = bf16_steps["B3"].setdefault(step, [0.0, 0.0, 0.0])
+                        acc[0] += step_ms
+                        acc[1] += sb_ms
+                        acc[2] += lib_ms or 0.0
+                log(f"[kernel] B3 {stage} {name} b={b} bf16 on the TMA core, its launches alone "
+                    "(ms): " + ", ".join(step_text)
+                    + f"; the repack {steps_b['repack'] / msb:.1%} of the call")
                 log(f"[kernel] B3 {stage} {name} b={b} ({h}x{h}, {ci}->{co}): fp32 "
                     f"max|err| {err:.3e} <= {lim:.3e}, bf16 {errb:.3e} <= {limb:.3e}; "
                     f"kernel {t['ms']:.4f} ms (TMA core; its launches alone: repack "
@@ -576,6 +607,7 @@ def phase_packed_kernels():
                     for key in keys:
                         per_image["B3"][key] += t[key]
                     repack_per_image["B3"] += steps["repack"]
+                    repack_per_image["B3 bf16"] += steps_b["repack"]
                     gflop["B3"][0] += dense / 1e9
                     gflop["B3"][1] += useful / 1e9
             # ---- B4: the whole stage; float32: two TMA kernel launches
@@ -681,7 +713,7 @@ def phase_packed_kernels():
                 step_text.append(f"{name} {step_ms:.4f} (bound {sb_ms:.4f}, {sb_by}; cudnn "
                                  + ("none" if lib_ms is None else f"{lib_ms:.4f}") + ")")
                 if b == 1:
-                    acc = bf16_steps.setdefault(name, [0.0, 0.0, 0.0])
+                    acc = bf16_steps["B4"].setdefault(name, [0.0, 0.0, 0.0])
                     acc[0] += step_ms
                     acc[1] += sb_ms
                     acc[2] += lib_ms or 0.0
@@ -714,19 +746,18 @@ def phase_packed_kernels():
             ("B4", "fused_packed_stage", "packed_stage.cu", 275)):
         pi = per_image[kid]
         text = f"; {gflop[kid][0]:.2f} dense, {gflop[kid][1]:.2f} useful GFLOP"
-        tma, tc = (f"ood_gan_inversion_tpu_torch/csrc/{f}" for f in ("tma_conv.cuh", "tc_conv.cuh"))
+        tma = "ood_gan_inversion_tpu_torch/csrc/tma_conv.cuh"
         # the core of each dtype's convs, and the repack launch per image
-        extra = {"f32_core": tma, "bf16_core": tma if kid == "B4" else tc,
-                 "repack_ms": repack_per_image[kid]}
+        extra = {"f32_core": tma, "bf16_core": tma, "repack_ms": repack_per_image[kid],
+                 "bf16_repack_ms": repack_per_image[f"{kid} bf16"]}
         text += (f"; f32: {pi['bound_ms'] / pi['ms']:.0%} of its bound, kernel / cudnn "
                  f"{pi['ms'] / pi['library_ms']:.2f}, the repack {repack_per_image[kid]:.4f} "
                  f"({repack_per_image[kid] / pi['ms']:.1%}); bf16: "
                  f"{pi['bf16_bound_ms'] / pi['bf16_ms']:.0%} of its bound, kernel / cudnn "
-                 f"{pi['bf16_ms'] / pi['bf16_library_ms']:.2f}")
-        if kid == "B4":
-            extra["bf16_repack_ms"] = repack_per_image["B4 bf16"]
-            text += ("; bf16 launches alone per image (ms, bound, cudnn): " + ", ".join(
-                f"{k} {v[0]:.4f} / {v[1]:.4f} / {v[2]:.4f}" for k, v in bf16_steps.items()))
+                 f"{pi['bf16_ms'] / pi['bf16_library_ms']:.2f}, the repack "
+                 f"{repack_per_image[kid + ' bf16']:.4f}")
+        text += ("; bf16 launches alone per image (ms, bound, cudnn): " + ", ".join(
+            f"{k} {v[0]:.4f} / {v[1]:.4f} / {v[2]:.4f}" for k, v in bf16_steps[kid].items()))
         log(f"[kernel] {kid} {name} per image (b=1): "
             + ", ".join(f"{k} {v:.4f}" for k, v in pi.items()) + text)
         entries.append({"name": name, "route": "cuda",
@@ -762,10 +793,10 @@ def stage_step_ms(args):
 
 
 def conv_step_ms(args):
-    """{step: ms} of float32 B3's two launches one at a time on the
-    operands args (ogi_packed_conv3x3_act_step, L2 flushed): the repack of
-    x * s_in and k into words, then the conv on them."""
-    from ood_gan_inversion_tpu_torch.ops.cuda_call import entry
+    """{step: ms} of B3's two launches one at a time on the operands args,
+    in x's dtype (ogi_packed_conv3x3_act_step, L2 flushed): the repack of x
+    * s_in and k into the core's operands, then the conv on them."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import DTYPES, entry
     from ood_gan_inversion_tpu_torch.ops.packed_conv import _vec, conv_scratch
     x, n4, k, s, d, bias = args
     b, h, w, ci = x.shape
@@ -773,12 +804,12 @@ def conv_step_ms(args):
     s, d, bias = _vec(s, b, ci), _vec(d, b, co), _vec(bias, b, co)
     out = x.new_empty((b, h, w, co))
     xr, wr = conv_scratch(x, co)
-    fn = entry("packed_stage", "ogi_packed_conv3x3_act_step", 9, 6)
+    fn = entry("packed_stage", "ogi_packed_conv3x3_act_step", 9, 7)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (x, n4, k, s, d, bias, out, xr, wr)]
 
     def step(i):
-        err = fn(*ptrs, b, h, w, ci, co, i, stream)
+        err = fn(*ptrs, b, h, w, ci, co, DTYPES[x.dtype], i, stream)
         if err != 0:
             raise RuntimeError(f"B3 step {i}: error {err}")
     return {name: time_ms(lambda: step(i), iters=10) for i, name in enumerate(("repack", "conv"))}
@@ -1483,7 +1514,8 @@ def phase_bf16(engine, imgs, replies):
     path's slot bit for bit the lone request, the replies against the
     float32 engine's (bf16_compare), and the drift's profile through one
     forward. Then the bfloat16 kernel paths (packed tail "stage": B4;
-    body0 "fused": B2a, B2b; "literal" + samm_conv_kernel: B5): launch
+    "pair": B3; body0 "fused": B2a, B2b; "literal" + samm_conv_kernel:
+    B5): launch
     counts, the latents bit for bit the bfloat16 default's (the mask too
     for the tail, which lies after every SAMM block), the rest compared
     with the default. Returns the engines by name."""
@@ -1516,6 +1548,8 @@ def phase_bf16(engine, imgs, replies):
     engines = {"bf16 default": bf}
     modes = {"packed tail stage": ({"packed_tail": True, "tail_kernel": "stage"},
                                    {"fused_packed_stage": 2}),
+             "packed tail pair": ({"packed_tail": True, "tail_kernel": "pair"},
+                                  {"fused_conv3x3_act": 4}),
              "body0 fused": ({"samm_body0": "fused"},
                              {"alignnet_conv1": 8, "alignnet_conv2": 8}),
              "body0 literal + B5": ({"samm_body0": "literal", "samm_conv_kernel": True},
@@ -3288,17 +3322,15 @@ def phase_spatial(engine, imgs, tails, bf16s):
     ("pair": 2 launches per packed stage per band) and B4 ("stage": 1) in
     float32 and bfloat16 at min_h 512, each band on its window of coarse
     rows. Returns the launches of B1, B3 and B4."""
-    from ood_gan_inversion_tpu_torch.infer import InversionEngine
     from ood_gan_inversion_tpu_torch.parallel import make_mesh
     t_phase = time.time()
     launches = dict.fromkeys(("warp_blend", "fused_conv3x3_act", "fused_packed_stage"), 0)
-    bf_pair = InversionEngine(e4e_opt(dtype="bfloat16"), params=engine.net.state_dict(),
-                              device="cuda", packed_tail=True, tail_kernel="pair")
     runs = [("default", engine, 512, {}), ("default", engine, 256, {}),
             ("default", engine, 128, {}),
             ("packed tail pair", tails["packed tail pair"], 512, {"fused_conv3x3_act": 4}),
             ("packed tail stage", tails["packed tail stage"], 512, {"fused_packed_stage": 2}),
-            ("bf16 packed tail pair", bf_pair, 512, {"fused_conv3x3_act": 4}),
+            ("bf16 packed tail pair", bf16s["bf16 packed tail pair"], 512,
+             {"fused_conv3x3_act": 4}),
             ("bf16 packed tail stage", bf16s["bf16 packed tail stage"], 512,
              {"fused_packed_stage": 2})]
     for label, eng, min_h, per_band in runs:
@@ -3327,8 +3359,6 @@ def phase_spatial(engine, imgs, tails, bf16s):
                 f"against invert {text}; launches {{{', '.join(f'{k}: {v}' for k, v in counts.items() if v)}}}; "
                 f"{ms:.2f} ms/img against invert's {ms_ref:.2f} (CUDA events, median of 3; "
                 f"bands on one card run one after another)")
-    del bf_pair
-    torch.cuda.empty_cache()
     log(f"[spatial] phase took {time.time() - t_phase:.1f} s")
     return launches
 
@@ -3705,13 +3735,15 @@ def main():
     reps = phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails,
                              **body0s, **bf16s,
                              "samm_conv_bf16 (body0 convs on cuDNN in bf16)": conv_bf16}, imgs)
-    # the packed-tail engines whose kernels run the TMA core: float32 "pair"
-    # (B3) and bfloat16 "stage" (B4), beside their dtype's default
+    # the packed-tail engines whose kernels run the TMA core: "pair" (B3)
+    # and "stage" (B4) in both dtypes, beside their dtype's default
     log("[main] packed tail on the TMA core, invert ms/img median (spread) of the same rounds: "
         + "; ".join(f"{name} {float(np.median(reps[name])):.2f} ({min(reps[name]):.2f}-"
                     f"{max(reps[name]):.2f})"
-                    for name in ("packed tail pair", "default (unpacked tail, body0 algebraic)",
-                                 "bf16 packed tail stage", "bf16 default")))
+                    for name in ("packed tail pair", "packed tail stage",
+                                 "default (unpacked tail, body0 algebraic)",
+                                 "bf16 packed tail pair", "bf16 packed tail stage",
+                                 "bf16 default")))
     del conv_bf16
     launches["warp_blend_taps_bf16"] = taps_launches
     for e in entries[1:]:

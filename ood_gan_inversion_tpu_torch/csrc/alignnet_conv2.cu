@@ -42,7 +42,7 @@ int sum_tiles(const void* tile_part, void* part, int B, int n_tiles, int Co, cud
 
 // The number of pixel tiles of ogi_alignnet_conv2 for an (H, W) image and C2
 // output channels: the second axis of its moments scratch.
-extern "C" int ogi_samm_conv_tiles(int H, int W, int C2) { return tc::tc_n_tiles(H, W, C2); }
+extern "C" int ogi_samm_conv_tiles(int H, int W, int C2) { return tma::pixel_tiles(H, W, C2); }
 
 // dtype 0 = float32, 1 = bfloat16 (z, k2 and their repacked copies): z (B,
 // C2, H, W) and k2 (C2, C2, 3, 3), contiguous; zr and wr scratch for their
@@ -63,5 +63,5 @@ extern "C" int ogi_alignnet_conv2(const void* z, const void* k2, void* zr, void*
   const int err = dtype == 0 ? tma::launch<tma::AN_CONV2_TF32>(z, k2, zr, wr, a, B, C2, st)
                              : tma::launch<tma::AN_CONV2>(z, k2, zr, wr, a, B, C2, st);
   if (err != 0) return err;
-  return sum_tiles(tile_part, part, B, tc::tc_n_tiles(H, W, C2), C2, st);
+  return sum_tiles(tile_part, part, B, tma::pixel_tiles(H, W, C2), C2, st);
 }

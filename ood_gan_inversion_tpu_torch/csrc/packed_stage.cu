@@ -43,8 +43,8 @@
 // depend on (H, W, C4) only, so a sample's outputs are the same bits in any
 // batch slot.
 //
-// B4 in both operand types and float32 B3 run their convs on the TMA core
-// of tma_conv.cuh (its notes say how), after one repack launch
+// B4 and B3, in both operand types, run their convs on the TMA core of
+// tma_conv.cuh (its notes say how), after one repack launch
 // (stage_repack_kernel), elementwise since x is NHWC already:
 //   * float32: x * s1 in float32 (s1 as given, one product, as the plain
 //     version rounds it), split into hi and lo words, channels padded to a
@@ -59,243 +59,26 @@
 // words (B, H, W, 2 Cp4) or bfloat16 (B, H, W, Cp4), the channels past C4
 // zero (uninitialised pad words could hold NaN) -- so conv2 (STAGE2_TF32,
 // STAGE2) reads it through TMA with no pass between; TMA's zero fill is
-// conv2's padding. float32 B3 (PACKED_TF32) writes its float32 output, so
-// fused_packed_pair's second call repacks conv1's output times s2, as the
-// plain version rounds it. ops/packed_conv.py:stage_input_words,
-// stage_weight_words and stage_z_words are the plain versions of the
-// operands in both types.
-//
-// bfloat16 B3 runs the implicit GEMM of tc_conv.cuh (wgmma, one bf16 pass,
-// each chunk's products in fresh fragments; stage_conv_kernel). In NHWC a
-// pixel's KC channels are contiguous, so each 16-byte K half of the B layout
-// is one 16-byte load of the input (plain loads where C is not a multiple of
-// the half). A chunk's HWIO slab, k[:, :, c0:c0+KC, n0:n0+128], is 9 * KC
-// rows of 128 contiguous output channels, copied as it lies by cp.async into
-// the ring; the A-fragments are gathered from it transposed (row = output
-// channel, k = input channel), at a row stride of 136 elements, so that a
-// gather hits all 32 banks.
+// conv2's padding. B3 (PACKED_TF32, PACKED) is the same repack with no k2,
+// then conv1 writing its output in the operand type, so fused_packed_pair's
+// second call repacks conv1's output times s2, as the plain version rounds
+// it (s2 is not folded into conv1's epilogue: that single rounding of a *
+// s2 is B4's function, not the pair's). ops/packed_conv.py:
+// stage_input_words, stage_weight_words and stage_z_words are the plain
+// versions of the operands in both types.
 //
 // Plain C interface (bound with ctypes): launches on the given stream and
 // returns cudaGetLastError().
 
-#include "tc_conv.cuh"
 #include "tma_conv.cuh"
 
 #include <type_traits>
 
 namespace {
 
-using namespace tc;
+using tma::from_f;
+using tma::to_f;
 using BF = __nv_bfloat16;
-
-// ------------------------------------- bfloat16 B3 on the core of tc_conv.cuh
-
-using C = Tile<4>;                 // 4 x 32 pixels per block at every shape
-constexpr int WSN = TN + 8;        // slab row stride, elements
-constexpr int SP = TN + 4;         // staged tile: pixel stride, floats
-constexpr int SLAB = 9 * KC * WSN; // elements of a chunk's weight slab
-constexpr int RING_BYTES = NSTAGE * SLAB * 2;
-// the staged float32 tile (P pixels x SP) reuses the ring once the main loop is done
-static_assert(C::P * SP * 4 <= RING_BYTES, "epilogue fits the ring");
-// the table of s_in follows the two input buffers
-constexpr int S1_OFFSET = RING_BYTES + 2 * C::PLANE;
-
-__device__ __forceinline__ float lrelu(float z) { return (z >= 0.0f ? z : 0.2f * z) * SQRT2; }
-
-__device__ __forceinline__ void store4(BF* p, const float v[4]) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 q;
-  q.x = *reinterpret_cast<const uint32_t*>(&a);
-  q.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = q;
-}
-
-__device__ __forceinline__ uint32_t scale2(uint32_t w, float s0, float s1) {
-  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w);
-  return pack_bf16(__float2bfloat16_rn(__low2float(v) * s0),
-                   __float2bfloat16_rn(__high2float(v) * s1));
-}
-// 8 bfloat16 values (16 bytes), each multiplied by s[i] and rounded to
-// bfloat16: x * s1 as the plain version computes it (s already rounded)
-__device__ __forceinline__ uint4 scale16(uint4 q, const float* s) {
-  return make_uint4(scale2(q.x, s[0], s[1]), scale2(q.y, s[2], s[3]),
-                    scale2(q.z, s[4], s[5]), scale2(q.w, s[6], s[7]));
-}
-
-struct ConvArgs {
-  const BF* x;            // (B, H, W, Cin)
-  const BF* k;            // (3, 3, Cin, Cout)
-  const float* noise;     // (B, H, W, 4)
-  const float* s_in;      // (B, Cin)
-  const float* d;         // (B, Cout)
-  const float* bias;      // (B, Cout)
-  BF* out;                // (B, H, W, Cout)
-  int H, W, Cin, Cout, tiles_w;
-  int vec;                // bytes per weight copy (16, 8, 4; else plain loads)
-  int vec_x;              // 1: the input's 16-byte halves are aligned 16-byte loads
-};
-
-// Block (pixel tile, channel block, sample): bfloat16 B3 on TN output
-// channels of a 4 x 32 tile; the main loop is conv_loop.
-__global__ void __launch_bounds__(THREADS, 1) stage_conv_kernel(const ConvArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int R = C::R, P = C::P, XN = C::XN, TW = C::TW;
-  constexpr int ND = C::N / 2;
-  constexpr int VE = 8;                            // channels per K half: one 16-byte vector
-  constexpr int NV = 2 * C::XPIX;                  // vectors of the halo chunk
-  constexpr int LV = (NV + THREADS - 1) / THREADS;
-  BF* ws = reinterpret_cast<BF*>(smem);
-  unsigned char* xs = smem + RING_BYTES;
-  float* s1s = reinterpret_cast<float*>(smem + S1_OFFSET);   // s_in rounded to bfloat16
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = (warp >> 2) * 64 + (warp & 3) * 16;      // the warp's first channel
-  const int b = blockIdx.z, tile = blockIdx.x;
-  const int y0 = (tile / a.tiles_w) * R, x0 = (tile % a.tiles_w) * TW;
-  const int n0 = blockIdx.y * TN;
-  const int H = a.H, W = a.W, Cin = a.Cin, Cout = a.Cout;
-  const BF* x = a.x + (int64_t)b * H * W * Cin;
-  const BF* k = a.k;
-  const int nchunks = (Cin + KC - 1) / KC;
-
-  for (int ci = tid; ci < nchunks * KC; ci += THREADS)
-    s1s[ci] = ci < Cin ? to_f(from_f<BF>(a.s_in[(int64_t)b * Cin + ci])) : 0.0f;
-  __syncthreads();
-
-  // the HWIO slab of `chunk` into ring buffer `stage`: row (tap, kc) is
-  // k[tap][c0 + kc][n0 .. n0 + 127], 0 past Cin and Cout
-  auto load_w = [&](int chunk, int stage) {
-    const int c0 = chunk * KC;
-    BF* dst = ws + stage * SLAB;
-    auto copies = [&](auto per_row_c) {
-      constexpr int PER_ROW = decltype(per_row_c)::value, E_PER = TN / PER_ROW;
-#pragma unroll 3
-      for (int p = tid; p < 9 * KC * PER_ROW; p += THREADS) {
-        const int row = p / PER_ROW, e = (p - row * PER_ROW) * E_PER;
-        const int tap = row / KC, ci = c0 + row - tap * KC, co = n0 + e;
-        const int valid = ci < Cin ? max(0, min(E_PER, Cout - co)) : 0;
-        const BF* src = valid ? k + ((int64_t)tap * Cin + ci) * Cout + co : k;
-        cp_async(dst + row * WSN + e, src, E_PER * 2, valid * 2);
-      }
-    };
-    const int per_row = a.vec >= 4 ? TN * 2 / a.vec : 0;
-    if (per_row == 16) copies(std::integral_constant<int, 16>());
-    else if (per_row == 32) copies(std::integral_constant<int, 32>());
-    else if (per_row == 64) copies(std::integral_constant<int, 64>());
-    else {
-      for (int p = tid; p < 9 * KC * TN; p += THREADS) {
-        const int row = p / TN, e = p - row * TN;
-        const int tap = row / KC, ci = c0 + row - tap * KC, co = n0 + e;
-        dst[row * WSN + e] = ci < Cin && co < Cout ? k[((int64_t)tap * Cin + ci) * Cout + co]
-                                                   : from_f<BF>(0.0f);
-      }
-    }
-  };
-
-  // the input chunk with its halo, 16 bytes (one K half of a pixel) per
-  // value: vector v is half v % 2 of halo pixel v / 2, so neighbouring
-  // lanes read a pixel's two halves (32 contiguous bytes) and store into
-  // different banks
-  uint4 xr[LV];
-  auto fetch_x = [&](int chunk) {
-    const int c0 = chunk * KC;
-#pragma unroll
-    for (int j = 0; j < LV; ++j) {
-      const int v = tid + j * THREADS, half = v & 1, pix = v >> 1;
-      const int r = pix / XN, c = pix - r * XN;
-      const int gy = y0 + r - 1, gx = x0 + c - 1, ci = c0 + half * VE;
-      uint4 q = make_uint4(0u, 0u, 0u, 0u);
-      if (v < NV && ci < Cin && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const BF* p = x + ((int64_t)gy * W + gx) * Cin + ci;
-        if (a.vec_x) {
-          q = __ldg(reinterpret_cast<const uint4*>(p));
-        } else {
-          uint32_t wd[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const uint32_t lo = ci + 2 * u < Cin ? __bfloat16_as_ushort(p[2 * u]) : 0u;
-            const uint32_t hi = ci + 2 * u + 1 < Cin ? __bfloat16_as_ushort(p[2 * u + 1]) : 0u;
-            wd[u] = lo | hi << 16;
-          }
-          q = make_uint4(wd[0], wd[1], wd[2], wd[3]);
-        }
-      }
-      xr[j] = q;
-    }
-  };
-  auto put_x = [&](int chunk) {
-    unsigned char* base = xs + (chunk & 1) * C::PLANE;
-#pragma unroll
-    for (int j = 0; j < LV; ++j) {
-      const int v = tid + j * THREADS, half = v & 1, pix = v >> 1;
-      if (v >= NV) continue;
-      *reinterpret_cast<uint4*>(base + half * C::HALF + pix * 16) =
-          scale16(xr[j], s1s + chunk * KC + half * VE);
-    }
-    // these generic-proxy stores are read by wgmma through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  };
-
-  // A-fragments from the HWIO slab, transposed: row = output channel (the
-  // slab's column), k = input channel (the slab's row within the tap)
-  auto frag = [&](int stage, int tap, uint32_t (&w)[4]) {
-    const BF* wp = ws + stage * SLAB + tap * KC * WSN + m0 + gid;
-    w[0] = pack_bf16(wp[2 * tig * WSN], wp[(2 * tig + 1) * WSN]);
-    w[1] = pack_bf16(wp[2 * tig * WSN + 8], wp[(2 * tig + 1) * WSN + 8]);
-    w[2] = pack_bf16(wp[(2 * tig + 8) * WSN], wp[(2 * tig + 9) * WSN]);
-    w[3] = pack_bf16(wp[(2 * tig + 8) * WSN + 8], wp[(2 * tig + 9) * WSN + 8]);
-  };
-
-  float acc[ND];
-  conv_loop<C>(acc, nchunks, smem_addr(xs), load_w, fetch_x, put_x, frag);
-
-  // epilogue: stage the float32 sums st[pixel][channel] in shared memory
-  float* st = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < ND; ++i) {
-    // fragment i: channel gid (+8 for i % 4 >= 2), flat pixel f = 8 (i / 4)
-    // + 2 tig + i % 2 of the run, row f / 34, column f % 34
-    const int n = m0 + gid + ((i >> 1) & 1) * 8;
-    const int f = (i >> 2) * 8 + 2 * tig + (i & 1), r = f / XN, c = f % XN;
-    if (r < R && c < TW) st[(r * TW + c) * SP + n] = acc[i];
-  }
-  __syncthreads();
-
-  // d, noise, bias, lrelu, rounded to bfloat16 and stored: 4 channels of a
-  // pixel per thread, a warp's stores 128 channels of a pixel
-  const int cmid = Cout / 4;
-  for (int idx = tid; idx < P * (TN / 4); idx += THREADS) {
-    const int px = idx / (TN / 4), co = n0 + (idx % (TN / 4)) * 4;
-    const int gy = y0 + px / TW, gx = x0 + px % TW;
-    if (co >= Cout || gy >= H || gx >= W) continue;     // Cout % 4 == 0: all 4 or none
-    const int64_t pix = ((int64_t)b * H + gy) * W + gx;
-    const float* sp = st + px * SP + co - n0;
-    float v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int c = co + u;
-      v[u] = lrelu(sp[u] * a.d[b * Cout + c] + a.noise[pix * 4 + c / cmid] + a.bias[b * Cout + c]);
-    }
-    store4(a.out + pix * Cout + co, v);
-  }
-}
-
-int launch_bf16_conv(ConvArgs a, int B, cudaStream_t stream) {
-  a.tiles_w = (a.W + C::TW - 1) / C::TW;
-  const int n_tiles = a.tiles_w * ((a.H + C::R - 1) / C::R);
-  a.vec = copy_width(a.k, (int64_t)a.Cout * 2, 2);
-  a.vec_x = a.Cin % 8 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0;
-  const int bytes = S1_OFFSET + (a.Cin + KC - 1) / KC * KC * 4;
-  if (bytes > SMEM_MAX) return 1000;
-  cudaError_t err = cudaFuncSetAttribute(stage_conv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_tiles, (a.Cout + TN - 1) / TN, B);
-  stage_conv_kernel<<<grid, THREADS, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------------- the rgb pass
 
@@ -328,7 +111,7 @@ __global__ void rgb_kernel(const float* __restrict__ part, const T* __restrict__
   rgb[i] = from_f<T>(v);
 }
 
-int n_cblocks(int C4) { return (C4 + TN - 1) / TN; }
+int n_cblocks(int C4) { return (C4 + tma::BM - 1) / tma::BM; }
 
 // the operand pointers of a stage call, in the order of ogi_packed_stage
 enum StageArg { X, N1, N2, SKIP, K1, S1, D1, B1, K2, S2, D2, B2, K3SR, B3, K4, RGB, Z2, Z, PART,
@@ -344,7 +127,6 @@ int launch_rgb(const void* const* p, int B, int H, int W, int C4, cudaStream_t s
       static_cast<T*>(const_cast<void*>(p[RGB])), B, H, W, n_cblocks(C4));
   return (int)cudaGetLastError();
 }
-static_assert(tma::BM == TN, "conv2's toRGB partials: one block of TN channels per TMA block");
 
 // ---------------------------------------------- the repack of the TMA convs
 
@@ -356,6 +138,20 @@ template <typename E> constexpr int WGROUP = WORDS<E> ? tma::TF32_GROUP : 32;
 // the TMA modes of B4's convs on E
 template <typename E> constexpr int MODE1 = WORDS<E> ? tma::STAGE1_TF32 : tma::STAGE1;
 template <typename E> constexpr int MODE2 = WORDS<E> ? tma::STAGE2_TF32 : tma::STAGE2;
+// and of B3's conv
+template <typename E> constexpr int MODE_B3 = WORDS<E> ? tma::PACKED_TF32 : tma::PACKED;
+
+// 8 bfloat16 values (16 bytes), each multiplied by s[i] and rounded to
+// bfloat16: x * s1 as the plain version computes it (s already rounded)
+__device__ __forceinline__ uint32_t scale2(uint32_t w, float s0, float s1) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&w);
+  const __nv_bfloat162 p = __floats2bfloat162_rn(__low2float(v) * s0, __high2float(v) * s1);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+__device__ __forceinline__ uint4 scale16(uint4 q, const float* s) {
+  return make_uint4(scale2(q.x, s[0], s[1]), scale2(q.y, s[2], s[3]),
+                    scale2(q.z, s[4], s[5]), scale2(q.w, s[6], s[7]));
+}
 
 // The repack ahead of the TMA convs, one launch. Blocks [0, xblocks): xr,
 // conv1's input x * s1 as the core's operand, a thread per XVEC<E>
@@ -446,7 +242,7 @@ __global__ void __launch_bounds__(256) stage_repack_kernel(const StageRepack<E> 
     }
     uint32_t hi[4], lo[4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) split_tf32(v[u], hi[u], lo[u]);
+    for (int u = 0; u < 4; ++u) tma::split_tf32(v[u], hi[u], lo[u]);
     float* o = r.xr + pix * 2 * r.Cp1 + c / tma::TF32_GROUP * 2 * tma::TF32_GROUP +
                c % tma::TF32_GROUP;
     *reinterpret_cast<uint4*>(o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
@@ -543,25 +339,37 @@ bool bad_stage(const void* const* p, int B, int H, int W, int C1, int C4, int dt
          (dtype != 0 && dtype != 1) || !p[Z] || !p[XR] || !p[W1R] || !p[W2R];
 }
 
-// Step `step` of float32 B3 on the TMA core: 0 the repack of x * s_in and k
-// into xr (B, H, W, 2 Cp) and wr (3, 3, Co, 2 Cp), 1 the conv (PACKED_TF32)
-// into out
+// Step `step` of B3 on operands of type E: 0 the repack of x * s_in and k
+// into xr (B, H, W, K) and wr (3, 3, Co, K), K = 2 Cp words (float32) or Cp
+// (bfloat16), 1 the conv (PACKED_TF32, PACKED) into out
+template <typename E>
 int packed_conv_step(const void* x, const void* noise4, const void* k, const void* s_in,
                      const void* d_out, const void* bias, void* out, void* xr, void* wr, int B,
                      int H, int W, int Ci, int Co, int step, cudaStream_t stream) {
   if (step == 0)
-    return stage_repack<float>(x, s_in, k, nullptr, xr, wr, nullptr, B, H, W, Ci, Co, stream);
+    return stage_repack<E>(x, s_in, k, nullptr, xr, wr, nullptr, B, H, W, Ci, Co, stream);
   if (step != 1) return 1000;
   auto F_ = [](const void* v) { return static_cast<const float*>(v); };
   tma::Args a{nullptr, out, nullptr, H, W, Co, tma::ACT_NONE, 0, 0, 0, F_(noise4), F_(d_out),
               F_(bias), nullptr, nullptr, nullptr, 0};
   if (tma::bad_args(a, B, Ci, xr, wr)) return 1000;
-  return tma::conv_tiles<tma::PACKED_TF32>(
-      xr, wr, a, B, 2 * tma::padded_channels<tma::PACKED_TF32>(Ci), stream);
+  constexpr int PER_CHANNEL = WORDS<E> ? 2 : 1;   // K elements per channel
+  return tma::conv_tiles<MODE_B3<E>>(
+      xr, wr, a, B, PER_CHANNEL * tma::padded_channels<MODE_B3<E>>(Ci), stream);
 }
 
-bool bad_conv(int B, int H, int W, int Ci, int Co) {
-  return B <= 0 || B > 65535 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || Co % 4 != 0;
+int packed_conv_step_of(const void* x, const void* noise4, const void* k, const void* s_in,
+                        const void* d_out, const void* bias, void* out, void* xr, void* wr, int B,
+                        int H, int W, int Ci, int Co, int dtype, int step, cudaStream_t stream) {
+  return dtype == 0 ? packed_conv_step<float>(x, noise4, k, s_in, d_out, bias, out, xr, wr, B, H,
+                                              W, Ci, Co, step, stream)
+                    : packed_conv_step<BF>(x, noise4, k, s_in, d_out, bias, out, xr, wr, B, H, W,
+                                           Ci, Co, step, stream);
+}
+
+bool bad_conv(int B, int H, int W, int Ci, int Co, int dtype, const void* xr, const void* wr) {
+  return B <= 0 || B > 65535 || H <= 0 || W <= 0 || Ci <= 0 || Co <= 0 || Co % 4 != 0 ||
+         (dtype != 0 && dtype != 1) || !xr || !wr;
 }
 
 }  // namespace
@@ -617,43 +425,34 @@ extern "C" int ogi_packed_stage_step(const void* x, const void* n1, const void* 
 }
 
 // B3: one packed conv, conv1 of the stage without s2. dtype: 0 = float32,
-// 1 = bfloat16 (x, k and out). All tensors contiguous: x (B, H, W, Ci),
-// noise4 (B, H, W, 4) float32, k (3, 3, Ci, Co), s_in (B, Ci), d_out and
-// bias (B, Co) float32, out (B, H, W, Co). float32 also takes the scratch xr
-// (B, H, W, 2 Cp) and wr (3, 3, Co, 2 Cp) float32, Cp = Ci rounded up to a
-// multiple of 16, and launches the repack, then the conv on the TMA core;
-// bfloat16 (xr, wr null) launches the conv of tc_conv.cuh. Returns 0, a
-// CUDA error, 1000 for an argument the kernels do not take, 1001/1002 if a
-// tensor map cannot be encoded.
+// 1 = bfloat16 (x, k, out and the scratch xr, wr). All tensors contiguous:
+// x (B, H, W, Ci), noise4 (B, H, W, 4) float32, k (3, 3, Ci, Co), s_in (B,
+// Ci), d_out and bias (B, Co) float32, out (B, H, W, Co); the scratch xr
+// (B, H, W, 2 Cp | Cp) and wr (3, 3, Co, 2 Cp | Cp), Cp = Ci rounded up to
+// a multiple of 16 (float32) or 8 (bfloat16). Two launches: the repack,
+// then the conv on the TMA core. Returns 0, a CUDA error, 1000 for an
+// argument the kernels do not take, 1001/1002 if a tensor map cannot be
+// encoded.
 extern "C" int ogi_packed_conv3x3_act(const void* x, const void* noise4, const void* k,
                                       const void* s_in, const void* d_out, const void* bias,
                                       void* out, void* xr, void* wr, int B, int H, int W, int Ci,
                                       int Co, int dtype, void* stream) {
-  if (bad_conv(B, H, W, Ci, Co) || (dtype != 0 && dtype != 1)) return 1000;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    auto F_ = [](const void* v) { return static_cast<const float*>(v); };
-    const ConvArgs a{static_cast<const BF*>(x), static_cast<const BF*>(k), F_(noise4), F_(s_in),
-                     F_(d_out), F_(bias), static_cast<BF*>(out), H, W, Ci, Co, 0, 0, 0};
-    return launch_bf16_conv(a, B, st);
-  }
-  if (!xr || !wr) return 1000;
+  if (bad_conv(B, H, W, Ci, Co, dtype, xr, wr)) return 1000;
   for (int step = 0; step < 2; ++step) {
-    const int err = packed_conv_step(x, noise4, k, s_in, d_out, bias, out, xr, wr, B, H, W, Ci,
-                                     Co, step, st);
+    const int err = packed_conv_step_of(x, noise4, k, s_in, d_out, bias, out, xr, wr, B, H, W,
+                                        Ci, Co, dtype, step, static_cast<cudaStream_t>(stream));
     if (err != 0) return err;
   }
   return 0;
 }
 
-// One step of float32 ogi_packed_conv3x3_act (arguments as there, dtype 0):
-// 0 the repack, 1 the conv, which reads what the repack wrote. For timing
-// the steps apart.
+// One step of ogi_packed_conv3x3_act (arguments as there): 0 the repack, 1
+// the conv, which reads what the repack wrote. For timing the steps apart.
 extern "C" int ogi_packed_conv3x3_act_step(const void* x, const void* noise4, const void* k,
                                            const void* s_in, const void* d_out, const void* bias,
                                            void* out, void* xr, void* wr, int B, int H, int W,
-                                           int Ci, int Co, int step, void* stream) {
-  if (bad_conv(B, H, W, Ci, Co) || !xr || !wr) return 1000;
-  return packed_conv_step(x, noise4, k, s_in, d_out, bias, out, xr, wr, B, H, W, Ci, Co, step,
-                          static_cast<cudaStream_t>(stream));
+                                           int Ci, int Co, int dtype, int step, void* stream) {
+  if (bad_conv(B, H, W, Ci, Co, dtype, xr, wr)) return 1000;
+  return packed_conv_step_of(x, noise4, k, s_in, d_out, bias, out, xr, wr, B, H, W, Ci, Co, dtype,
+                             step, static_cast<cudaStream_t>(stream));
 }

@@ -5,14 +5,14 @@
 // coefficients by the repack pass) and B2b (alignnet_conv2.cu: y2 =
 // conv3x3(z, k2) in float32 and the tiles' moments of y2) -- and the packed
 // generator convs of packed_stage.cu with their NHWC epilogues: B4's conv1
-// and conv2 in both operand types, and B3 in float32. Only bfloat16 B3 runs
-// the core of tc_conv.cuh.
+// and conv2 and B3, all in both operand types. Every conv of the port runs
+// this core.
 //
 // Replaces the TPU kernels ops/pallas_kernels.py:_conv_act_band_kernel (via
 // conv3x3_act), _an_conv1_kernel (via fused_alignnet_body0), _an_conv2_kernel
 // (via fused_alignnet_body0), the convs of _stage_band_kernel (via
-// fused_packed_stage) and, for float32 operands, _conv_band_kernel (via
-// fused_conv3x3_act). Bound by operations: 2 * 9 *
+// fused_packed_stage) and _conv_band_kernel (via fused_conv3x3_act). Bound
+// by operations: 2 * 9 *
 // Ci * Co flops per pixel against 2 * (Ci + Co) bytes in bfloat16; in
 // float32 three TF32 products per product (3xTF32) against 4 * (Ci + Co)
 // bytes.
@@ -43,7 +43,7 @@
 //     multiple of 16 bytes; channels and output channels past the end of a
 //     box are TMA zero fill. float32 channels are padded to a multiple of 16
 //     and each value v is split once per call into hi = v rounded to TF32
-//     (half away from zero) and lo = v - hi, exact (tc::split_tf32), where
+//     (half away from zero) and lo = v - hi, exact (split_tf32), where
 //     splitting in the conv would split each weight again for every tap of
 //     every pixel tile. For B2a it writes x1 = [as*s + at*t + b1, ct*t +
 //     b2] (its x1 mode): read from s and t, computed in float32 with the
@@ -58,8 +58,8 @@
 //     splits it into words, elementwise, and lays the weights out. B4's
 //     conv1 epilogue writes its activation z straight as conv2's operand
 //     (STAGE1_TF32: words; STAGE1: bfloat16, channels C4.. zero), so conv2
-//     reads z through TMA with no pass between. float32 B3 (PACKED_TF32) is
-//     conv1 without s2, its output float32 (B, H, W, Co).
+//     reads z through TMA with no pass between. B3 (PACKED_TF32, PACKED) is
+//     conv1 without s2, its output (B, H, W, Co) in the operand type.
 // A stage of the ring is one (K-block, dx): 3 K-blocks, 48 KB of weights
 // and (TH + 2) * 4 KB of input, completed on one mbarrier: 72 KB at TH = 4,
 // three stages in 216 KB. At Ci = 1024 the K loop has 16 * 3 stages in
@@ -79,11 +79,12 @@
 // group has completed.
 //
 // Accumulation. The tensor cores add into their float32 accumulator with
-// truncation (tc_conv.cuh). bfloat16 B5 rounds its output to bfloat16 and
-// is held to 2^-7 of max|ref|, so its accumulator stays in the tensor cores
-// across the whole K, with the previous stage's group still running as it
-// issues the next; so do bfloat16 B4's two convs (STAGE1, STAGE2), whose
-// outputs are rounded to bfloat16 and held to 2^-7 too. B2b returns float32 y2 and pixel sums, and the float32
+// truncation, not rounding to nearest. bfloat16 B5 rounds its output to
+// bfloat16 and is held to 2^-7 of max|ref|, so its accumulator stays in the
+// tensor cores across the whole K, with the previous stage's group still
+// running as it issues the next; so do bfloat16 B4's two convs (STAGE1,
+// STAGE2) and bfloat16 B3 (PACKED), whose outputs are rounded to bfloat16
+// and held to 2^-7 too. B2b returns float32 y2 and pixel sums, and the float32
 // modes float32 outputs, held to 1e-4, so they drain: the products of a
 // period of stages (drain_period) go into fresh fragments, which the CUDA
 // cores add to the accumulator, rounded to nearest, once their groups have
@@ -121,7 +122,7 @@
 //
 // Tiling: M = 128 output channels, N = TH x 32 pixels, one sample per
 // block; TH = 4, halved while one sample's grid has fewer than 128 blocks
-// (at 32px, 1024 -> 1024: TH = 2, 128 blocks): tc_conv.cuh's tile_rows.
+// (at 32px, 1024 -> 1024: TH = 2, 128 blocks): tile_rows.
 // (TH = 8, N = 256 with a 2-stage ring, ran slower than TH = 4 at the SAMM
 // scales in bfloat16.) A function of (H, W, Co) alone, never of the batch
 // size, so every batch slot runs the same sums in the same order.
@@ -142,8 +143,6 @@
 
 #pragma once
 
-#include "tc_conv.cuh"
-
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -155,12 +154,41 @@
 
 namespace tma {
 
-using tc::pin;
-using tc::smem_addr;
-using tc::tile_rows;
-using tc::wgmma_commit;
-using tc::wgmma_fence;
-using tc::wgmma_wait;
+constexpr float SQRT2 = 1.41421356237309515f;
+constexpr int SMEM_MAX = 232448;       // dynamic shared memory a block may use
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// v = hi + lo: hi = v rounded to a 10-bit mantissa (half away from zero),
+// lo = v - hi, exact in float32; the tensor cores read the top 19 bits of each
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of a register across the
+// asynchronous wgmma that uses it
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r) :: "memory"); }
 
 constexpr int TW = 32;                 // pixel tile columns
 constexpr int BM = 128;                // output channels per block
@@ -173,10 +201,11 @@ constexpr int ACT_NONE = 0, ACT_PRELU = 1;
 // ones (words) CONV_ACT_TF32 (B5, B2a) and AN_CONV2_TF32 (B2b). The packed
 // convs, NHWC (stage_epilogue): B4's conv1, z out as conv2's operand
 // (STAGE1_TF32 words, STAGE1 bfloat16), B4's conv2, z2 and the toRGB
-// partials out (STAGE2_TF32, STAGE2), and float32 B3, its float32 output
-// (PACKED_TF32). Each predicate below names its modes.
+// partials out (STAGE2_TF32, STAGE2), and B3, its output in the operand
+// type (PACKED_TF32 float32, PACKED bfloat16). Each predicate below names
+// its modes.
 enum Mode { CONV_ACT = 0, AN_CONV2 = 1, CONV_ACT_TF32 = 2, AN_CONV2_TF32 = 3, STAGE1_TF32 = 4,
-            STAGE2_TF32 = 5, STAGE1 = 6, STAGE2 = 7, PACKED_TF32 = 8 };
+            STAGE2_TF32 = 5, STAGE1 = 6, STAGE2 = 7, PACKED_TF32 = 8, PACKED = 9 };
 template <int MODE> constexpr bool is_tf32 = MODE == CONV_ACT_TF32 || MODE == AN_CONV2_TF32 ||
                                              MODE == STAGE1_TF32 || MODE == STAGE2_TF32 ||
                                              MODE == PACKED_TF32;
@@ -184,9 +213,11 @@ template <int MODE> constexpr bool is_conv2 = MODE == AN_CONV2 || MODE == AN_CON
 template <int MODE> constexpr bool writes_operand = MODE == STAGE1 || MODE == STAGE1_TF32;
 template <int MODE> constexpr bool writes_rgb = MODE == STAGE2 || MODE == STAGE2_TF32;
 template <int MODE> constexpr bool is_stage =
-    writes_operand<MODE> || writes_rgb<MODE> || MODE == PACKED_TF32;
+    writes_operand<MODE> || writes_rgb<MODE> || MODE == PACKED_TF32 || MODE == PACKED;
 static_assert(!is_tf32<STAGE1> && !is_tf32<STAGE2> && is_tf32<STAGE1_TF32> &&
-              is_tf32<PACKED_TF32> && !is_stage<AN_CONV2_TF32>, "each mode's operand type");
+              is_tf32<PACKED_TF32> && !is_tf32<PACKED> && is_stage<PACKED> &&
+              !writes_operand<PACKED> && !writes_rgb<PACKED> && !is_stage<AN_CONV2_TF32>,
+              "each mode's operand type");
 // the elements of a K-block row: 64 bfloat16 channels, or 32 float32 words
 // (16 channels' hi words, then their lo words)
 template <int MODE> constexpr int KE = is_tf32<MODE> ? 32 : 64;
@@ -196,7 +227,7 @@ constexpr int TF32_GROUP = 16;         // channels of a float32 K-block
 constexpr int DRAIN_STAGES = 1;
 constexpr int TF32_DRAIN_STAGES = 2;
 constexpr int TF32_CONV2_DRAIN_STAGES = 1;
-// a mode's drain period in stages; 0: none (bfloat16 B5, B2a and B4)
+// a mode's drain period in stages; 0: none (bfloat16 B5, B2a, B4 and B3)
 template <int MODE> __host__ __device__ constexpr int drain_period() {
   return MODE == AN_CONV2 ? DRAIN_STAGES
          : MODE == AN_CONV2_TF32 ? TF32_CONV2_DRAIN_STAGES
@@ -220,15 +251,15 @@ template <int TH> struct Cfg {
   static_assert(BM * OS * 4 <= RING, "the staged tile fits in the ring");
   static_assert((N * STAGE_SP + STAGE_TABLES + 4 * N) * 4 <= RING,
                 "the stage epilogue fits in the ring");
-  static_assert(SMEM <= tc::SMEM_MAX, "the ring fits in shared memory");
+  static_assert(SMEM <= SMEM_MAX, "the ring fits in shared memory");
 };
 
 struct Args {
   const float* alpha;     // (Co,) PReLU slopes (act 1)
   void* out;              // (B, Co, H, W): bfloat16 (CONV_ACT) or float32; the packed convs
                           // NHWC: STAGE1(_TF32) z (B, H, W, out_cp) bfloat16 or (B, H, W,
-                          // 2 out_cp) words; STAGE2(_TF32) z2, PACKED_TF32 out (B, H, W, Co)
-                          // in the operand type
+                          // 2 out_cp) words; STAGE2(_TF32) z2, PACKED(_TF32) out (B, H, W,
+                          // Co) in the operand type
   float* tile_part;       // B2b: (B, n_tiles, 2, Co)
   int H, W, Co, act, tiles_w, n_tiles, iters;
   // the packed convs: noise (B, H, W, 4), read at phase co / (Co / 4); d
@@ -329,7 +360,7 @@ __device__ __forceinline__ void wgmma(float* d, uint64_t da, uint64_t db, int sc
 
 __device__ __forceinline__ float activate(float v, int act, float slope) {
   if (act != ACT_NONE) v = v >= 0.0f ? v : slope * v;
-  if (act == 2) v *= tc::SQRT2;
+  if (act == 2) v *= SQRT2;
   return v;
 }
 
@@ -342,7 +373,7 @@ __device__ __forceinline__ float activate(float v, int act, float slope) {
 //   STAGE2_TF32, STAGE2: z2 = a, stored in float32 or rounded once to
 //        bfloat16, then each pixel's toRGB partial of z2 as stored over the
 //        block's channels, in channel order, into part[b, blockIdx.y, y, x, :];
-//   PACKED_TF32: a, stored in float32.
+//   PACKED_TF32, PACKED: a, stored in float32 or rounded once to bfloat16.
 // The tile is staged st[pixel][channel] in the ring, which both consumer
 // warpgroups are done with, so that a warp stores the 128 channels of one
 // pixel; the block's d, bias, s_out and toRGB weights and the tile's noise
@@ -403,7 +434,7 @@ __device__ __forceinline__ void stage_epilogue(const float* acc, float* st, cons
       float z = 0.0f;
       if (co < Co) {
         z = sp[u] * cd[n + u] + nz[px * 4 + (co + u) / cmid] + cb[n + u];
-        z = (z >= 0.0f ? z : 0.2f * z) * tc::SQRT2;
+        z = (z >= 0.0f ? z : 0.2f * z) * SQRT2;
         if constexpr (CONV1) z *= cs[n + u];
       }
       v[u] = z;
@@ -422,7 +453,7 @@ __device__ __forceinline__ void stage_epilogue(const float* acc, float* st, cons
     } else if constexpr (CONV1) {
       uint32_t hi[4], lo[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) tc::split_tf32(v[u], hi[u], lo[u]);
+      for (int u = 0; u < 4; ++u) split_tf32(v[u], hi[u], lo[u]);
       float* o = static_cast<float*>(a.out) + pix * 2 * a.out_cp +
                  co / TF32_GROUP * 2 * TF32_GROUP + co % TF32_GROUP;
       *reinterpret_cast<uint4*>(o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
@@ -546,7 +577,7 @@ tma_conv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant_
   // The K loop, in periods of drain_period<MODE>() stages, whose products
   // go into t, fresh, and are added to acc once their groups have completed
   // (the drain; while a warpgroup drains, the other one's wgmmas keep the
-  // tensor cores busy); bfloat16 B5's, B2a's and B4's of all stages,
+  // tensor cores busy); bfloat16 B5's, B2a's, B4's and B3's of all stages,
   // straight into acc.
   // Within a period the previous stage's group runs on as the next one is
   // issued.
@@ -796,7 +827,7 @@ __device__ __forceinline__ int tf32_channel(int j) {
 }
 __device__ __forceinline__ float tf32_word(float v, int j) {
   uint32_t hi, lo;
-  tc::split_tf32(v, hi, lo);
+  split_tf32(v, hi, lo);
   return __uint_as_float(j / TF32_GROUP % 2 ? lo : hi);
 }
 
@@ -936,6 +967,26 @@ inline int encode_maps(CUtensorMap* wmap, CUtensorMap* xmap, const void* w, cons
           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return 1002;
   return 0;
+}
+
+// the least grid per sample: a block on all but 4 of the H100's 132 SMs
+constexpr int FILL_BLOCKS = 128;
+
+// The rows TH of a launch's pixel tile of TW columns for an (H, W, Co)
+// launch: 4, halved while the grid of one sample, in blocks of BM
+// channels, has fewer than FILL_BLOCKS blocks. A function of the sample's
+// shape alone, never of the batch size.
+inline int tile_rows(int H, int W, int Co) {
+  const int blocks_per_row = ((W + TW - 1) / TW) * ((Co + BM - 1) / BM);
+  int r = 4;
+  while (r > 1 && blocks_per_row * ((H + r - 1) / r) < FILL_BLOCKS) r /= 2;
+  return r;
+}
+
+// the pixel tiles of such a launch
+inline int pixel_tiles(int H, int W, int Co) {
+  const int r = tile_rows(H, W, Co);
+  return ((W + TW - 1) / TW) * ((H + r - 1) / r);
 }
 
 // kernels launched by this library, read by ogi_tma_conv_launches

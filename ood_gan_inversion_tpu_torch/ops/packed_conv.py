@@ -8,11 +8,11 @@ tensor cores:
   * `fused_conv3x3_act` (B3) computes
     lrelu(conv3x3(x * s_in) * d_out + phase_bcast(noise4) + bias) * sqrt(2),
     the whole stage's conv1 without its s2 factor; `fused_packed_pair`
-    calls it twice, once per conv of the pair. float32 runs the TMA core of
-    csrc/tma_conv.cuh (3xTF32 on words split once: a repack launch writes
-    the words of x * s_in and of k, then the conv writes float32;
-    `conv_scratch` allocates the words), bfloat16 the `wgmma` conv of
-    csrc/tc_conv.cuh.
+    calls it twice, once per conv of the pair. Both dtypes run the TMA core
+    of csrc/tma_conv.cuh: a repack launch writes x * s_in and k as the
+    core's operands (float32: 3xTF32 words split once; bfloat16: the
+    values, channels padded to a multiple of 8), then the conv writes its
+    output in x's dtype; `conv_scratch` allocates the operands.
   * `fused_packed_stage` (B4) computes a whole packed stage: the pair, then
     toRGB and the packed skip upsample. Both dtypes run its two convs on
     the TMA core: a repack launch writes x * s1 and both kernels as the
@@ -145,7 +145,7 @@ def packed_stage_kernel_reference(x, n1, n2, skip, k1, s1, d1, b1, k2, s2, d2, b
 # ------------------------------------- the operands of the packed TMA convs
 
 def stage_input_words(x, s1):
-    """conv1's input as the TMA convs of B4 (and float32 B3, s1 = s_in) read
+    """conv1's input as the TMA convs of B4 (and B3, s1 = s_in) read
     it: x * s1 as _scaled rounds it (float32: one product; bfloat16: s1
     rounded to bfloat16 first, then the product), x (B, H, W, C1), s1 (C1,)
     or (B, C1), as tma_rows rows: (B, H, W, 2 Cp1) words or (B, H, W, Cp1)
@@ -207,12 +207,10 @@ def _conv3x3_act_run(x, noise4, k, s_in, d_out, bias):
     co = k.shape[-1]
     s_in, d_out, bias = _vec(s_in, b, ci), _vec(d_out, b, co), _vec(bias, b, co)
     out = x.new_empty((b, h, w, co))
-    # float32: the TMA core's words; bfloat16 runs the core of tc_conv.cuh
-    xr, wr = conv_scratch(x, co) if x.dtype == torch.float32 else (None, None)
+    xr, wr = conv_scratch(x, co)
     launch(fused_conv3x3_act, "packed conv3x3",
            entry("packed_stage", "ogi_packed_conv3x3_act", 9, 6), x,
-           *(t.data_ptr() for t in (x, noise4, k, s_in, d_out, bias, out)),
-           *(None if t is None else t.data_ptr() for t in (xr, wr)),
+           *(t.data_ptr() for t in (x, noise4, k, s_in, d_out, bias, out, xr, wr)),
            b, h, w, ci, co, DTYPES[x.dtype])
     return out
 
@@ -247,8 +245,8 @@ def fused_packed_pair(x, n1, n2, k1, s1, d1, b1, k2, s2, d2, b2):
     upconv+blur kernel; s1 (B, C1); d1, s2, d2 (B, C4); b1, b2 (C4,) or
     (B, C4); k2 (3, 3, C4, C4). Returns (B, H, W, C4) in x.dtype. Two calls
     of B3, the first writing z to device memory in x.dtype, which the
-    second scales by s2 (float32: its repack launch); on the CPU
-    packed_pair_reference, conv by conv."""
+    second's repack launch scales by s2 (s2 rounded to x.dtype first, as
+    JAX's `_scaled`); on the CPU packed_pair_reference, conv by conv."""
     z = fused_conv3x3_act(x, n1, k1, s1, d1, b1)
     return fused_conv3x3_act(z, n2, k2, s2, d2, b2)
 

@@ -85,7 +85,7 @@ def tma_channels(c: int, dtype=torch.bfloat16) -> int:
 
 
 def split_tf32(v):
-    """(hi, lo) of float32 v as the kernels split it (csrc/tc_conv.cuh:
+    """(hi, lo) of float32 v as the kernels split it (csrc/tma_conv.cuh:
     split_tf32): hi = v rounded to TF32, a 10-bit mantissa, half away from
     zero (2^12 added to the bit pattern, the low 13 bits cleared); lo = v -
     hi, exact in float32, so hi + lo == v."""

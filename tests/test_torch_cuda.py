@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (warp-blend in its three
 instantiations, the packed conv B3, the packed stage B4, also on bands
-(B4 in both dtypes and float32 B3 through the TMA kernel, their repack and
+(B4 and B3 in both dtypes through the TMA kernel, their repack and
 conv1's z operand), the
 AlignNet body0 kernels B2a and B2b, the conv3x3 + activation B5 (all three
 in both dtypes through the TMA kernel and its repack pass, B2a's in its x1
@@ -342,6 +342,8 @@ def per_slot(a, b, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, PACKED_TOL),
+                                       (torch.bfloat16, PACKED_TOL_BF16)])
 @pytest.mark.parametrize("b", [1, 2])
 @pytest.mark.parametrize("h,w,ci,co", [(256, 256, 128, 256),   # 512px stage conv1
                                        (256, 256, 256, 256),   # 512px stage conv2
@@ -349,23 +351,90 @@ def per_slot(a, b, s):
                                        (512, 512, 128, 128),   # 1024px stage conv2
                                        (37, 45, 12, 20),       # ragged: Ci, Co / 4 off 16
                                        (130, 70, 64, 128)])    # band-like: H % 4 != 0
-def test_packed_conv_f32_tma_slot_bitwise(cuda, b, h, w, ci, co):
-    """float32 B3 on the TMA kernel: one call launches it once
-    (ogi_tma_conv_launches + 1), within PACKED_TOL of max|ref| of its plain
-    version, each slot bit-identical to that sample alone."""
+def test_packed_conv_tma_slot_bitwise_both_dtypes(cuda, b, h, w, ci, co, dtype, tol):
+    """B3 on the TMA kernel in float32 and bfloat16: one call launches it
+    once (ogi_tma_conv_launches + 1), within PACKED_TOL (float32) or
+    PACKED_TOL_BF16 (bfloat16) of max|ref| of its kernel's plain version on
+    the same operands, each slot bit-identical to that sample alone."""
     names = ("x", "n1", "k1", "s1", "d1", "b1")
-    a, _ = packed_operands(cuda, b, h, w, ci, co, torch.float32, seed=ci + h + b)
+    a, _ = packed_operands(cuda, b, h, w, ci, co, dtype, seed=ci + h + b)
     before = tma_launches("packed_stage")
     out = packed_conv.fused_conv3x3_act(*(a[k] for k in names))
     torch.cuda.synchronize()
     assert tma_launches("packed_stage") == before + 1
     ref = packed_conv.packed_conv3x3_act_kernel_reference(*(a[k] for k in names))
-    assert out.shape == ref.shape and rel_err(out, ref) <= PACKED_TOL
+    assert out.dtype == ref.dtype == dtype
+    assert out.shape == ref.shape and rel_err(out, ref.float()) <= tol
     for s in range(b):
         one = per_slot(a, b, s)
         alone = packed_conv.fused_conv3x3_act(*(one[k] for k in names))
         torch.cuda.synchronize()
         assert torch.equal(out[s:s + 1], alone), s
+
+
+def conv_step(args, xr, wr, out, step):
+    """One step of B3 (ogi_packed_conv3x3_act_step) on the operands args,
+    in x's dtype: 0 the repack into xr, wr; 1 the conv into out."""
+    from ood_gan_inversion_tpu_torch.ops.cuda_call import DTYPES, entry
+    x, n4, k, s, d, bias = args
+    b, h, w, ci = x.shape
+    co = k.shape[-1]
+    ptrs = [t.data_ptr() for t in (x, n4, k, s, d, bias, out, xr, wr)]
+    err = entry("packed_stage", "ogi_packed_conv3x3_act_step", 9, 7)(
+        *ptrs, b, h, w, ci, co, DTYPES[x.dtype], step, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, (step, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co", [(1, 64, 64, 128, 256), (2, 19, 27, 12, 20),
+                                         (1, 33, 40, 37, 44)])
+def test_packed_conv_bf16_operands_on_card(cuda, b, h, w, ci, co):
+    """bfloat16 B3's operands on the card: its repack launch (B4's, with no
+    k2) writes stage_input_words(x, s_in) (x * s_in rounded as JAX rounds
+    it) and stage_weight_words(k) bit for bit, pad channels zero bits, into
+    scratch that held other bits; the conv on them is the call's output bit
+    for bit."""
+    a, _ = packed_operands(cuda, b, h, w, ci, co, torch.bfloat16, seed=ci + co)
+    x = a["x"]
+    s, d, bias = (v.expand(b, -1).contiguous() for v in (a["s1"], a["d1"], a["b1"]))
+    args = (x, a["n1"], a["k1"], s, d, bias)
+    xr, wr = packed_conv.conv_scratch(x, co)
+    xr.fill_(1.0)
+    wr.fill_(1.0)
+    out = x.new_empty((b, h, w, co))
+    conv_step(args, xr, wr, out, 0)
+    torch.cuda.synchronize()
+    i16 = lambda v: v.view(torch.int16)
+    assert torch.equal(i16(xr), i16(packed_conv.stage_input_words(x, a["s1"])))
+    assert torch.equal(i16(wr), i16(packed_conv.stage_weight_words(a["k1"])))
+    conv_step(args, xr, wr, out, 1)
+    call = packed_conv.fused_conv3x3_act(*(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1")))
+    torch.cuda.synchronize()
+    assert torch.equal(out, call)
+
+
+@pytest.mark.cuda
+def test_packed_pair_bf16_repacks_z_times_s2(cuda):
+    """bfloat16 fused_packed_pair: two B3 calls, each one TMA conv launch;
+    the second call's repack scales conv1's bfloat16 output by s2 as JAX's
+    `_scaled` does (s2 rounded first, the product rounded), so the pair is
+    two calls of B3's kernel's plain version within PACKED_TOL_BF16 of
+    max|ref|, and the second call alone on conv1's output gives the pair's
+    bits."""
+    a, _ = packed_operands(cuda, 2, 64, 64, 64, 128, torch.bfloat16, seed=13)
+    before = tma_launches("packed_stage")
+    out = packed_conv.fused_packed_pair(*(a[k] for k in PAIR_KEYS))
+    torch.cuda.synchronize()
+    assert tma_launches("packed_stage") == before + 2
+    conv1 = tuple(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1"))
+    conv2 = ("n2", "k2", "s2", "d2", "b2")
+    z = packed_conv.fused_conv3x3_act(*conv1)
+    assert torch.equal(out, packed_conv.fused_conv3x3_act(z, *(a[k] for k in conv2)))
+    z_ref = packed_conv.packed_conv3x3_act_kernel_reference(*conv1)
+    ref = packed_conv.packed_conv3x3_act_kernel_reference(z_ref, *(a[k] for k in conv2))
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert rel_err(out, ref.float()) <= PACKED_TOL_BF16
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""B4 in both dtypes, float32 B3 and float32 B2b on the TMA core
+"""B4 and B3 in both dtypes and float32 B2b on the TMA core
 (csrc/tma_conv.cuh) on the CPU.
 
 B4: the plain versions of its words -- `packed_conv.stage_input_words` (x *
@@ -25,6 +25,12 @@ as `_scaled` rounds it, channels padded with zeros to a multiple of 8, no
 split), and the stage emulated from them in float64 with each output
 rounded once to bfloat16, against `packed_stage_kernel_reference` within
 2^-7 of max|ref|.
+
+bfloat16 B3: the same operands for one conv (no k2) in `conv_scratch`'s
+shapes, B3 emulated from them (float64 sums, one rounding) against B3's
+kernel's plain version within 2^-7 of max|ref|, and the pair as two such
+calls (the second repacking the first's bfloat16 output times s2) against
+`packed_pair_reference`.
 
 B2b: the moments of the conv emulated from `samm_conv.tma_operands(z, k2)`
 against `alignnet_conv2_kernel_reference`'s. The kernels themselves are held
@@ -328,6 +334,60 @@ def test_bf16_stage_from_operands_matches_b4(case):
     assert rgb.dtype == rgb_ref.dtype == z2_ref.dtype == torch.bfloat16
     for got, ref in ((z, z_ref), (z2, z2_ref), (rgb, rgb_ref)):
         assert got.shape == ref.shape and rel_err(got, ref) <= TOL_BF16
+
+
+# ----------------------------------------------------------- bfloat16 B3
+
+def emulated_b3_bf16(args):
+    """bfloat16 B3 as its kernels compute it: the conv from the repack's
+    operands (stage_input_words of x * s_in, stage_weight_words of k) in
+    float64, the epilogue (no s2), one rounding to bfloat16; args as
+    packed_conv3x3_act_reference's."""
+    x, n4, k, s, d, bias = args
+    y = repacked_conv3x3(packed_conv.stage_input_words(x, s),
+                         packed_conv.stage_weight_words(k)).permute(0, 2, 3, 1)
+    return packed_conv._epilogue(y, n4.double(), d.double(), bias.double()).float().to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_bf16_b3_operands_layout(case):
+    """bfloat16 B3's repack, one conv (no k2), at both convs of the pair:
+    x * s_in with s_in rounded to bfloat16 first, then the product rounded,
+    and k laid out [dx, dy, co, ci], channels padded with zero bits to a
+    multiple of 8, in conv_scratch's shapes and dtype."""
+    b, h, w, c1, c4 = case
+    a = bf16_inputs(case)
+    z = packed_conv.packed_conv3x3_act_kernel_reference(*(a[k] for k in CONV1))
+    assert z.dtype == torch.bfloat16
+    for x, s, k, ci in ((a["x"], a["s1"], a["k1"], c1), (z, a["s2"], a["k2"], c4)):
+        xr, wr = packed_conv.stage_input_words(x, s), packed_conv.stage_weight_words(k)
+        check_padded(xr, x * s.to(torch.bfloat16)[:, None, None, :], ci)
+        assert xr.shape[:3] == (b, h, w) and wr.shape[:3] == (3, 3, c4)
+        for dx in range(3):
+            for dy in range(3):
+                check_padded(wr[dx, dy], k[dy, dx].T, ci)
+        for t, ref in zip(packed_conv.conv_scratch(x, c4), (xr, wr)):
+            assert t.shape == ref.shape and t.dtype == ref.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("case", RAGGED)
+def test_bf16_b3_from_operands_matches_plain(case):
+    """bfloat16 B3 emulated from its operands is B3's kernel's plain version
+    within 2^-7 of max|ref| at both convs of the pair; the pair as two such
+    calls, the second on the first's bfloat16 output (repacked times s2),
+    is packed_pair_reference's within 2^-7 of max|ref|."""
+    a = bf16_inputs(case)
+    conv1, conv2 = pair_convs(a)
+    for args in (conv1, conv2):
+        got = emulated_b3_bf16(args)
+        ref = packed_conv.packed_conv3x3_act_kernel_reference(*args)
+        assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert rel_err(got, ref) <= TOL_BF16
+    z = emulated_b3_bf16(conv1)
+    pair = emulated_b3_bf16((z,) + conv2[1:])
+    ref = packed_conv.packed_pair_reference(*(a[k] for k in PAIR_KEYS))
+    assert pair.dtype == ref.dtype and rel_err(pair, ref) <= TOL_BF16
 
 
 def moments(y):

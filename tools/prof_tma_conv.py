@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """What the TMA kernel's drains buy, and B2a, B3 and B4 on the TMA kernel, on
 a CUDA card:
-python3 tools/prof_tma_conv.py [--sections bf16,f32,b2b-f32,b4-f32,b3-f32,b4-bf16]
+python3 tools/prof_tma_conv.py [--sections bf16,f32,b2b-f32,b4-f32,b3-f32,b4-bf16,b3-bf16]
 
-Six sections, all by default:
+Seven sections, all by default:
 
 bf16. The bfloat16 path of B2b (csrc/tma_conv.cuh, `ogi_alignnet_conv2`)
 adds its products to its accumulator on the CUDA cores every DRAIN_STAGES
@@ -46,10 +46,11 @@ conv2's operand, conv2 with z2 and the toRGB partials, the rgb pass),
 beside the tensor-core bound of the dense and of the useful convs (3xTF32
 or bfloat16).
 
-b3-f32. float32 B3 (csrc/packed_stage.cu on the TMA core, PACKED_TF32) at
-both convs of both packed stages (b = 1): the whole call and its two
-launches alone (the repack of x * s_in and k into words, the conv), beside
-the dense and useful 3xTF32 bounds of the conv.
+b3-f32, b3-bf16. B3 (csrc/packed_stage.cu on the TMA core, PACKED_TF32 or
+PACKED) in float32 or bfloat16 at both convs of both packed stages (b =
+1): the whole call and its two launches alone (the repack of x * s_in and
+k into the core's operands, the conv), beside the dense and useful bounds
+of the conv (3xTF32 or bfloat16).
 """
 
 import argparse
@@ -70,7 +71,7 @@ from ood_gan_inversion_tpu_torch import build  # noqa: E402
 from ood_gan_inversion_tpu_torch.ops import alignnet, samm_conv  # noqa: E402
 
 SCALES = [(32, 1024), (64, 1024), (128, 512), (256, 256)]   # (H = W, 2C)
-SECTIONS = ("bf16", "f32", "b2b-f32", "b4-f32", "b3-f32", "b4-bf16")
+SECTIONS = ("bf16", "f32", "b2b-f32", "b4-f32", "b3-f32", "b4-bf16", "b3-bf16")
 
 
 KEY = "constexpr int DRAIN_STAGES = "
@@ -175,9 +176,11 @@ def main():
     if "b4-f32" in sections:
         b4(torch.float32)
     if "b3-f32" in sections:
-        b3_f32()
+        b3(torch.float32)
     if "b4-bf16" in sections:
         b4(torch.bfloat16)
+    if "b3-bf16" in sections:
+        b3(torch.bfloat16)
     return 0
 
 
@@ -383,17 +386,20 @@ def b4(dtype):
           + ", ".join(f"{k} {v:.4f}" for k, v in total.items()), flush=True)
 
 
-def b3_f32():
-    """float32 B3 at both convs of both packed stages (b = 1): the call and
-    its two launches alone (chip_smoke.conv_step_ms), beside the conv's
+def b3(dtype):
+    """B3 in `dtype` at both convs of both packed stages (b = 1): the call
+    and its two launches alone (chip_smoke.conv_step_ms), beside the conv's
     bounds."""
     from chip_smoke import (PACKED_STAGES, conv_flops, conv_step_ms, packed_operands,
                             tc_bound_ms)
     from ood_gan_inversion_tpu_torch.ops.packed_conv import (fused_conv3x3_act,
                                                              packed_conv3x3_act_reference)
+    itemsize, what = (4, "float32 B3, 3xTF32") if dtype == torch.float32 else (2, "bfloat16 B3")
     total = {}
     for h, c1, cmid in PACKED_STAGES:
         a = packed_operands(1, h, c1, cmid, seed=h + 1)
+        for k in ("x", "k1", "k2"):
+            a[k] = a[k].to(dtype)
         conv1 = tuple(a[k] for k in ("x", "n1", "k1", "s1", "d1", "b1"))
         z = packed_conv3x3_act_reference(*conv1)
         for name, args in (("conv1", conv1), ("conv2", (z, a["n2"], a["k2"], a["s2"], a["d2"],
@@ -401,15 +407,15 @@ def b3_f32():
             k = args[2]
             call = time_ms(lambda: fused_conv3x3_act(*args), iters=10)
             steps = conv_step_ms(args)
-            dense, useful = (tc_bound_ms(f, 0, 4)[0] for f in conv_flops(1, h, k))
-            print(f"{2 * h}px stage {name} ({h}x{h}, {k.shape[2]}->{k.shape[3]}) float32 B3: "
+            dense, useful = (tc_bound_ms(f, 0, itemsize)[0] for f in conv_flops(1, h, k))
+            print(f"{2 * h}px stage {name} ({h}x{h}, {k.shape[2]}->{k.shape[3]}) {what}: "
                   f"call {call:.4f} ms; alone repack {steps['repack']:.4f}, conv "
-                  f"{steps['conv']:.4f}; the conv against its dense 3xTF32 bound {dense:.4f} "
+                  f"{steps['conv']:.4f}; the conv against its dense bound {dense:.4f} "
                   f"({dense / steps['conv']:.0%}) and useful {useful:.4f} "
                   f"({useful / steps['conv']:.0%})", flush=True)
             for key, v in (("call", call), *steps.items(), ("dense bound", dense)):
                 total[key] = total.get(key, 0.0) + v
-    print("float32 B3 per 1024px image (4 calls, b = 1): "
+    print(f"{what} per 1024px image (4 calls, b = 1): "
           + ", ".join(f"{k} {v:.4f}" for k, v in total.items()), flush=True)
 
 

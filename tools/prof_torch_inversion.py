@@ -32,8 +32,7 @@ from ood_gan_inversion_tpu_torch.infer import InversionEngine  # noqa: E402
 
 
 OWN_KERNELS = ("warp_blend_kernel", "tma_conv_kernel", "repack_kernel", "repack_tf32_kernel",
-               "stage_repack_kernel", "stage_conv_kernel", "rgb_kernel", "sum_tiles_kernel",
-               "box3x3_kernel")
+               "stage_repack_kernel", "rgb_kernel", "sum_tiles_kernel", "box3x3_kernel")
 
 
 def main():
