@@ -27,9 +27,13 @@ import math
 
 import torch
 
-from ..nn.stylegan2 import feature_modulation
+from ..nn.stylegan2 import DECODE_SPANS, feature_modulation
 from ..ops.resize import resize_bilinear
 from ..parallel import spatial
+from ..utils import trace
+
+# the span of the SAMM block of scale index ind (1 = 32px): SAMM_SPANS[ind - 1]
+SAMM_SPANS = tuple(f"samm.{2 ** (k + 5)}" for k in range(4))
 
 
 def cond_layers_for(mod_size: int, n_feats: int = 4):
@@ -80,54 +84,58 @@ def conditioned_decode(arch, lats, feats_c, mod_size: int, noise, features_in=No
             return out
         return (1.0 - feature_scale) * out + feature_scale * f.to(out.dtype)
 
-    out = gen.conv1(gen.const_input(lats.shape[0], lats.dtype), lats[:, 0],
-                    noise[0])
-    skip = gen.to_rgb1(out, lats[:, 1])
+    b = lats.shape[0]
+    with trace.span(DECODE_SPANS[0], b):
+        out = gen.conv1(gen.const_input(b, lats.dtype), lats[:, 0], noise[0])
+        skip = gen.to_rgb1(out, lats[:, 1])
     aligns, prev_align = {}, None
     i = 1
     for idx, to_rgb in enumerate(gen.to_rgbs):
         conditioned = i in cond_layers or i in features_in or i + 1 in features_in
-        if conditioned:
-            # SAMM and the feature injection run whole on the first slot
-            # (parallel/spatial.py; nothing outside its banding context)
-            out, skip = spatial.gather(out), spatial.gather(skip)
-        if spatial.banded(out, conditioned):
-            out, skip = spatial.banded_stage(
-                gen, idx, out, skip, lats[:, i], lats[:, i + 1], lats[:, i + 2],
-                noise[1 + 2 * idx], noise[2 + 2 * idx])
-        elif not conditioned and gen.stage_is_packable(idx):
-            out, skip = gen.packed_stage(
-                idx, out, skip, lats[:, i], lats[:, i + 1], lats[:, i + 2],
-                noise[1 + 2 * idx], noise[2 + 2 * idx],
-                unpack_out=idx < len(gen.to_rgbs) - 1)
-        else:
-            conv_a, conv_b = gen.convs[2 * idx], gen.convs[2 * idx + 1]
-            out = inject(out, i)
-            if i in cond_layers:
-                ind = cond_layers.index(i) + 1
-                mod, feat, style = arch.modulation[str(4 - ind)], feats_c[4 - ind], lats[:, i]
-                if mod_type == "ADD":
-                    out_a = conv_a(out, style, noise[1 + 2 * idx])
-                    aligned, align = mod(feat, out_a, prev_align, style)
-                    cond = aligned - out_a + cond_noise[ind - 1].to(out_a.dtype)
-                    out = feature_modulation(out_a, (None, cond), mod_type="ADD")
-                else:
-                    out_c = conv_a.conv(out, style)
-                    if arch.samm_fp32_infer and out_c.dtype == torch.bfloat16:
-                        aligned, align = mod(feat.float(), out_c.float(), prev_align,
-                                             style.float())
-                        aligned = aligned.to(out_c.dtype)
-                    else:
-                        aligned, align = mod(feat, out_c, prev_align, style)
-                    out = conv_a.activate(conv_a.noise(aligned, noise[1 + 2 * idx]))
-                aligns[ind] = prev_align = align
+        with trace.span(DECODE_SPANS[idx + 1], b):
+            if conditioned:
+                # SAMM and the feature injection run whole on the first slot
+                # (parallel/spatial.py; nothing outside its banding context)
+                out, skip = spatial.gather(out), spatial.gather(skip)
+            if spatial.banded(out, conditioned):
+                out, skip = spatial.banded_stage(
+                    gen, idx, out, skip, lats[:, i], lats[:, i + 1], lats[:, i + 2],
+                    noise[1 + 2 * idx], noise[2 + 2 * idx])
+            elif not conditioned and gen.stage_is_packable(idx):
+                out, skip = gen.packed_stage(
+                    idx, out, skip, lats[:, i], lats[:, i + 1], lats[:, i + 2],
+                    noise[1 + 2 * idx], noise[2 + 2 * idx],
+                    unpack_out=idx < len(gen.to_rgbs) - 1)
             else:
-                out = conv_a(out, lats[:, i], noise[1 + 2 * idx])
-            out = conv_b(inject(out, i + 1), lats[:, i + 1], noise[2 + 2 * idx])
-            skip = to_rgb(out, lats[:, i + 2], skip)
-        # banding anchor (parallel/spatial.py; nothing outside its banding
-        # context): the >= min_h stages' outputs are H-banded
-        out, skip = spatial.constrain(out), spatial.constrain(skip)
+                conv_a, conv_b = gen.convs[2 * idx], gen.convs[2 * idx + 1]
+                out = inject(out, i)
+                if i in cond_layers:
+                    ind = cond_layers.index(i) + 1
+                    mod, feat, style = arch.modulation[str(4 - ind)], feats_c[4 - ind], lats[:, i]
+                    if mod_type == "ADD":
+                        out_a = conv_a(out, style, noise[1 + 2 * idx])
+                        with trace.span(SAMM_SPANS[ind - 1], b):
+                            aligned, align = mod(feat, out_a, prev_align, style)
+                        cond = aligned - out_a + cond_noise[ind - 1].to(out_a.dtype)
+                        out = feature_modulation(out_a, (None, cond), mod_type="ADD")
+                    else:
+                        out_c = conv_a.conv(out, style)
+                        with trace.span(SAMM_SPANS[ind - 1], b):
+                            if arch.samm_fp32_infer and out_c.dtype == torch.bfloat16:
+                                aligned, align = mod(feat.float(), out_c.float(), prev_align,
+                                                     style.float())
+                                aligned = aligned.to(out_c.dtype)
+                            else:
+                                aligned, align = mod(feat, out_c, prev_align, style)
+                        out = conv_a.activate(conv_a.noise(aligned, noise[1 + 2 * idx]))
+                    aligns[ind] = prev_align = align
+                else:
+                    out = conv_a(out, lats[:, i], noise[1 + 2 * idx])
+                out = conv_b(inject(out, i + 1), lats[:, i + 1], noise[2 + 2 * idx])
+                skip = to_rgb(out, lats[:, i + 2], skip)
+            # banding anchor (parallel/spatial.py; nothing outside its banding
+            # context): the >= min_h stages' outputs are H-banded
+            out, skip = spatial.constrain(out), spatial.constrain(skip)
         i += 2
     return spatial.gather(skip), aligns
 
@@ -148,9 +156,10 @@ def blend_and_pack(arch, x, gen_image, lats, aligns):
     holding the composited mask as 3 channels."""
     image, mask = gen_image, None
     if arch.blend_with_gen and aligns:
-        mask = blending_mask(aligns, arch.out_size)
-        aligns[arch.out_size] = mask.expand(-1, 3, -1, -1)
-        for _ in range(arch.blend_cnt):
-            image = mask * x + image * (1.0 - mask)
+        with trace.span("blend", x.shape[0]):
+            mask = blending_mask(aligns, arch.out_size)
+            aligns[arch.out_size] = mask.expand(-1, 3, -1, -1)
+            for _ in range(arch.blend_cnt):
+                image = mask * x + image * (1.0 - mask)
     return {"image": image, "lats": lats, "aligns": aligns, "mask": mask,
             "gen_image": gen_image}

@@ -32,6 +32,7 @@ from ..nn.layers import Conv2dTorch
 from ..nn.samm import StyledScaleNShiftBlock, check_samm_options
 from ..nn.stylegan2 import STYLEGAN2_CHANNELS, Generator
 from ..ops.resize import resize_bilinear
+from ..utils import trace
 from .common import blend_and_pack, cond_layers_for, cond_noise_shapes, conditioned_decode
 
 
@@ -158,7 +159,8 @@ class OODFaceGANE4E(nn.Module):
         features carry no gradient (the reference runs the encoder under
         no_grad); the W+ offsets and the adapters after it still do.
         noise: split_noise's encoder share (None here)."""
-        lats, feats = self.encoder(resize_bilinear(x.to(self.dtype), (256, 256)), stage)
+        with trace.span("encoder", x.shape[0]):
+            lats, feats = self.encoder(resize_bilinear(x.to(self.dtype), (256, 256)), stage)
         if freeze_encoder:
             lats, feats = lats.detach(), [f.detach() for f in feats]
         return self.offset_and_adapt(lats + self.avg_latent[None].to(lats.dtype), feats,
@@ -168,12 +170,14 @@ class OODFaceGANE4E(nn.Module):
         """The encoder's W+ with avg_latent added -> (W+ + delta_latent,
         truncated toward avg_latent when truncation < 1; the SAMM features
         through their 1x1 adapters)."""
-        lats = lats + self.delta_latent.to(lats.dtype)
-        if truncation < 1.0:
-            lats = self.avg_latent[None].to(lats.dtype) * (1.0 - truncation) + lats * truncation
-        feats_c = ([conv(f) for conv, f in zip(self.feats_conv, feats)]
-                   if self.enable_modulation else None)
-        return lats, feats_c
+        with trace.span("adapt", lats.shape[0]):
+            lats = lats + self.delta_latent.to(lats.dtype)
+            if truncation < 1.0:
+                lats = (self.avg_latent[None].to(lats.dtype) * (1.0 - truncation)
+                        + lats * truncation)
+            feats_c = ([conv(f) for conv, f in zip(self.feats_conv, feats)]
+                       if self.enable_modulation else None)
+            return lats, feats_c
 
     def decode_samm(self, lats, feats_c, x, mod_size: int = 256, noise=None):
         """(W+, adapted features) -> the output dict, NCHW."""

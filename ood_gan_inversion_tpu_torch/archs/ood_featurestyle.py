@@ -15,6 +15,7 @@ The noise is the generator's per-layer list, as for E4E.
 from ..nn.encoders.e4e import PROGRESSIVE_INFERENCE
 from ..nn.encoders.feature_style import FSEncoderV2
 from ..ops.resize import adaptive_avg_pool
+from ..utils import trace
 from .common import blend_and_pack, cond_layers_for, conditioned_decode
 from .ood_e4e import OODFaceGANE4E
 
@@ -42,7 +43,8 @@ class OODFaceGANFeatureStyle(OODFaceGANE4E):
         the content rides along to the decode. The encoder has no
         progressive stages (JAX's ignores `stage` too) and decodes
         nothing (`noise` is None)."""
-        lats, content, feats = self.encoder(adaptive_avg_pool(x.to(self.dtype), (256, 256)))
+        with trace.span("encoder", x.shape[0]):
+            lats, content, feats = self.encoder(adaptive_avg_pool(x.to(self.dtype), (256, 256)))
         if freeze_encoder:
             lats, content = lats.detach(), content.detach()
             feats = [f.detach() for f in feats]

@@ -29,6 +29,7 @@ import torch
 from ..nn.encoders.e4e import PROGRESSIVE_INFERENCE
 from ..nn.encoders.restyle import ProgressiveBackboneEncoder
 from ..ops.resize import adaptive_avg_pool
+from ..utils import trace
 from .ood_e4e import OODFaceGANE4E
 
 
@@ -79,12 +80,14 @@ class OODFaceGANReStyle(OODFaceGANE4E):
             return adaptive_avg_pool(self.generator(lats, noise[dec * n:(dec + 1) * n]),
                                      (256, 256))
 
+        def encoder(prev):
+            with trace.span("encoder", x.shape[0]):
+                return self.encoder(torch.cat([x256, prev], dim=1), stage)
+
         with torch.no_grad() if freeze_encoder else contextlib.nullcontext():
-            avg_img = decode256(avg.expand(x.shape[0], -1, -1), 0)
-            lats, feats = self.encoder(torch.cat([x256, avg_img], dim=1), stage)
+            lats, feats = encoder(decode256(avg.expand(x.shape[0], -1, -1), 0))
             lats = lats + avg
             for dec in range(1, self.enc_cycle):
-                new_x = decode256(lats.detach(), dec)
-                delta, feats = self.encoder(torch.cat([x256, new_x], dim=1), stage)
+                delta, feats = encoder(decode256(lats.detach(), dec))
                 lats = lats + delta
         return self.offset_and_adapt(lats, feats, truncation)

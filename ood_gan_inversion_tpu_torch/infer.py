@@ -32,6 +32,10 @@ keeps the bits. `invert_batch_perkey_split` decodes each request alone.
 Results stay on the engine's device and nothing here waits for the device:
 reading a result on the host is the barrier.
 
+While a `torch.profiler` session runs, every public `invert*` call records
+the spans of utils/trace.py (the prelude, the forward, each layer
+boundary inside it), timed on the host and on the card.
+
 Several devices (parallel/mesh.py): `invert_batch_sharded` and
 `invert_batch_perkey_sharded` split a batch and its noise over a mesh's
 slots, one forward per slot on its device's replica of the weights,
@@ -53,6 +57,7 @@ from .device import resolve_device
 from .nn.layers import init_weights
 from .parallel import spatial
 from .parallel.mesh import Replicas, make_mesh, split_batch
+from .utils import trace
 from .utils.img_util import img2input
 
 
@@ -131,10 +136,18 @@ class InversionEngine:
     def _noise(self, seeds):
         """The per-layer noise of a batch with one seed per sample: each
         seed's draw at batch 1, concatenated along the batch axis."""
-        draws = [self.net.make_noise(
-            1, torch.Generator(device=self.device).manual_seed(int(s)), self.device)
-            for s in seeds]
-        return [torch.cat(layer) for layer in zip(*draws)]
+        with trace.span("noise", len(seeds)):
+            draws = [self.net.make_noise(
+                1, torch.Generator(device=self.device).manual_seed(int(s)), self.device)
+                for s in seeds]
+            return [torch.cat(layer) for layer in zip(*draws)]
+
+    def _shared_noise(self, batch, seed):
+        """The noise of a batch drawn at its size from one generator (JAX's
+        one key)."""
+        with trace.span("noise", batch):
+            g = torch.Generator(device=self.device).manual_seed(int(seed))
+            return self.net.make_noise(batch, g, self.device)
 
     def _perkey_noise(self, x, seeds):
         """_noise(seeds) for batch x, which must hold one image per seed."""
@@ -145,7 +158,7 @@ class InversionEngine:
     def _run(self, x, noise, outputs=None, net=None):
         """The forward of x with its noise through `net` (the engine's own
         by default, or a replica on x's device)."""
-        with torch.inference_mode():
+        with trace.span("forward", x.shape[0]), torch.inference_mode():
             out = (net or self.net)(x, mod_size=self.mod_size, noise=noise)
         return out if outputs is None else {k: out[k] for k in outputs}
 
@@ -153,29 +166,33 @@ class InversionEngine:
         """HWC [0, 1] RGB images -> the (B, S, S, 3) float32 input on the
         engine's device (through pinned memory on the card, so the upload
         does not wait for work already queued there)."""
-        x = torch.from_numpy(np.concatenate(
-            [img2input(im, self.out_size) for im in imgs01]))
-        if self.device.type == "cuda":
-            return x.pin_memory().to(self.device, non_blocking=True)
-        return x.to(self.device)
+        with trace.span("input", len(imgs01)):
+            x = torch.from_numpy(np.concatenate(
+                [img2input(im, self.out_size) for im in imgs01]))
+        with trace.span("upload", len(imgs01)):
+            if self.device.type == "cuda":
+                return x.pin_memory().to(self.device, non_blocking=True)
+            return x.to(self.device)
 
     def invert(self, img01, seed: int = 0):
         """One HWC [0, 1] RGB image -> the arch's output dict (NHWC, batch 1)."""
-        return self._dispatch_perkey(self.input_batch([img01]), [seed])
+        with trace.span("invert", 1):
+            return self._dispatch_perkey(self.input_batch([img01]), [seed])
 
     def invert_batch(self, imgs01, seed: int = 0):
         """A batch decoded with one noise stream for the whole batch (JAX's
         one key): the noise is drawn at the batch's size from one
         generator, so a reply depends on its slot."""
-        g = torch.Generator(device=self.device).manual_seed(int(seed))
-        noise = self.net.make_noise(len(imgs01), g, self.device)
-        return self._run(self.input_batch(imgs01), noise)
+        with trace.span("invert", len(imgs01)):
+            x = self.input_batch(imgs01)
+            return self._run(x, self._shared_noise(len(imgs01), seed))
 
     def invert_batch_perkey(self, imgs01, seeds, outputs=None):
         """One seed per image, one batched forward (see the module
         docstring). `outputs`: optional tuple of result keys to return
         (e.g. ("image", "mask")); all keys by default."""
-        return self._dispatch_perkey(self.input_batch(imgs01), seeds, outputs)
+        with trace.span("invert", len(imgs01)):
+            return self._dispatch_perkey(self.input_batch(imgs01), seeds, outputs)
 
     def _dispatch_perkey(self, x, seeds, outputs=None):
         """invert_batch_perkey on a preprocessed batch x (B, S, S, 3) already
@@ -188,7 +205,8 @@ class InversionEngine:
         """One seed per image, each image decoded alone at batch 1 and the
         replies concatenated: each reply is bit-identical to a lone
         request's."""
-        return self._dispatch_perkey_split(self.input_batch(imgs01), seeds, outputs)
+        with trace.span("invert", len(imgs01)):
+            return self._dispatch_perkey_split(self.input_batch(imgs01), seeds, outputs)
 
     def _dispatch_perkey_split(self, x, seeds, outputs=None):
         """invert_batch_perkey_split on a device-resident batch: the sharded
@@ -214,15 +232,17 @@ class InversionEngine:
         invert_batch draws it, then the batch and its noise split over the
         slots. len(imgs01) must divide by the mesh size."""
         mesh = mesh or make_mesh()
-        g = torch.Generator(device=self.device).manual_seed(int(seed))
-        noise = self.net.make_noise(len(imgs01), g, self.device)
-        return self._sharded(self.input_batch(imgs01), noise, mesh)
+        with trace.span("invert", len(imgs01)):
+            x = self.input_batch(imgs01)
+            return self._sharded(x, self._shared_noise(len(imgs01), seed), mesh)
 
     def invert_batch_perkey_sharded(self, imgs01, seeds, mesh, outputs=None):
         """invert_batch_perkey over a mesh: one seed per image, the batch
         split over the slots; each reply bit for bit the unsharded one.
         len(imgs01) must divide by the mesh size."""
-        return self._dispatch_perkey_sharded(self.input_batch(imgs01), seeds, mesh, outputs)
+        with trace.span("invert", len(imgs01)):
+            return self._dispatch_perkey_sharded(self.input_batch(imgs01), seeds, mesh,
+                                                 outputs)
 
     def _dispatch_perkey_sharded(self, x, seeds, mesh, outputs=None):
         """invert_batch_perkey_sharded on a batch already on the engine's
@@ -241,8 +261,10 @@ class InversionEngine:
         device."""
         mesh = mesh or make_mesh(axes=("sp",))
         first = mesh.slots[0]
-        x = self.input_batch([img01]).to(first)
-        noise = [t.to(first) for t in self._noise([seed])]
-        with spatial.banding(mesh, self.replicas, min_h), torch.inference_mode():
-            out = self.replicas.get(first)(x, mod_size=self.mod_size, noise=noise)
-        return _cat([out], self.device)
+        with trace.span("invert", 1):
+            x = self.input_batch([img01]).to(first)
+            noise = [t.to(first) for t in self._noise([seed])]
+            with (spatial.banding(mesh, self.replicas, min_h), trace.span("forward", 1),
+                  torch.inference_mode()):
+                out = self.replicas.get(first)(x, mod_size=self.mod_size, noise=noise)
+            return _cat([out], self.device)

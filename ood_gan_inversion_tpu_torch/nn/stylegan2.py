@@ -33,11 +33,15 @@ from ..ops.polyphase import (conv1x1_packed_kernel, conv3x3_packed_kernel,
 from ..ops.stats import minibatch_stddev
 from ..ops.upfirdn2d import make_kernel, upsample2x
 from ..parallel import spatial
+from ..utils import trace
 from .layers import ConvLayer, EqualLinear, FusedLeakyReLU, ResBlock
 
 # stages whose output is at least this many pixels wide run packed
 _PACKED_MIN_RES = 512
 TAIL_KERNELS = ("none", "pair", "stage")
+# the span of each decode stage, by index: 0 is conv1 + to_rgb1 (4px),
+# 1 + idx the stage of to_rgbs[idx] (2 ** (idx + 3) px)
+DECODE_SPANS = tuple(f"decode.{2 ** k}" for k in range(2, 12))
 
 
 def STYLEGAN2_CHANNELS(channel_multiplier: int = 2, narrow: float = 1.0):
@@ -300,27 +304,29 @@ class Generator(nn.Module):
 
     def forward(self, latent, noise):
         """Plain (unconditioned) decode; noise from make_noise."""
-        out = self.conv1(self.const_input(latent.shape[0], latent.dtype),
-                         latent[:, 0], noise[0])
-        skip = self.to_rgb1(out, latent[:, 1])
+        b = latent.shape[0]
+        with trace.span(DECODE_SPANS[0], b):
+            out = self.conv1(self.const_input(b, latent.dtype), latent[:, 0], noise[0])
+            skip = self.to_rgb1(out, latent[:, 1])
         i = 1
         for idx, to_rgb in enumerate(self.to_rgbs):
-            if spatial.banded(out, False):
-                out, skip = spatial.banded_stage(
-                    self, idx, out, skip, latent[:, i], latent[:, i + 1], latent[:, i + 2],
-                    noise[1 + 2 * idx], noise[2 + 2 * idx])
-            elif self.stage_is_packable(idx):
-                out, skip = self.packed_stage(
-                    idx, out, skip, latent[:, i], latent[:, i + 1], latent[:, i + 2],
-                    noise[1 + 2 * idx], noise[2 + 2 * idx],
-                    unpack_out=idx < len(self.to_rgbs) - 1)
-            else:
-                out = self.convs[2 * idx](out, latent[:, i], noise[1 + 2 * idx])
-                out = self.convs[2 * idx + 1](out, latent[:, i + 1], noise[2 + 2 * idx])
-                skip = to_rgb(out, latent[:, i + 2], skip)
-            # banding anchor (parallel/spatial.py; nothing outside its
-            # banding context): the >= min_h stages' outputs are H-banded
-            out, skip = spatial.constrain(out), spatial.constrain(skip)
+            with trace.span(DECODE_SPANS[idx + 1], b):
+                if spatial.banded(out, False):
+                    out, skip = spatial.banded_stage(
+                        self, idx, out, skip, latent[:, i], latent[:, i + 1],
+                        latent[:, i + 2], noise[1 + 2 * idx], noise[2 + 2 * idx])
+                elif self.stage_is_packable(idx):
+                    out, skip = self.packed_stage(
+                        idx, out, skip, latent[:, i], latent[:, i + 1], latent[:, i + 2],
+                        noise[1 + 2 * idx], noise[2 + 2 * idx],
+                        unpack_out=idx < len(self.to_rgbs) - 1)
+                else:
+                    out = self.convs[2 * idx](out, latent[:, i], noise[1 + 2 * idx])
+                    out = self.convs[2 * idx + 1](out, latent[:, i + 1], noise[2 + 2 * idx])
+                    skip = to_rgb(out, latent[:, i + 2], skip)
+                # banding anchor (parallel/spatial.py; nothing outside its
+                # banding context): the >= min_h stages' outputs are H-banded
+                out, skip = spatial.constrain(out), spatial.constrain(skip)
             i += 2
         return spatial.gather(skip)
 

@@ -1180,3 +1180,53 @@ def test_deform_conv2d_on_card(cuda):
     ref = deform_conv2d(x, off, w, mask, b)
     got = deform_conv2d(*(a.to(cuda) for a in (x, off, w, mask, b)))
     assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_spans_time_a_traced_batched_forward_on_card(cuda):
+    """A batched per-seed E4E forward at 256px under a CUDA-only profiler
+    records the port's spans (utils/trace.py turns on with any profiler
+    session): each with a device time of at least 0, the children of each
+    span within its device time (1%, plus the events' resolution), and at
+    least 99% of the CUDA runtime calls the profiler records during the
+    call inside the call's spans: the spans share the trace's clock."""
+    import collections
+    import time
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    from ood_gan_inversion_tpu_torch.utils import trace
+    opt = {"network_g": {"type": "ood_faceGAN_e4e", "out_size": 256, "channel_multiplier": 1,
+                         "narrow": 0.25, "encoder_num_layers": 4, "cycle_align": 2,
+                         "warp_scale": 0.08, "ModSize": 128}}
+    eng = InversionEngine(opt, device="cuda")
+    rs = np.random.RandomState(0)
+    imgs = [rs.rand(256, 256, 3).astype(np.float32) for _ in range(4)]
+    eng.invert_batch_perkey(imgs, [0, 1, 2, 3])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time_ns()
+        eng.invert_batch_perkey(imgs, [4, 5, 6, 7])
+        t1 = time.time_ns()
+        torch.cuda.synchronize()
+    got = [s for s in trace.spans() if s.t0_ns >= t0]
+    # 8 spans besides 7 stages (4..256px) and 3 SAMM blocks (32..128px)
+    assert len(got) == 18 and all(s.n == 4 for s in got)
+    (root,) = [s for s in got if s.parent is None]
+    assert root.name == "invert"
+    dev = {s.id: s.device_ms for s in got}
+    assert min(dev.values()) >= 0.0
+    children = collections.defaultdict(float)
+    for s in got:
+        if s.parent is not None:
+            children[s.parent] += dev[s.id]
+    for sid, total in children.items():
+        assert total <= 1.01 * dev[sid] + 0.01, (sid, total, dev[sid])
+    api = [(e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if "CUDA" not in str(e.device_type()) and e.name().startswith("cu")]
+    during = [(s, e) for s, e in api if t0 <= s < t1]
+    inside = [1 for s, e in during if root.t0_ns <= s and e <= root.t1_ns]
+    assert len(during) > 100 and len(inside) >= 0.99 * len(during)

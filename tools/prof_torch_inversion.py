@@ -7,12 +7,13 @@ Builds InversionEngine at the options/test/E4E_Face_test.yml network_g
 (IR-SE-50, cycle_align 2, ModSize 256, seeded weights) in --dtype (float32
 by default), warms it up, then profiles `--reps` forwards with
 torch.profiler: `invert` at --batch 1, else one batched per-seed
-`invert_batch_perkey` of --batch images. Prints the card, the wall time per
-forward and per image, the device-busy share of that wall time, the
-kernels launched per forward, the device time of the port's own kernels
-(csrc/) per forward, and the operators with the most device time.
-Writes the chrome trace to --trace (default
-results/prof_torch_inversion.json).
+`invert_batch_perkey` of --batch images. Prints the card, the kernels
+launched per forward, the port's spans (utils/trace.py: the call's prelude,
+the encoder, each generator stage and SAMM block, the blend), each with its
+count per forward and its host and device self time per image, the device
+time of the port's own kernels (csrc/) per forward, and the operators with
+the most device time. Writes the chrome trace, which shows the spans, to
+--trace (default results/prof_torch_inversion.json).
 """
 
 import argparse
@@ -29,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import e4e_opt, noisy  # noqa: E402
 from ood_gan_inversion_tpu_torch.infer import InversionEngine  # noqa: E402
+from ood_gan_inversion_tpu_torch.utils import trace  # noqa: E402
 
 
 OWN_KERNELS = ("warp_blend_kernel", "tma_conv_kernel", "repack_kernel", "repack_tf32_kernel",
@@ -60,21 +62,29 @@ def main():
     for i in range(2):
         forward(i)
     torch.cuda.synchronize()
+    t_start = time.time_ns()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         for i in range(args.reps):
             forward(i)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     events = prof.key_averages()
     # kernel rows only: an operator row repeats the time of its kernels
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
     n = args.reps * args.batch
-    print(f"{args.dtype}, batch {args.batch}: wall {1e3 * wall / args.reps:.2f} ms/forward "
-          f"({1e3 * wall / n:.2f} ms/img) over {args.reps}; device busy "
-          f"{1e-3 * dev_us / args.reps:.2f} ms/forward ({100 * dev_us / (1e6 * wall):.1f}% "
-          f"of wall); {sum(e.count for e in kernels) / args.reps:.0f} kernels/forward")
+    print(f"{args.dtype}, batch {args.batch}, {args.reps} forwards: "
+          f"{sum(e.count for e in kernels) / args.reps:.0f} kernels/forward")
+    # the port's spans of these forwards, by name, in the order they opened
+    spans = [s for s in trace.spans() if s.t0_ns >= t_start]
+    host, dev = trace.self_times(spans, "host"), trace.self_times(spans, "device")
+    rows = {}
+    for s in spans:
+        row = rows.setdefault(s.name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += host[s.id]
+        row[2] += dev[s.id]
+    print(f"  {'span':<12} {'per fwd':>7} {'host self ms/img':>17} {'device self ms/img':>19}")
+    for name, (count, h, d) in rows.items():
+        print(f"  {name:<12} {count / args.reps:>7.0f} {h / n:>17.3f} {d / n:>19.3f}")
     # the port's own kernels (csrc/), by their __global__ names
     for e in kernels:
         if any(k in e.key for k in OWN_KERNELS):
