@@ -162,8 +162,8 @@ SAMM_SCALES = [(32, 512), (64, 512), (128, 256), (256, 128)]
 # rounding; a value near a rounding boundary may round the other way, one
 # bfloat16 step, at most 2^-7 of max|ref|)
 SAMM_TOL, SAMM_TOL_BF16 = 1e-4, 2.0 ** -7
-# the body0-mode engines against the default engine: SAMM moves the flows,
-# so a float32 difference in body0 moves sample positions
+# the body0 kernel paths against the algebraic engine: SAMM moves the
+# flows, so a float32 difference in body0 moves sample positions
 BODY0_RTOL = 1e-3
 # bfloat16 against float32 on the same weights, image and seed, and one
 # bfloat16 path against another: JAX's bound for its bfloat16 island
@@ -1319,9 +1319,42 @@ def per_forward(**launches):
                               for k, v in {"warp_blend": 8, **launches}.items()})
 
 
+def fused_body0(engine, kwargs=None, forwards=1):
+    """B2a's and B2b's launches in `forwards` forwards of `engine` at
+    mod_size 256, where every SAMM block runs, worked out from the options
+    the engine was built with (`kwargs`) and its blocks' widths, not from
+    the route the engine picked: body0 is the caller's samm_body0, else
+    "fused" for a float32 engine on the card without samm_conv_bf16; a
+    fused engine launches each kernel once per align cycle of every block
+    with C >= alignnet.FUSED_MIN_CHANNELS (as set when it is called).
+    Raises if the engine took another route."""
+    from ood_gan_inversion_tpu_torch.nn.samm import SPMWarp
+    from ood_gan_inversion_tpu_torch.ops import alignnet
+    kwargs = kwargs or {}
+    want = kwargs.get("samm_body0") or (
+        "fused" if engine.dtype == torch.float32 and not kwargs.get("samm_conv_bf16")
+        else "algebraic")
+    if engine.samm_body0 != want:
+        raise AssertionError(f"body0 took {engine.samm_body0!r}; its options ask for {want!r}")
+    n = 0 if want != "fused" else forwards * sum(
+        m.cycle_align for m in engine.net.modules()
+        if isinstance(m, SPMWarp) and m.body.in_ch >= alignnet.FUSED_MIN_CHANNELS)
+    return {"alignnet_conv1": n, "alignnet_conv2": n}
+
+
+def cpu_twin(gpu, opt, params, **kwargs):
+    """The CPU engine a card engine is held against: the same options and
+    the same body0 route, so that the CPU runs the plain versions of the
+    card's kernels."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    return InversionEngine(opt, params=params, device="cpu",
+                           **{**kwargs, "samm_body0": gpu.samm_body0})
+
+
 def phase_main_path():
-    """The default engine (unpacked tail). Returns (B1 launches, engine,
-    images, its replies)."""
+    """The default engine (unpacked tail; body0 through B2a and B2b, the
+    float32 default on the card). Returns (each kernel's launches in
+    drive(), engine, images, its replies)."""
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     t0 = time.time()
     engine = noisy(InversionEngine(e4e_opt(), seed=SEED, device="cuda"))
@@ -1334,16 +1367,18 @@ def phase_main_path():
     engine.invert_batch_perkey(imgs, [0, 1, 2])
     torch.cuda.synchronize()
     alone, batch, split, launches, ms_single, ms_batch = drive(engine, imgs)
-    want = per_forward()
+    if engine.samm_body0 != "fused":
+        raise AssertionError(f"the default float32 engine took body0 {engine.samm_body0!r}")
+    want = per_forward(alignnet_conv1=8, alignnet_conv2=8)
     if launches != want:
         raise AssertionError(f"default path launched {launches}, expected {want}")
     _, slot = check_replies("default", alone, batch, split)
-    log(f"[main] 7 requests in 5 forwards answered; launches {launches} (warp_blend 8 per "
-        f"forward); split slot 2 == the lone request: True; batched slot 2 vs the lone "
-        f"request: {slot}")
+    log(f"[main] 7 requests in 5 forwards answered; launches {launches} (warp_blend, "
+        f"alignnet_conv1 and alignnet_conv2 8 per forward); split slot 2 == the lone "
+        f"request: True; batched slot 2 vs the lone request: {slot}")
     log(f"[main] ms/img: invert {ms_single:.2f}, invert_batch_perkey (b=3) "
         f"{ms_batch:.2f} (CUDA events, 1024px, float32)")
-    return launches["warp_blend"], engine, imgs, (alone, batch, split)
+    return launches, engine, imgs, (alone, batch, split)
 
 
 def phase_packed_tail(engine, imgs, replies):
@@ -1360,12 +1395,12 @@ def phase_packed_tail(engine, imgs, replies):
     per_image = {"none": {}, "pair": {"fused_conv3x3_act": 4},
                  "stage": {"fused_packed_stage": 2}}     # per forward
     for kern in TAIL_KERNELS:
-        eng = InversionEngine(e4e_opt(), params=params, device="cuda",
-                              packed_tail=True, tail_kernel=kern)
+        kwargs = {"packed_tail": True, "tail_kernel": kern}
+        eng = InversionEngine(e4e_opt(), params=params, device="cuda", **kwargs)
         eng.invert(imgs[0], seed=7)          # warm-up
         torch.cuda.synchronize()
         alone, batch, split, counts, _, _ = drive(eng, imgs)
-        want = per_forward(**per_image[kern])
+        want = per_forward(**per_image[kern], **fused_body0(eng, kwargs))
         if counts != want:
             raise AssertionError(f"packed tail {kern!r} launched {counts}, expected {want}")
         check_replies(f"packed tail {kern!r}", alone, batch, split)
@@ -1391,19 +1426,35 @@ def phase_packed_tail(engine, imgs, replies):
 
 
 def phase_samm_body0(engine, imgs, replies):
-    """The same engine's weights with AlignNet's body0 through the fused
-    kernels ("fused": B2a and B2b at every scale) and through the
-    conv3x3 + activation kernel ("literal" + samm_conv_kernel: B5 for both
-    body0 convs at every scale). Each path's launch counts, its replies
-    against the default engine's (lats bit-identical: the encoder runs
+    """The same engine's weights with AlignNet's body0 by the algebraic
+    formulation in plain PyTorch ("algebraic": cuDNN's float32 convs, no
+    body0 kernel; the reference here) and through the conv3x3 + activation
+    kernel ("literal" + samm_conv_kernel: B5 for both body0 convs at every
+    scale). Each path's launch counts and per-seed determinism; the default
+    engine's replies (body0 through B2a and B2b) and the literal path's
+    against the algebraic engine's (lats bit-identical: the encoder runs
     before any SAMM block; image, gen_image and mask within BODY0_RTOL of
-    max|ref|), per-seed determinism. Returns each kernel's count from its
-    path and the two engines by name."""
+    max|ref|). Returns B5's count from its path and the two engines by
+    name."""
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     params = engine.net.state_dict()
-    engines, launches = {}, {}
-    modes = {"fused": ({"samm_body0": "fused"},
-                       {"alignnet_conv1": 8, "alignnet_conv2": 8}),
+    engines, launches, ref = {}, {}, None
+
+    def against_algebraic(label, outs):
+        errs = {}
+        for got, r in zip(outs, ref):
+            if not torch.equal(got["lats"], r["lats"]):
+                raise AssertionError(f"body0 {label!r}: lats differ from the algebraic engine")
+            for k in ("image", "gen_image", "mask"):
+                err = float((got[k] - r[k]).abs().max() / r[k].abs().max())
+                if not err <= BODY0_RTOL:
+                    raise AssertionError(f"body0 {label!r} {k}: rel err {err} > {BODY0_RTOL}")
+                errs[k] = max(errs.get(k, 0.0), err)
+        return (f"lats bit-identical to the algebraic engine; max rel err image "
+                f"{errs['image']:.2e}, gen_image {errs['gen_image']:.2e}, mask "
+                f"{errs['mask']:.2e} <= {BODY0_RTOL}")
+
+    modes = {"algebraic": ({"samm_body0": "algebraic"}, {}),
              "literal + B5": ({"samm_body0": "literal", "samm_conv_kernel": True},
                               {"conv3x3_act": 16})}
     for label, (kwargs, per_image) in modes.items():
@@ -1415,19 +1466,14 @@ def phase_samm_body0(engine, imgs, replies):
         if counts != want:
             raise AssertionError(f"body0 {label!r} launched {counts}, expected {want}")
         check_replies(f"body0 {label!r}", alone, batch, split)
-        errs = {}
-        for got, ref in zip((alone, batch, split), replies):
-            if not torch.equal(got["lats"], ref["lats"]):
-                raise AssertionError(f"body0 {label!r}: lats differ from the default engine")
-            for k in ("image", "gen_image", "mask"):
-                err = float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
-                if not err <= BODY0_RTOL:
-                    raise AssertionError(f"body0 {label!r} {k}: rel err {err} > {BODY0_RTOL}")
-                errs[k] = max(errs.get(k, 0.0), err)
-        log(f"[main] body0 {label!r}: launches {counts}; lats bit-identical to the default "
-            f"engine; max rel err image {errs['image']:.2e}, gen_image "
-            f"{errs['gen_image']:.2e}, mask {errs['mask']:.2e} <= {BODY0_RTOL}; "
-            "split slot 2 == the lone request: True")
+        text = "the reference of the kernel paths"
+        if ref is None:
+            ref = (alone, batch, split)
+            log(f"[main] body0 'fused' (the default engine): {against_algebraic('fused', replies)}")
+        else:
+            text = against_algebraic(label, (alone, batch, split))
+        log(f"[main] body0 {label!r}: launches {counts}; {text}; split slot 2 == the lone "
+            "request: True")
         launches.update({k: counts[k] for k in per_image})
         engines[f"body0 {label}"] = eng
     return launches, engines
@@ -1785,7 +1831,7 @@ def phase_small_reference():
                    encoder_num_layers=4, dtype="bfloat16")
     # (what, options, engine options, launches of the card's forward); SAMM
     # C is 128, 64, 32, 16 at 32..256px, so 2C >= 32 everywhere
-    cases = [("unpacked", opt, {}, {}),
+    cases = [("unpacked, body0 algebraic", opt, {"samm_body0": "algebraic"}, {}),
              ("packed tail, stage kernel", opt,
               {"packed_tail": True, "tail_kernel": "stage"}, {"fused_packed_stage": 1}),
              ("body0 fused", opt, {"samm_body0": "fused"},
@@ -1798,7 +1844,7 @@ def phase_small_reference():
     try:
         for what, case_opt, kwargs, launches in cases:
             gpu = InversionEngine(case_opt, params=params, device="cuda", **kwargs)
-            cpu = InversionEngine(case_opt, params=params, device="cpu", **kwargs)
+            cpu = cpu_twin(gpu, case_opt, params, **kwargs)
             # the same noise on both devices: draw it on the CPU, copy to the card
             noise = cpu.net.generator.make_noise(
                 1, torch.Generator().manual_seed(3), torch.device("cpu"))
@@ -1808,7 +1854,7 @@ def phase_small_reference():
                 out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
                 torch.cuda.synchronize()
                 counts = read_counts()
-            want = expected_counts(warp_blend=8, **launches)
+            want = expected_counts(warp_blend=8, **{**fused_body0(gpu, kwargs), **launches})
             if counts != want:
                 raise AssertionError(f"small slice {what}: launched {counts}, expected {want}")
             if gpu.dtype == torch.bfloat16:
@@ -2642,7 +2688,7 @@ def phase_family_small_reference():
     for what, opt, b1 in cases:
         params = noisy(InversionEngine(opt, seed=SEED + 3, device="cuda")).net.state_dict()
         gpu = InversionEngine(opt, params=params, device="cuda")
-        cpu = InversionEngine(opt, params=params, device="cpu")
+        cpu = cpu_twin(gpu, opt, params)
         noise = cpu.net.make_noise(1, torch.Generator().manual_seed(4), torch.device("cpu"))
         with torch.inference_mode():
             ref = cpu.net(x, mod_size=256, noise=noise)
@@ -2650,7 +2696,7 @@ def phase_family_small_reference():
             out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
             torch.cuda.synchronize()
             counts = read_counts()
-        if counts != expected_counts(warp_blend=b1):
+        if counts != expected_counts(warp_blend=b1, **fused_body0(gpu)):
             raise AssertionError(f"small {what}: launched {counts}, expected B1 {b1}")
         errs = {}
         for k in ("image", "mask", "gen_image", "lats"):
@@ -2659,7 +2705,8 @@ def phase_family_small_reference():
             if not errs[k] <= 1e-3:
                 raise AssertionError(f"small {what} {k}: card vs CPU rel err {errs[k]}")
         log(f"[check] small {what} (512px, narrow 0.25, {len(noise)} noise tensors): card vs "
-            f"CPU max rel err {errs} (<= 1e-3); B1 launched {b1}")
+            f"CPU max rel err {errs} (<= 1e-3); B1 launched {b1}, body0 "
+            f"{gpu.samm_body0} ({counts['alignnet_conv1']} B2a and B2b launches)")
 
 
 # --- the rest of the model inventory: SAMM options, generator families, nets --------------
@@ -2718,7 +2765,7 @@ def inventory_engine_checks():
         out = engine._dispatch_perkey(x, [7])
         torch.cuda.synchronize()
         counts = read_counts()
-        if counts != expected_counts(warp_blend=8):
+        if counts != expected_counts(warp_blend=8, **fused_body0(engine, kw)):
             raise AssertionError(f"inventory {what}: launched {counts}, expected B1 8")
         launches += counts["warp_blend"]
         for k in ("image", "gen_image", "mask", "lats"):
@@ -2746,7 +2793,8 @@ def inventory_small_reference(what, g, kw, img):
     keys = ("image", "gen_image", "mask", "lats")
     small = e4e_opt(out_size=256, channel_multiplier=1, narrow=0.25, encoder_num_layers=4, **g)
     params = noisy(InversionEngine(small, seed=SEED + 6, device="cuda", **kw)).net.state_dict()
-    engines = {d: InversionEngine(small, params=params, device=d, **kw) for d in ("cuda", "cpu")}
+    engines = {"cuda": InversionEngine(small, params=params, device="cuda", **kw)}
+    engines["cpu"] = cpu_twin(engines["cuda"], small, params, **kw)
     noise = engines["cpu"].net.make_noise(1, torch.Generator().manual_seed(8), torch.device("cpu"))
     xs = torch.from_numpy(img[None, ::4, ::4] * 2.0 - 1.0)
 
@@ -2759,7 +2807,7 @@ def inventory_small_reference(what, g, kw, img):
     reset_counts()
     got = run("cuda", xs)
     torch.cuda.synchronize()
-    if read_counts() != expected_counts(warp_blend=8):
+    if read_counts() != expected_counts(warp_blend=8, **fused_body0(engines["cuda"], kw)):
         raise AssertionError(f"inventory {what} at 256px: launched {read_counts()}")
     if engines["cuda"].dtype != torch.bfloat16:
         errs = {k: rel_err(got[k], ref[k]) for k in ("image", "gen_image", "mask")}
@@ -3244,7 +3292,7 @@ def phase_sharded(engines, imgs):
                 reset_counts()
                 got, ms = timed(lambda: eng.invert_batch_perkey_sharded(ims, seeds, mesh))
                 counts = read_counts()
-                if counts != expected_counts(warp_blend=8 * n):
+                if counts != expected_counts(warp_blend=8 * n, **fused_body0(eng, forwards=n)):
                     raise AssertionError(f"sharded {dt} n={n} b={b}: launched {counts}")
                 launches += counts["warp_blend"]
                 bad = differing_outputs(got, ref)
@@ -3341,7 +3389,8 @@ def phase_spatial(engine, imgs, tails, bf16s):
             out = eng.invert_spatial(imgs[0], seed=7, mesh=mesh, min_h=min_h)
             torch.cuda.synchronize()
             counts = read_counts()
-            want = expected_counts(warp_blend=8, **{k: v * n for k, v in per_band.items()})
+            want = expected_counts(warp_blend=8, **fused_body0(eng),
+                                   **{k: v * n for k, v in per_band.items()})
             if counts != want:
                 raise AssertionError(f"invert_spatial {label} n={n} min_h {min_h}: launched "
                                      f"{counts}, expected {want}")
@@ -3542,7 +3591,8 @@ def phase_samm_bf16(engine, imgs):
             counts = read_counts()
         finally:
             restore()
-        if counts != expected_counts(**per_fwd) or seen.count(torch.bfloat16) != n_bf16:
+        if (counts != expected_counts(**per_fwd, **fused_body0(eng, kwargs))
+                or seen.count(torch.bfloat16) != n_bf16):
             raise AssertionError(f"{label}: launched {counts}, B1 targets {seen}")
         taps_launches += counts["warp_blend_taps_bf16"]
         if differing_outputs(out, ref) == []:
@@ -3562,7 +3612,7 @@ def phase_samm_bf16(engine, imgs):
                            narrow=1.0 if "fit" in label else 0.25)
             small = noisy(InversionEngine(case, seed=SEED + 1, device="cuda")).net.state_dict()
             gpu = InversionEngine(case, params=small, device="cuda", **kwargs)
-            cpu = InversionEngine(case, params=small, device="cpu", **kwargs)
+            cpu = cpu_twin(gpu, case, small, **kwargs)
             noise = cpu.net.generator.make_noise(
                 1, torch.Generator().manual_seed(3), torch.device("cpu"))
             with torch.inference_mode():
@@ -3571,7 +3621,7 @@ def phase_samm_bf16(engine, imgs):
                 out = gpu.net(x.cuda(), mod_size=256, noise=[n.cuda() for n in noise])
                 torch.cuda.synchronize()
                 counts = read_counts()
-            if counts != expected_counts(**per_fwd):
+            if counts != expected_counts(**per_fwd, **fused_body0(gpu, kwargs)):
                 raise AssertionError(f"small slice {label}: launched {counts}")
             text = bf16_compare(f"small slice {label}, card vs CPU", out,
                                 {k: cref[k].cuda() for k in ("image", "gen_image", "mask",
@@ -3630,8 +3680,9 @@ def fit_conditioning():
         case = e4e_opt(out_size=size, channel_multiplier=1, encoder_num_layers=4,
                        narrow=0.25, warp_scale=0.75, ModSize=mod_size)
         params = noisy(InversionEngine(case, seed=SEED + 1, device="cuda")).net.state_dict()
-        engines = {d: InversionEngine(case, params=params, device=d, samm_warp_bf16="fit")
-                   for d in ("cuda", "cpu")}
+        engines = {"cuda": InversionEngine(case, params=params, device="cuda",
+                                           samm_warp_bf16="fit")}
+        engines["cpu"] = cpu_twin(engines["cuda"], case, params, samm_warp_bf16="fit")
         noise = engines["cpu"].net.generator.make_noise(
             1, torch.Generator().manual_seed(3), torch.device("cpu"))
         x = torch.from_numpy(np.random.RandomState(SEED + 1).rand(1, size, size, 3)
@@ -3703,8 +3754,10 @@ def main():
     pipeline_launches = phase_train_pipeline()
     pipeline_launches += phase_restyle_pipeline(train_ms["ReStyle_Face.yml"][FUSED_STEP])
     test_launches = phase_test_pipeline()
-    _, engine, imgs, replies = phase_main_path()
+    main_launches, engine, imgs, replies = phase_main_path()
     launches, tails = phase_packed_tail(engine, imgs, replies)
+    # B2a and B2b run on the main path: their counts are its own
+    launches.update({k: main_launches[k] for k in ("alignnet_conv1", "alignnet_conv2")})
     body0_launches, body0s = phase_samm_body0(engine, imgs, replies)
     launches.update(body0_launches)
     bf16s = phase_bf16(engine, imgs, replies)
@@ -3732,7 +3785,7 @@ def main():
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     conv_bf16 = InversionEngine(e4e_opt(), params=engine.net.state_dict(), device="cuda",
                                 samm_conv_bf16=True)
-    reps = phase_end_to_end({"default (unpacked tail, body0 algebraic)": engine, **tails,
+    reps = phase_end_to_end({"default (unpacked tail, body0 fused)": engine, **tails,
                              **body0s, **bf16s,
                              "samm_conv_bf16 (body0 convs on cuDNN in bf16)": conv_bf16}, imgs)
     # the packed-tail engines whose kernels run the TMA core: "pair" (B3)
@@ -3741,9 +3794,14 @@ def main():
         + "; ".join(f"{name} {float(np.median(reps[name])):.2f} ({min(reps[name]):.2f}-"
                     f"{max(reps[name]):.2f})"
                     for name in ("packed tail pair", "packed tail stage",
-                                 "default (unpacked tail, body0 algebraic)",
+                                 "default (unpacked tail, body0 fused)",
                                  "bf16 packed tail pair", "bf16 packed tail stage",
                                  "bf16 default")))
+    log("[main] body0 routes, invert ms/img median (spread) of the same rounds: "
+        + "; ".join(f"{name} {float(np.median(reps[name])):.2f} ({min(reps[name]):.2f}-"
+                    f"{max(reps[name]):.2f})"
+                    for name in ("default (unpacked tail, body0 fused)", "body0 algebraic",
+                                 "body0 literal + B5")))
     del conv_bf16
     launches["warp_blend_taps_bf16"] = taps_launches
     for e in entries[1:]:

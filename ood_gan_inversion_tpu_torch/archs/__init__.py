@@ -28,17 +28,25 @@ _ARCHS = {"ood_faceGAN_e4e": OODFaceGANE4E,
           "LatentDiscrinimator": LatentDiscriminator}     # sic, the reference's name
 
 
-def build_network(opt: dict):
-    """Pops `type` from a `network_*` dict and builds that arch from
-    the remaining keys. A string `dtype` (as YAML gives it, e.g.
-    "bfloat16") becomes the torch dtype of that name."""
-    opt = dict(opt)
-    net_type = opt.pop("type")
-    if isinstance(opt.get("dtype"), str):
-        dt = getattr(torch, opt["dtype"], None)
+def arch_dtype(opt: dict) -> torch.dtype:
+    """The activations' dtype a `network_*` dict asks for: its `dtype`, a
+    torch dtype or the name of one (as YAML gives it, e.g. "bfloat16");
+    float32 without it."""
+    dt = opt.get("dtype", torch.float32)
+    if isinstance(dt, str):
+        dt = getattr(torch, dt, None)
         if not isinstance(dt, torch.dtype):
             raise ValueError(f"unknown dtype {opt['dtype']!r}")
-        opt["dtype"] = dt
+    return dt
+
+
+def build_network(opt: dict):
+    """Pops `type` from a `network_*` dict and builds that arch from
+    the remaining keys, `dtype` as arch_dtype reads it."""
+    opt = dict(opt)
+    net_type = opt.pop("type")
+    if "dtype" in opt:
+        opt["dtype"] = arch_dtype(opt)
     if net_type not in _ARCHS:
         raise KeyError(f"{net_type!r} not found in the arch registry; known: {sorted(_ARCHS)}")
     return _ARCHS[net_type](**opt)

@@ -10,6 +10,9 @@ for bfloat16 matrix products, process-wide, so the card computes what the
 reference computes. It also restricts cuDNN to deterministic algorithms and
 turns its autotuning off, so that a convolution of a given shape sums in the
 same order on every call: a reply is then bit-identical across calls.
+On a CUDA device in float32 the SAMM blocks compute AlignNet's body0
+through the hand-written B2a and B2b kernels unless the caller names
+another route (`default_samm_body0`).
 
 Noise: every request carries an integer seed. Its noise is drawn from its
 own `torch.Generator(seed)` on the engine's device at batch 1, which is what
@@ -22,7 +25,8 @@ too. A reply's noise
 therefore depends only on its seed, never on its slot or the batch size.
 So does the rest of the reply: every op whose sums cuDNN, cuBLAS, oneDNN
 or PyTorch order by the whole shape (convolutions, matrix products, the
-norms' moments) runs sample by sample (ops/batch_invariant.py), so a reply
+norms' moments) runs sample by sample (ops/batch_invariant.py), and the
+hand-written kernels sum each sample's tiles in a fixed order, so a reply
 from a batched forward is bit-identical to the lone request's. JAX holds
 the contract to 1e-5 of max|ref|; in bfloat16 a one-step difference grows
 through the SAMM flows to 2.3e-2 to 4.7e-2 of max|ref| at 1024px (measured
@@ -52,7 +56,7 @@ import os.path as osp
 import numpy as np
 import torch
 
-from .archs import arch_options, build_network
+from .archs import arch_dtype, arch_options, build_network
 from .device import resolve_device
 from .nn.layers import init_weights
 from .parallel import spatial
@@ -82,10 +86,23 @@ def _cat(outs, device=None):
     return packed
 
 
+def default_samm_body0(device, dtype, samm_conv_bf16: bool = False) -> str:
+    """The body0 route an engine takes when the caller names none: "fused"
+    (B2a and B2b, float32 as 3xTF32 words; nn/samm.py) on a CUDA device in
+    float32 without samm_conv_bf16, which only the algebraic form serves;
+    "algebraic" otherwise. On the CPU the fused route would run its plain
+    versions, and in bfloat16 the algebraic form is JAX's inference
+    default, which PARITY.md holds the port to."""
+    if (torch.device(device).type == "cuda" and dtype == torch.float32
+            and not samm_conv_bf16):
+        return "fused"
+    return "algebraic"
+
+
 class InversionEngine:
     def __init__(self, opt, params=None, seed: int = 0, device="cuda",
                  packed_tail: bool = False, tail_kernel: str = "none",
-                 samm_body0: str = "algebraic", samm_conv_kernel: bool = False,
+                 samm_body0: str | None = None, samm_conv_kernel: bool = False,
                  samm_fp32_infer: bool = False, samm_conv_bf16: bool = False,
                  samm_warp_bf16: str = "off", samm_gather_bf16: bool = False):
         """opt: option dict with `network_g` (its `dtype`, float32 unless
@@ -94,14 +111,15 @@ class InversionEngine:
         weights are drawn from `seed`. packed_tail, tail_kernel: how the
         generator computes its >=512px stages (nn/stylegan2.py); the default
         is the unpacked tail. samm_body0, samm_conv_kernel: how the SAMM
-        blocks compute AlignNet's body0 (nn/samm.py); the default is the
-        algebraic formulation in plain PyTorch. samm_fp32_infer: a bfloat16
-        arch runs its SAMM blocks in float32 (archs/common.py; off by
-        default, as JAX's OGI_SAMM_FP32_INFER). samm_conv_bf16,
-        samm_warp_bf16 ("off", "fit" or "all"), samm_gather_bf16: a float32
-        arch's SAMM convs, warp feature or warp taps in bfloat16 (nn/samm.py;
-        off by default, as JAX's OGI_SAMM_CONV_BF16, OGI_MXU_WARP_BF16 and
-        OGI_GRIDSAMPLE=gather4bf16 are on the CPU)."""
+        blocks compute AlignNet's body0 (nn/samm.py); samm_body0 None takes
+        default_samm_body0's route, recorded as `self.samm_body0`.
+        samm_fp32_infer: a bfloat16 arch runs its SAMM blocks in float32
+        (archs/common.py; off by default, as JAX's OGI_SAMM_FP32_INFER).
+        samm_conv_bf16, samm_warp_bf16 ("off", "fit" or "all"),
+        samm_gather_bf16: a float32 arch's SAMM convs, warp feature or warp
+        taps in bfloat16 (nn/samm.py; off by default, as JAX's
+        OGI_SAMM_CONV_BF16, OGI_MXU_WARP_BF16 and OGI_GRIDSAMPLE=gather4bf16
+        are on the CPU)."""
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -109,6 +127,9 @@ class InversionEngine:
         torch.backends.cudnn.benchmark = False
         torch.backends.cudnn.deterministic = True
         g_opt = arch_options(opt["network_g"])
+        if samm_body0 is None:
+            samm_body0 = default_samm_body0(self.device, arch_dtype(g_opt), samm_conv_bf16)
+        self.samm_body0 = samm_body0
         g_opt.update(packed_tail=packed_tail, tail_kernel=tail_kernel,
                      samm_body0=samm_body0, samm_conv_kernel=samm_conv_kernel,
                      samm_fp32_infer=samm_fp32_infer, samm_conv_bf16=samm_conv_bf16,

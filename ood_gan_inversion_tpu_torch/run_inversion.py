@@ -86,8 +86,10 @@ def main(argv=None):
     ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"))
     ap.add_argument("--packed-tail", action="store_true")
     ap.add_argument("--tail-kernel", default="none", choices=("none", "pair", "stage"))
-    ap.add_argument("--samm-body0", default="algebraic",
-                    choices=("algebraic", "fused", "literal"))
+    ap.add_argument("--samm-body0", default=None,
+                    choices=("algebraic", "fused", "literal"),
+                    help="AlignNet body0's route; the engine's default_samm_body0 "
+                         "without it")
     ap.add_argument("--samm-conv-kernel", action="store_true")
     ap.add_argument("--samm-fp32-infer", action="store_true")
     ap.add_argument("--samm-conv-bf16", action="store_true")

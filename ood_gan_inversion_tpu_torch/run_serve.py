@@ -64,7 +64,7 @@ def main(argv=None):
         print(f"warmed batch shapes: {srv.warmup()}", flush=True)
     print(f"serving on {args.host}:{args.port} (max_batch={args.max_batch}, "
           f"wait={args.max_wait_ms} ms, dtype={engine.dtype}, "
-          f"device={engine.device})", flush=True)
+          f"samm_body0={engine.samm_body0}, device={engine.device})", flush=True)
     asyncio.run(srv.serve_http(args.host, args.port))
 
 

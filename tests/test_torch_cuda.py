@@ -1230,3 +1230,113 @@ def test_spans_time_a_traced_batched_forward_on_card(cuda):
     during = [(s, e) for s, e in api if t0 <= s < t1]
     inside = [1 for s, e in during if root.t0_ns <= s and e <= root.t1_ns]
     assert len(during) > 100 and len(inside) >= 0.99 * len(during)
+
+
+# ------------------------------------------- the engine's default body0 route
+
+# the default float32 engine's replies against an explicit algebraic one's on
+# the same weights (chip_smoke.py's BODY0_RTOL): SAMM moves the flows, so a
+# float32 difference in body0 moves sample positions
+BODY0_RTOL = 1e-3
+
+
+def small_engine(cuda, dtype="float32", **kwargs):
+    """A 256px E4E engine on the card (narrow 0.125: SAMM C 64, 64, 32 at
+    32..128px; ModSize 128), seeded weights with every noise strength 0.1
+    so that a reply depends on its seed."""
+    from ood_gan_inversion_tpu_torch.infer import InversionEngine
+    from ood_gan_inversion_tpu_torch.nn.stylegan2 import NoiseInjection
+    opt = {"network_g": {"type": "ood_faceGAN_e4e", "out_size": 256, "channel_multiplier": 1,
+                         "narrow": 0.125, "encoder_num_layers": 4, "cycle_align": 2,
+                         "warp_scale": 0.08, "ModSize": 128, "dtype": dtype}}
+    eng = InversionEngine(opt, seed=3, device=cuda, **kwargs)
+    for m in eng.net.modules():
+        if isinstance(m, NoiseInjection):
+            m.weight.data.fill_(0.1)
+    return eng
+
+
+def small_images(n):
+    import numpy as np
+    rs = np.random.RandomState(4)
+    return [rs.rand(256, 256, 3).astype(np.float32) for _ in range(n)]
+
+
+def body0_counts():
+    return (alignnet.alignnet_conv1.launches, alignnet.alignnet_conv2.launches,
+            warp_blend.launches)
+
+
+@pytest.mark.cuda
+def test_default_engine_routes_body0_through_b2_on_card(cuda, monkeypatch):
+    """A float32 engine on the card without samm_body0 takes the fused
+    route: with the channel floor lowered so that every SAMM block (3, at
+    cycle_align 2) takes it, one forward launches B2a and B2b once per
+    block per align cycle, as often as B1."""
+    monkeypatch.setattr(alignnet, "FUSED_MIN_CHANNELS", 16)
+    eng = small_engine(cuda)
+    imgs = small_images(2)
+    assert eng.samm_body0 == "fused"
+    eng.invert(imgs[0], seed=0)
+    torch.cuda.synchronize()
+    before = body0_counts()
+    eng.invert_batch_perkey(imgs, [1, 2])
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(body0_counts(), before)) == (6, 6, 6)
+
+
+@pytest.mark.cuda
+def test_default_engine_replies_are_batch_invariant_on_card(cuda, monkeypatch):
+    """The fused route keeps the engine's contract: each seed's reply from
+    a batched forward at b = 2 and 4, in either order of the batch, is bit
+    for bit the lone request's, and no op of a batched forward computes a
+    sample differently from that sample alone (tests/torch_slots.py)."""
+    from torch_slots import batch_dependent_ops
+    monkeypatch.setattr(alignnet, "FUSED_MIN_CHANNELS", 16)
+    eng = small_engine(cuda)
+    imgs, seeds = small_images(4), [11, 12, 13, 14]
+    keys = ("image", "gen_image", "mask", "lats")
+    alone = [eng.invert(imgs[i], seed=seeds[i]) for i in range(4)]
+    assert not torch.equal(alone[0]["image"], alone[1]["image"])
+    for order in ([0, 1], [0, 1, 2, 3], [3, 1, 0, 2]):
+        out = eng.invert_batch_perkey([imgs[i] for i in order], [seeds[i] for i in order])
+        for slot, i in enumerate(order):
+            for k in keys:
+                assert torch.equal(out[k][slot], alone[i][k][0]), (order, slot, k)
+    assert batch_dependent_ops(eng) == {}
+
+
+@pytest.mark.cuda
+def test_default_engine_matches_the_algebraic_body0_on_card(cuda, monkeypatch):
+    """The default float32 engine (B2a and B2b at every SAMM block) against
+    an explicit samm_body0="algebraic" engine on the same weights, images
+    and seeds: the latents bit for bit (the encoder runs before any SAMM
+    block), image, gen_image and mask within BODY0_RTOL of max|ref|."""
+    monkeypatch.setattr(alignnet, "FUSED_MIN_CHANNELS", 16)
+    eng = small_engine(cuda)
+    ref_eng = small_engine(cuda, samm_body0="algebraic")
+    ref_eng.net.load_state_dict(eng.net.state_dict())
+    imgs, seeds = small_images(2), [5, 6]
+    before = body0_counts()
+    ref = ref_eng.invert_batch_perkey(imgs, seeds)
+    torch.cuda.synchronize()
+    assert body0_counts()[:2] == before[:2]
+    got = eng.invert_batch_perkey(imgs, seeds)
+    assert torch.equal(got["lats"], ref["lats"])
+    for k in ("image", "gen_image", "mask"):
+        assert rel_err(got[k], ref[k]) <= BODY0_RTOL, k
+    assert not torch.equal(got["image"], ref["image"])
+
+
+@pytest.mark.cuda
+def test_default_bf16_engine_launches_no_body0_kernel_on_card(cuda, monkeypatch):
+    """A bfloat16 engine on the card without samm_body0 keeps the algebraic
+    form (JAX's bfloat16 inference default), whatever the channel floor:
+    B1 launches, B2a and B2b do not."""
+    monkeypatch.setattr(alignnet, "FUSED_MIN_CHANNELS", 16)
+    eng = small_engine(cuda, "bfloat16")
+    assert eng.samm_body0 == "algebraic"
+    before = body0_counts()
+    eng.invert(small_images(1)[0], seed=0)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(body0_counts(), before)) == (0, 0, 6)

@@ -26,10 +26,10 @@ from ood_gan_inversion_tpu.archs.ood_e4e import OODFaceGANE4E as JArch
 from ood_gan_inversion_tpu.nn.samm import AlignNet as JAlignNet
 from ood_gan_inversion_tpu.nn.samm import StyledScaleNShiftBlock as JSAMM
 from ood_gan_inversion_tpu.nn.samm import _XavierBottleneckIR as JBottleneck
-from ood_gan_inversion_tpu_torch import build
+from ood_gan_inversion_tpu_torch import build, infer
 from ood_gan_inversion_tpu_torch.archs.ood_e4e import OODFaceGANE4E
 from ood_gan_inversion_tpu_torch.convert import from_jax_params
-from ood_gan_inversion_tpu_torch.infer import InversionEngine
+from ood_gan_inversion_tpu_torch.infer import InversionEngine, default_samm_body0
 from ood_gan_inversion_tpu_torch.nn import samm
 from ood_gan_inversion_tpu_torch.ops import alignnet, halo_probe, samm_conv
 
@@ -338,6 +338,59 @@ def test_engine_samm_options():
     with pytest.raises(ValueError, match="needs samm_body0='literal'"):
         OODFaceGANE4E(out_size=64, narrow=0.125, encoder_num_layers=4,
                       enable_modulation=False, samm_conv_kernel=True)
+
+
+@pytest.mark.parametrize("conv_bf16", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1"])
+def test_default_samm_body0(device, dtype, conv_bf16):
+    """The engine's body0 route when the caller names none: the fused
+    kernels on a CUDA device in float32 without samm_conv_bf16 (which only
+    the algebraic form serves), the algebraic form everywhere else."""
+    fused = torch.device(device).type == "cuda" and dtype == torch.float32 and not conv_bf16
+    want = "fused" if fused else "algebraic"
+    assert default_samm_body0(device, dtype, conv_bf16) == want
+    assert default_samm_body0(torch.device(device), dtype, conv_bf16) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("body0", [None, *samm.SAMM_BODY0])
+def test_engine_records_its_samm_body0(body0, dtype):
+    """An engine keeps an explicit samm_body0 as given and otherwise takes
+    default_samm_body0's route (the algebraic form on the CPU); it records
+    the route, and every SAMM block runs it."""
+    opt = {"network_g": {"type": "ood_faceGAN_e4e", "out_size": 64,
+                         "channel_multiplier": 1, "narrow": 0.125,
+                         "encoder_num_layers": 4, "cycle_align": 2, "dtype": dtype}}
+    eng = InversionEngine(opt, device="cpu", samm_body0=body0)
+    want = body0 or "algebraic"
+    blocks = [m for m in eng.net.modules() if isinstance(m, samm.SPMWarp)]
+    assert eng.samm_body0 == want and len(blocks) == 2
+    assert {m.body.samm_body0 for m in blocks} == {want}
+    if body0 is None and dtype == "float32":
+        assert InversionEngine(opt, device="cpu", samm_conv_bf16=True).samm_body0 == "algebraic"
+
+
+@pytest.mark.parametrize("given,want", [(None, torch.float32), ("float32", torch.float32),
+                                        (torch.float32, torch.float32),
+                                        ("bfloat16", torch.bfloat16)])
+def test_engine_resolves_its_route_from_the_arch_dtype(monkeypatch, given, want):
+    """The engine hands default_samm_body0 the arch's dtype as a torch
+    dtype, whether the option file names it (a string, as YAML gives it),
+    the caller passes a torch dtype, or it is absent (float32)."""
+    seen = []
+
+    def spy(device, dtype, samm_conv_bf16=False):
+        seen.append((torch.device(device).type, dtype))
+        return "algebraic"
+
+    monkeypatch.setattr(infer, "default_samm_body0", spy)
+    g = {"type": "ood_faceGAN_e4e", "out_size": 64, "channel_multiplier": 1,
+         "narrow": 0.125, "encoder_num_layers": 4, "cycle_align": 2}
+    if given is not None:
+        g["dtype"] = given
+    InversionEngine({"network_g": g}, device="cpu")
+    assert seen == [("cpu", want)]
 
 
 def test_wrappers_check_operands_and_count_no_cpu_launch():
