@@ -1,13 +1,14 @@
 """The comparison that decides `correct`, and the control that it has to
 fail.
 
-After the window has closed, the reference (portbench/reference, float32,
-TF32 off) runs once over each sampled call's images and request seeds,
-with weights drawn again from the run's seed (portbench/weights.py), and
-each output the timed path produced is compared with it, image by image:
+After the window has closed, the configuration's reference (the module
+that its `reference` names under portbench/reference/, float32, TF32 off)
+runs once over each sampled call's images and request seeds, with weights
+drawn again from the run's seed (portbench/weights.py), and each output
+the timed path produced is compared with it, image by image:
 
   lats_err       max |lats - ref| / max |ref|: the encoder, avg_latent and
-                 delta_latent (ReStyle: after its last pass)
+                 delta_latent (after the encoder's last pass)
   gen_image_err  the same for the SAMM-conditioned decode
   mask_err       the same for the composited alphas
   image_err      the same for the blend
@@ -25,8 +26,8 @@ import contextlib
 import numpy as np
 import torch
 
-from .reference.model import OODInverter, batch_noise
-from .weights import arch_keys, make_state_dict
+from . import reference as references
+from .weights import make_state_dict
 
 KEYS = ("lats", "gen_image", "mask", "image")
 
@@ -42,10 +43,13 @@ def tf32(on):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def reference(network_g, weight_seed, device):
-    model = OODInverter(**arch_keys(network_g)).to(device)
-    model.load_state_dict(make_state_dict(network_g, weight_seed, device), strict=True)
-    return model.eval().requires_grad_(False)
+def reference(config, weight_seed, device):
+    """(the configuration's reference module, its model with the weights of
+    `weight_seed` on `device`)."""
+    ref = references.module(config)
+    model = ref.build(config["network_g"]).to(device)
+    model.load_state_dict(make_state_dict(config, weight_seed, device), strict=True)
+    return ref, model.eval().requires_grad_(False)
 
 
 def to_input(imgs, device):
@@ -54,14 +58,14 @@ def to_input(imgs, device):
     return (x - 0.5) / 0.5
 
 
-def run_reference(model, imgs, seeds, device, block):
+def run_reference(ref, model, imgs, seeds, device, block):
     """The reference's outputs for the images and seeds, `block` images at a
     time, concatenated."""
     outs = []
     with torch.no_grad():
         for i in range(0, len(imgs), block):
             out = model(to_input(imgs[i:i + block], device),
-                        batch_noise(model, seeds[i:i + block], device))
+                        ref.batch_noise(model, seeds[i:i + block], device))
             outs.append({k: out[k].float() for k in KEYS})
     return {k: torch.cat([o[k] for o in outs]) for k in KEYS}
 
@@ -79,14 +83,15 @@ def errors(outs, refs):
     return out
 
 
-def compare(samples, pool, network_g, weight_seed, device, block):
+def compare(samples, pool, config, weight_seed, device):
     """samples: [(pool indices, request seeds, {key: output tensor})] of the
     sampled calls. Returns the worst reading of each number over them."""
     with tf32(False):
-        model = reference(network_g, weight_seed, device)
+        ref, model = reference(config, weight_seed, device)
         worst = {f"{k}_err": 0.0 for k in KEYS}
         for idx, seeds, outs in samples:
-            refs = run_reference(model, [pool[i] for i in idx], seeds, device, block)
+            refs = run_reference(ref, model, [pool[i] for i in idx], seeds, device,
+                                 config["check_block"])
             got = errors({k: outs[k].to(device) for k in KEYS}, refs)
             worst = {k: max(worst[k], got[k]) for k in worst}
     return worst
@@ -95,11 +100,12 @@ def compare(samples, pool, network_g, weight_seed, device, block):
 class ControlSystem:
     """The reference with TF32 on, behind the engine's batched entry."""
 
-    def __init__(self, network_g, weight_seed, device, block):
-        self.model = reference(network_g, weight_seed, device)
-        self.device, self.block = device, block
+    def __init__(self, config, weight_seed, device):
+        self.ref, self.model = reference(config, weight_seed, device)
+        self.device, self.block = device, config["check_block"]
 
     def invert_batch_perkey(self, imgs, seeds, outputs=None):
         with tf32(True):
-            out = run_reference(self.model, imgs, list(seeds), self.device, self.block)
+            out = run_reference(self.ref, self.model, imgs, list(seeds), self.device,
+                                self.block)
         return out if outputs is None else {k: out[k] for k in outputs}

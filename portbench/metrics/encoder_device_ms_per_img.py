@@ -1,7 +1,8 @@
 """encoder_device_ms_per_img (ms/img, program spans; layer: model step:
 encoder): the device self time of the port's `encoder` spans (each pass of
-the encoder network: one in E4E, one per cycle in ReStyle) and its `adapt`
-span (the W+ offsets and the 1x1 feature adapters), per counted image.
+the encoder network, one per encoder cycle of the configuration) and its
+`adapt` span (the W+ offsets and the 1x1 feature adapters), per counted
+image.
 A span's device time is the stream's time between CUDA events recorded at
 its entry and exit."""
 

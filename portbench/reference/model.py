@@ -1,7 +1,9 @@
-"""The plain reference of the benchmark's two configurations: the OOD
-face-GAN inverter with the E4E or the ReStyle encoder (IR-SE-50 trunk,
-StyleGAN2 generator, the SAMM blocks and the out-of-domain blend), in
-float32 and plain PyTorch.
+"""The plain reference of the E4E and ReStyle configurations (`"reference":
+"model"`): the OOD face-GAN inverter with the E4E or the ReStyle encoder
+(IR-SE-50 trunk, StyleGAN2 generator, the SAMM blocks and the
+out-of-domain blend), in float32 and plain PyTorch. The module keeps the
+contract of `portbench/reference/__init__.py`; a reference of another
+encoder family may import its generator and SAMM.
 
 It is written from the published description and the StyleGAN2 reference
 code (rosinality's stylegan2-pytorch: per-sample modulated weights, one
@@ -632,6 +634,11 @@ class OODInverter(nn.Module):
         image = mask * x + gen * (1.0 - mask)
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
         return {"image": nhwc(image), "mask": nhwc(mask), "gen_image": nhwc(gen), "lats": lats}
+
+
+def build(network_g):
+    """The inverter of a configuration's `network_g`."""
+    return OODInverter(**{k: v for k, v in network_g.items() if k not in ("type", "dtype")})
 
 
 def batch_noise(model, seeds, device):

@@ -3,7 +3,8 @@
     python3 portbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 The cell is an entry of `workloads` in BENCHMARK.json at the root of the
-checkout. Its configuration file (`configs`), its traffic file
+checkout. Its configuration file (`configs`), the reference that file
+names (`portbench/reference/<reference>.py`), its traffic file
 (`portbench/traffic/<traffic>.json`), the traffic's load loop
 (`portbench/loops/<loop>.py`) and each of its metrics
 (`portbench/metrics/<metric>.py`, the name up to its first dot) are
@@ -108,17 +109,18 @@ class Run:
 
 
 def build_system(run, weight_seed, control):
+    """The system under test with the weights of `weight_seed`, drawn from
+    the specs of the configuration's reference (or, for the control, that
+    reference itself)."""
     import torch
-    net = run.config["network_g"]
-    block = run.config["check_block"]
     if control:
         from portbench.check import ControlSystem
-        return ControlSystem(net, weight_seed, run.device, block)
+        return ControlSystem(run.config, weight_seed, run.device)
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     from portbench.weights import make_state_dict
-    state = make_state_dict(net, weight_seed, run.device)
-    engine = InversionEngine({"network_g": net}, params=state, device=run.device,
-                             **run.config.get("engine", {}))
+    state = make_state_dict(run.config, weight_seed, run.device)
+    engine = InversionEngine({"network_g": run.config["network_g"]}, params=state,
+                             device=run.device, **run.config.get("engine", {}))
     del state
     if run.device.type == "cuda":
         torch.cuda.synchronize()
@@ -152,8 +154,7 @@ def run_cell(cell, seed, seconds, trace, device, control=False, system_hook=None
         torch.cuda.synchronize()
         run.memory_peak_bytes = torch.cuda.max_memory_allocated(run.device)
     run.system = system = None
-    run.check = check.compare(run.samples, run.pool, run.config["network_g"], weight_seed,
-                              run.device, run.config["check_block"])
+    run.check = check.compare(run.samples, run.pool, run.config, weight_seed, run.device)
     run.samples = []
     return run
 

@@ -1,6 +1,7 @@
 """Shared fixtures of the benchmark's own tests: a cell cut to a micro
 size that runs on the CPU."""
 
+import json
 import sys
 from pathlib import Path
 
@@ -15,20 +16,25 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-MICRO_ARCH = {"out_size": 64, "channel_multiplier": 1, "narrow": 0.125, "encoder_num_layers": 4}
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+WORKLOADS = [w["name"] for w in BENCH["workloads"]]
 
 
 def micro_cell(workload):
-    """The workload's cell at 64px with narrow widths, a 4-unit trunk,
-    two ReStyle passes and 3-image calls."""
+    """The workload's cell cut to a size that runs on the CPU: its
+    configuration's `network_g` with the file's `micro` overrides, images
+    at the micro `out_size`, 3-image calls."""
     from portbench import run
     cell = run.resolve(run.ROOT, workload)
-    g = cell["config"]["network_g"]
-    g.update(MICRO_ARCH)
-    if g["encoder"] == "ReStyle":
-        g["enc_cycle"] = 2
-    cell["traffic"].update(image_size=64, image_coarse=8, batch=3, pool=5, check_batches=2)
-    cell["config"]["check_block"] = 2
+    config = cell["config"]
+    if "micro" not in config:
+        raise KeyError(f"configuration {config['name']!r} has no `micro` overrides: "
+                       "its cells cannot run on the CPU")
+    g = config["network_g"]
+    g.update(config["micro"])
+    cell["traffic"].update(image_size=g["out_size"], image_coarse=8, batch=3, pool=5,
+                           check_batches=2)
+    config["check_block"] = 2
     return cell
 
 

@@ -5,11 +5,12 @@ place, is not. Run on the card from the checkout's root with
 
 import pytest
 
+from conftest import WORKLOADS
 from portbench import run
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("workload", ["e4e_f32_b8", "restyle_f32_b4"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_program_is_correct_and_its_control_is_not(workload, cuda_device):
     cell = run.resolve(run.ROOT, workload)
     sound = run.run_cell(cell, 2 ** 31 + 101, 3.0, False, cuda_device)

@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench import run
+from portbench import reference, run
 
 BENCH = json.loads((run.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -19,6 +19,8 @@ def test_each_cell_resolves_to_its_files(workload):
     cell = run.resolve(run.ROOT, workload)
     assert cell["config"]["name"] == cell["workload"]["config"]
     assert set(cell["config"]["limits"]) == {"lats_err", "gen_image_err", "mask_err", "image_err"}
+    ref = reference.module(cell["config"])
+    assert callable(ref.build) and callable(ref.batch_noise)
     loop = run.loop_module(cell["traffic"]["loop"])
     assert callable(loop.warm_up) and callable(loop.window)
     for m in cell["end_to_end"] + cell["per_layer"]:

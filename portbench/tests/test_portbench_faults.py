@@ -9,7 +9,7 @@ swapped, avg_latent left out."""
 import pytest
 import torch
 
-from conftest import micro_cell
+from conftest import WORKLOADS, micro_cell
 from portbench import run
 
 
@@ -82,7 +82,7 @@ def misread(edit):
     return type(f"Misread{edit.__name__}", (MisreadWeights,), {"edit": staticmethod(edit)})
 
 
-@pytest.mark.parametrize("workload", ["e4e_f32_b8", "restyle_f32_b4"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 @pytest.mark.parametrize("fault", [None, HalfBatch, AlteredAnswer] + [
     misread(e) for e in (_roll_bias, _swap_noise_strengths, _swap_norm_affine, _drop_avg_latent)],
     ids=lambda f: getattr(f, "__name__", "sound"))

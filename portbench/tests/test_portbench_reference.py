@@ -1,28 +1,31 @@
-"""The frozen reference against the program's plain path on the CPU, at a
-micro width, on one set of seeded weights loaded into both."""
+"""Each cell's reference (the module its configuration names) against the
+program's plain path on the CPU, at the configuration's micro size, on one
+set of seeded weights loaded into both."""
 
 import numpy as np
 import pytest
 import torch
 
-from conftest import micro_cell
+from conftest import WORKLOADS, micro_cell
 
 
-@pytest.mark.parametrize("workload", ["e4e_f32_b8", "restyle_f32_b4"])
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_reference_matches_the_port_on_the_cpu(workload):
     from ood_gan_inversion_tpu_torch.infer import InversionEngine
     from portbench import check
     from portbench.weights import make_state_dict
 
-    g = micro_cell(workload)["config"]["network_g"]
-    engine = InversionEngine({"network_g": g}, params=make_state_dict(g, 77, "cpu"),
+    config = micro_cell(workload)["config"]
+    g = config["network_g"]
+    engine = InversionEngine({"network_g": g}, params=make_state_dict(config, 77, "cpu"),
                              device="cpu")
-    model = check.reference(g, 77, torch.device("cpu"))
+    ref, model = check.reference(config, 77, torch.device("cpu"))
     rng = np.random.default_rng(5)
-    imgs = [rng.random((64, 64, 3), dtype=np.float32) for _ in range(3)]
+    s = g["out_size"]
+    imgs = [rng.random((s, s, 3), dtype=np.float32) for _ in range(3)]
     seeds = [3, 2 ** 40 + 1, 9]
     outs = engine.invert_batch_perkey(imgs, seeds)
-    refs = check.run_reference(model, imgs, seeds, torch.device("cpu"), 2)
+    refs = check.run_reference(ref, model, imgs, seeds, torch.device("cpu"), 2)
     errs = check.errors(outs, refs)
     # float32 in another summation order: ~1e-6 of max|ref| (2e-6 measured)
     assert max(errs.values()) < 2e-5, errs
@@ -33,8 +36,8 @@ def test_reference_matches_the_port_on_the_cpu(workload):
 
 def test_weights_repeat_for_a_seed_and_change_with_it():
     from portbench.weights import make_state_dict
-    g = micro_cell("e4e_f32_b8")["config"]["network_g"]
-    a, b, c = (make_state_dict(g, s, "cpu") for s in (1, 1, 2))
+    config = micro_cell("e4e_f32_b8")["config"]
+    a, b, c = (make_state_dict(config, s, "cpu") for s in (1, 1, 2))
     key = "generator.convs.0.conv.weight"
     assert torch.equal(a[key], b[key]) and not torch.equal(a[key], c[key])
     # the leaves around a fixed value differ from channel to channel and from

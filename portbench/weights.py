@@ -1,26 +1,24 @@
 """Seeded weights for both sides: the program under test and the reference.
 
-The reference model, built on the meta device, names every tensor and says
-how it is drawn (`init_specs` of its modules: a normal or a uniform draw,
-scaled and shifted). All normal draws come from one `torch.randn` call and
-all uniform ones from one `torch.rand` call, made on the target device from
-a generator seeded with the run's seed, then cut into the tensors. The
-same seed gives the same tensors.
+The configuration's reference model (the module its `reference` names;
+portbench/reference/__init__.py), built on the meta device, names every
+tensor and says how it is drawn (`init_specs` of its modules: a normal or
+a uniform draw, scaled and shifted). All normal draws come from one
+`torch.randn` call and all uniform ones from one `torch.rand` call, made
+on the target device from a generator seeded with the run's seed, then cut
+into the tensors. The same seed gives the same tensors.
 """
 
 import torch
 
-from .reference.model import OODInverter
+from . import reference
 
 
-def arch_keys(network_g):
-    """The `network_g` keys that shape the reference."""
-    return {k: v for k, v in network_g.items() if k not in ("type", "dtype")}
-
-
-def meta_reference(network_g):
+def meta_reference(config):
+    """The configuration's reference model on the meta device."""
+    ref = reference.module(config)
     with torch.device("meta"):
-        return OODInverter(**arch_keys(network_g))
+        return ref.build(config["network_g"])
 
 
 def leaf_specs(model):
@@ -40,10 +38,10 @@ def leaf_specs(model):
     return out
 
 
-def make_state_dict(network_g, seed, device):
+def make_state_dict(config, seed, device):
     """The state dict of the configuration's weights for `seed`, float32 on
     `device`."""
-    specs = leaf_specs(meta_reference(network_g))
+    specs = leaf_specs(meta_reference(config))
     g = torch.Generator(device=device).manual_seed(int(seed))
 
     def total(kind):
