@@ -1,13 +1,15 @@
 """FeatureStyle's encoder (counterpart of nn/encoders/feature_style.py),
 NCHW: the ArcFace iresnet50 trunk, 18 linear style heads on its pooled
 block features, and a content tensor from the 32px stage. Every
-BatchNorm is eval-mode (a frozen pretrained subnet)."""
+BatchNorm is eval-mode (a frozen pretrained subnet). The content branch
+runs in its own span, `encoder.content`, inside the arch's `encoder`."""
 
 import torch
 from torch import nn
 
 from ...ops import batch_invariant as bi
 from ...ops.resize import adaptive_avg_pool
+from ...utils import trace
 from ..layers import BatchNorm2dEval, Conv2dTorch, PReLU, _normal
 
 IRESNET50_LAYERS = (3, 4, 14, 3)
@@ -95,8 +97,9 @@ class FSEncoderV2(nn.Module):
             y = layer(y)
             samm_feats.append(y)
             pooled.append(adaptive_avg_pool(y, (3, 3)))
-        c = self.content_prelu(self.content_bn1(self.content_conv0(self.content_bn0(y))))
-        content = self.content_bn2(self.content_conv1(c))
+        with trace.span("encoder.content", x.shape[0]):
+            c = self.content_prelu(self.content_bn1(self.content_conv0(self.content_bn0(y))))
+            content = self.content_bn2(self.content_conv1(c))
         pooled.append(adaptive_avg_pool(self.layer4(y), (3, 3)))
         h = torch.cat(pooled, dim=1).flatten(1)          # NCHW flatten order
         lats = [bi.matmul(h, getattr(self, f"style_{i}_weight").to(h.dtype).t())

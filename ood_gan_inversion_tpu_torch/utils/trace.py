@@ -34,6 +34,8 @@ side in pixels):
     noise        the per-seed noise draws
     forward      the arch's forward
     encoder      one pass of the encoder network (ReStyle: one per cycle)
+    encoder.content  FeatureStyle's content branch, inside `encoder` (its
+                 output reaches the decode only with `inject_content`)
     adapt        the W+ offsets and the 1x1 feature adapters
     decode.<res> one generator stage (conv1 + to_rgb1 for 4)
     samm.<res>   the SAMM block of a conditioned stage

@@ -230,6 +230,29 @@ def test_restyle_batched_reply_is_bit_for_bit_the_lone_request():
     assert not torch.equal(other["lats"], alone["lats"])
 
 
+def test_featurestyle_batched_reply_is_bit_for_bit_the_lone_request():
+    """FeatureStyle at three align cycles, as published: a batched reply
+    (the iresnet50 trunk, the 18 heads on pools with uneven bins, the
+    content branch, the SAMM blocks) equals the lone request's, bit for
+    bit, and so does the split entry's."""
+    eng = InversionEngine(small_opt("ood_faceGAN_FeatureStyle", cycle_align=3), seed=3,
+                          device="cpu")
+    for m in eng.net.modules():        # make the noise matter
+        if isinstance(m, NoiseInjection):
+            m.weight.data.fill_(0.5)
+    rs = np.random.RandomState(4)
+    imgs = [rs.rand(64, 64, 3).astype(np.float32) for _ in range(3)]
+    alone = eng.invert(imgs[0], seed=7)
+    batch = eng.invert_batch_perkey([imgs[1], imgs[2], imgs[0]], [8, 9, 7])
+    split = eng.invert_batch_perkey_split([imgs[1], imgs[2], imgs[0]], [8, 9, 7])
+    for out in (batch, split):
+        for k in ("image", "gen_image", "mask", "lats"):
+            assert torch.equal(out[k][2], alone[k][0]), k
+    # each sample its own latents, and its seed its own decode
+    assert not torch.equal(batch["lats"][0], batch["lats"][1])
+    assert not torch.equal(batch["gen_image"][2], eng.invert(imgs[0], seed=8)["gen_image"][0])
+
+
 def test_featurestyle_engine_and_model_run_and_train_step_refuses(monkeypatch):
     """Once a refusal, now the behaviour that replaced it: a FeatureStyle
     engine inverts, and each family's train_step (ReStyle_Face.yml and

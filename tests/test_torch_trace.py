@@ -1,7 +1,7 @@
 """The port's spans (utils/trace.py) on the CPU: off outside a profiler, on
-inside one; the spans of an E4E and a ReStyle inversion, their nesting,
-their call ids and their clock; threads that trace at once; the bounded
-buffer; self times."""
+inside one; the spans of an E4E, a ReStyle and a FeatureStyle inversion,
+their nesting, their call ids and their clock; threads that trace at
+once; the bounded buffer; self times."""
 
 import collections
 import sys
@@ -47,12 +47,14 @@ def _samm(out_size):
     return [f"samm.{s}" for s in (32, 64, 128, 256) if s <= out_size]
 
 
-def expected_names(out_size, passes):
+def expected_names(arch, out_size, passes):
     """The spans of one invert_batch_perkey call: the prelude, the
-    forward, `passes` encoder passes, passes + 1 decodes (ReStyle decodes
-    once per pass before the conditioned decode), SAMM blocks up to 256px."""
+    forward, `passes` encoder passes (FeatureStyle's with its content
+    branch inside), passes + 1 decodes (ReStyle decodes once per pass
+    before the conditioned decode), SAMM blocks up to 256px."""
     names = ["invert", "input", "upload", "noise", "forward", "adapt", "blend"]
     names += ["encoder"] * passes + _stages(out_size) * passes + _samm(out_size)
+    names += ["encoder.content"] * passes if arch == "ood_faceGAN_FeatureStyle" else []
     names += _stages(out_size) if passes > 1 else []
     return collections.Counter(names)
 
@@ -60,11 +62,13 @@ def expected_names(out_size, passes):
 # (arch, out_size, narrow, network_g extras, encoder passes, spans per
 # call, batch):
 # the full depth of the benchmark's configurations (1024px: every stage and
-# all four SAMM blocks; ReStyle's 5 passes) at micro widths, and a micro
-# ReStyle at 64px and batch 2
+# all four SAMM blocks; ReStyle's 5 passes; FeatureStyle's iresnet50 at its
+# published widths, having no knob, and 3 align cycles) at micro widths, and
+# a micro ReStyle at 64px and batch 2
 CASES = {
     "e4e": ("ood_faceGAN_e4e", 1024, 1 / 16, {}, 1, 21, 1),
     "restyle": ("ood_faceGAN_restyle", 1024, 1 / 16, {"enc_cycle": 5}, 5, 70, 1),
+    "featurestyle": ("ood_faceGAN_FeatureStyle", 1024, 1 / 16, {"cycle_align": 3}, 1, 22, 1),
     "restyle_micro": ("ood_faceGAN_restyle", 64, 0.125, {"enc_cycle": 2}, 2, 26, 2),
 }
 
@@ -124,21 +128,23 @@ def test_inversion_spans_nest_share_a_call_and_the_clock(monkeypatch, case):
     imgs = [rs.rand(size, size, 3).astype(np.float32) for _ in range(b)]
     got, t0, t1, prof = _traced_call(eng, imgs, list(range(b)))
     names = collections.Counter(r.name for r in got)
-    assert names == expected_names(size, passes) and len(got) == count
+    assert names == expected_names(arch, size, passes) and len(got) == count
 
     by_id = {r.id: r for r in got}
     (root,) = [r for r in got if r.parent is None]
     assert root.name == "invert" and root.n == b
     parent_of = {"invert": None, "input": "invert", "upload": "invert", "noise": "invert",
                  "forward": "invert", "encoder": "forward", "adapt": "forward",
-                 "decode": "forward", "blend": "forward", "samm": "decode"}
+                 "decode": "forward", "blend": "forward", "samm": "decode",
+                 "encoder.content": "encoder"}
     for r in got:
         assert r.call == root.id and r.n == b and r.thread == root.thread
         assert t0 <= r.t0_ns <= r.t1_ns <= t1
         if r is root:
             continue
         p = by_id[r.parent]
-        assert p.name.split(".")[0] == parent_of[r.name.split(".")[0]], (r.name, p.name)
+        want = parent_of.get(r.name) or parent_of[r.name.split(".")[0]]
+        assert p.name.split(".")[0] == want, (r.name, p.name)
         assert p.t0_ns <= r.t0_ns <= r.t1_ns <= p.t1_ns
         if r.name.startswith("samm."):
             assert p.name == "decode." + r.name.split(".")[1]
